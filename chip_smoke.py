@@ -22,6 +22,25 @@ Phase 2  zeroes the launch counters, serves 8 requests x 8 new tokens of
          model both ways, counting per layer the gate ids that differ and
          holding each against the bf16 margin.
 
+Phase 3  trains gpt2-moe on the card.  A layer check holds one MoE
+         layer's forward and gradients (x, router, wi, wo) on the kernel
+         route against the plain route at full width.  The main run zeroes
+         the counters and trains gpt2-moe at full width and depth through
+         ``repro_torch.launch.train`` (kernel route, batch 8 x seq 1024, 12
+         steps, packing decided at step 10): every training kernel must
+         launch, every loss be finite and the last below the first; it
+         prints step time, tokens/s, peak memory, the card's busy share of
+         a step, the checkpoint's bytes and seconds and the packing
+         decision.  A resume check at full width and 2 layers holds 4
+         straight steps bitwise against 2 + injected failure + restart + 2,
+         under ``torch.use_deterministic_algorithms``.
+Phase 1 also holds the kernels at gpt2-moe training's shapes (8192 tokens,
+top-2, E=16, C=1288): gating at k=2, ``dispatch_rows`` with a per-row scale
+(combine's backward), ``combine_rows`` with unit weights (dispatch's
+backward), ``grouped_ffn`` at [16, 1288, 768], and ``grouped_matmul`` (the
+FFN backward's GEMM) at the five backward GEMM shapes (D=768, F=3072),
+timed beside ``torch.bmm``.
+
 Prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit).
 Imports nothing of the JAX package.
@@ -31,6 +50,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -46,6 +66,7 @@ REPLACES = {
     "combine_rows": "src/repro/kernels/dispatch.py:206",
     "weighted_route": "src/repro/kernels/dispatch.py:273",
     "grouped_ffn": "src/repro/kernels/moe_ffn.py:73",
+    "grouped_matmul": "src/repro/kernels/moe_ffn.py:128",
 }
 SOURCE = {
     "topk_gating_fused": "src/repro_torch/kernels/csrc/topk_gating.cu",
@@ -54,11 +75,17 @@ SOURCE = {
     "combine_rows": "src/repro_torch/kernels/csrc/dispatch.cu",
     "weighted_route": "src/repro_torch/kernels/csrc/dispatch.cu",
     "grouped_ffn": "src/repro_torch/kernels/csrc/moe_ffn.cu",
+    "grouped_matmul": "src/repro_torch/kernels/csrc/moe_ffn.cu",
 }
+SERVE_ONLY = {"weighted_route"}     # every other kernel runs in training
+TRAIN_ONLY = {"grouped_matmul"}     # the FFN backward
 
 # gpt2-moe serve-path geometry (configs/paper_models.py, ServerConfig and
 # the serve driver's defaults)
 D, E, F, N_SLOTS, MAX_PACK = 768, 16, 3072, 64, 4
+# gpt2-moe training: 8 x 1024 tokens, top-2, capacity factor 1.25
+T_TRAIN, K_TRAIN = 8192, 2
+C_TRAIN = 1288          # core.gating.capacity(8192, 16, 2, 1.25)
 
 
 def smi_line() -> str:
@@ -100,11 +127,17 @@ def device_ms(fn, iters: int = 20) -> float:
     return sum(e.self_device_time_total for e in kern) / iters / 1e3
 
 
-def bound_ms(n_bytes: float, n_ops: float, hw) -> tuple:
+# dense tensor-core peak of the H100 SXM for TF32 operands (NVIDIA's data
+# sheet): half the bf16 rate in HardwareConfig.peak_flops
+TF32_FLOPS = 495e12
+
+
+def bound_ms(n_bytes: float, n_ops: float, hw, peak=None) -> tuple:
     """Least time for the work on this card: max(bytes / HBM rate, ops /
-    peak rate for the operands' type); returns (ms, "bytes"|"operations")."""
+    peak rate for the operands' type, bf16 unless ``peak`` says otherwise);
+    returns (ms, "bytes"|"operations")."""
     tb = n_bytes / hw.hbm_bw * 1e3
-    to = n_ops / hw.peak_flops * 1e3
+    to = n_ops / (peak or hw.peak_flops) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -170,10 +203,10 @@ def phase1(dev, hw) -> dict:
         else:
             cur["max_abs_err"] = max(cur["max_abs_err"], err)
 
-    # -- gating: serve prefill / decode (k=1), profiling (k=2) -------------
+    # -- gating: serve prefill / decode (k=1), profiling (k=2), training ---
     router = (torch.randn(D, E, generator=gen, device=dev) * D ** -0.5).to(bf)
     for case, t, k in (("prefill", 256, 1), ("decode", 8, 1),
-                       ("profile", 256, 2)):
+                       ("profile", 256, 2), ("train", T_TRAIN, K_TRAIN)):
         x = torch.randn(t, D, generator=gen, device=dev).to(bf)
         idx, w, probs = topk_gating_fused(x, k, router=router)
         ridx, rw, rprobs = ref.ref_topk_gating(x @ router, k)
@@ -258,11 +291,59 @@ def phase1(dev, hw) -> dict:
                lambda: ref.ref_combine_rows(y_buf, rows_, wts),
                n_used * D * 2 + t * k * 8 + t * D * 2, 2 * n_used * D)
 
+    # -- dispatch / combine at the training shape, as the backward calls
+    # them: 8192 tokens top-2 into E x C rows, ids skewed so the busiest
+    # experts pass C and drop tokens; dispatch with the gate weight as the
+    # per-row scale (combine's backward), combine with unit weights
+    # (dispatch's backward) --------------------------------------------------
+    t, k, n_rows = T_TRAIN, K_TRAIN, E * C_TRAIN
+    skew = torch.linspace(1.0, 3.0, E, device=dev).expand(t, E).contiguous()
+    ids = torch.multinomial(skew, k, generator=gen).int()
+    pos = ref.ref_topk_positions(ids, E)
+    rows_ = torch.where(pos < C_TRAIN, ids * C_TRAIN + pos,
+                        torch.full_like(ids, -1)).int()
+    src, src_k = invert_slots(rows_, n_rows)
+    wts = torch.rand(t, k, generator=gen, device=dev)
+    pick = torch.clamp(src * k + src_k, min=0).long()
+    scale = torch.where(src >= 0, wts.reshape(-1)[pick],
+                        torch.zeros_like(wts.reshape(-1)[pick])).contiguous()
+    dy = torch.randn(t, D, generator=gen, device=dev).to(bf)
+    n_kept, n_drop = int((src >= 0).sum()), int((rows_ < 0).sum())
+    print(f"  dispatch/combine train: {n_drop} of {t * k} choices past "
+          f"capacity {C_TRAIN}, dropped", flush=True)
+    if n_drop == 0:
+        raise AssertionError("training dispatch case dropped nothing")
+    buf = dispatch_rows(dy, src, scale)
+    if not torch.equal(buf, ref.ref_dispatch_rows(dy, src, scale)):
+        raise AssertionError("dispatch_rows train (scaled): mismatch")
+    record("dispatch_rows", "train", 0.0,
+           lambda: dispatch_rows(dy, src, scale),
+           lambda: ref.ref_dispatch_rows(dy, src, scale),
+           n_kept * D * 2 + n_rows * 8 + n_rows * D * 2, n_kept * D)
+
+    ones = torch.ones(t, k, device=dev)
+    y_buf = torch.randn(n_rows, D, generator=gen, device=dev).to(bf)
+    y = combine_rows(y_buf, rows_, ones)
+    yr = ref.ref_combine_rows(y_buf, rows_, ones).float()
+    ulp = torch.where(yr != 0, torch.exp2(torch.floor(torch.log2(
+        yr.abs())) - 7), torch.full_like(yr, 2.0 ** -133))
+    cerr = (y.float() - yr).abs()
+    if bool((cerr > ulp).any()):
+        raise AssertionError("combine_rows train (unit weights): beyond 1 "
+                             "bf16 ulp")
+    record("combine_rows", "train", cerr.max().item(),
+           lambda: combine_rows(y_buf, rows_, ones),
+           lambda: ref.ref_combine_rows(y_buf, rows_, ones),
+           n_kept * D * 2 + t * k * 8 + t * D * 2, 2 * n_kept * D)
+    del buf, y_buf, y, yr, dy
+
     # -- grouped FFN: serve prefill / decode, profiling (gelu, the path's
-    # activation) and a small swiglu case (the kernel's other epilogue) ----
+    # activation), training (C = 1288, a ragged edge of the 32-row tile)
+    # and a small swiglu case (the kernel's other epilogue) ---------------
     for case, g, t, act in (("prefill", N_SLOTS, 24, "gelu"),
                             ("decode", N_SLOTS, 8, "gelu"),
                             ("profile", E, 48, "gelu"),
+                            ("train", E, C_TRAIN, "gelu"),
                             ("swiglu", 4, 16, "swiglu")):
         x = torch.randn(g, t, D, generator=gen, device=dev).to(bf)
         wi, wu = ((torch.randn(g, D, F, generator=gen, device=dev)
@@ -287,7 +368,89 @@ def phase1(dev, hw) -> dict:
                (2 * g * t * D + n_w * g * D * F) * 2,
                2 * n_w * g * t * D * F, iters=20)
         del wi, wu, wo
+
+    rows["grouped_matmul"] = phase1_grouped_matmul(dev, hw, gen)
     return rows
+
+
+# tolerances of grouped_matmul against its fp32 plain version (allow_tf32
+# off), as max abs error over max |plain|: two bf16 operands multiply
+# exactly and sum in fp32 (only the summation order differs); an fp32
+# operand is rounded to TF32's 10-bit mantissa, a relative error of up to
+# 2**-11 per operand, which random-sign sums keep near that size
+MM_REL = {"bf16": 1e-5, "tf32": 2e-3}
+
+
+def phase1_grouped_matmul(dev, hw, gen) -> dict:
+    """grouped_matmul at the five GEMMs of one gpt2-moe layer's FFN
+    backward (ops._GroupedFFN.backward): h = x @ wi (recompute), da = dy @
+    wo.T, dwo = act.T @ dy, dx = dh @ wi.T, dwi = x.T @ dh, transposes read
+    in place.  Returns the summary row: times, bounds and library times
+    summed over the five (one layer's backward), the worst error."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_ffn import grouped_matmul
+    bf = torch.bfloat16
+
+    def rnd(*shape, dt=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(dt)
+
+    x = rnd(E, C_TRAIN, D, dt=bf)
+    wi = rnd(E, D, F, dt=bf, scale=D ** -0.5)
+    wo = rnd(E, F, D, dt=bf, scale=F ** -0.5)
+    dy = rnd(E, C_TRAIN, D, scale=1e-4)
+    act = rnd(E, C_TRAIN, F)
+    dh = rnd(E, C_TRAIN, F, scale=1e-4)
+    cases = (("h", x, wi), ("da", dy, wo.transpose(1, 2)),
+             ("dwo", act.transpose(1, 2), dy),
+             ("dx", dh, wi.transpose(1, 2)), ("dwi", x.transpose(1, 2), dh))
+    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bound_ms=0.0, max_abs_err=0.0)
+    bys = {"bytes": 0.0, "operations": 0.0}   # bound ms by limiting side
+    for name, a, b in cases:
+        got = grouped_matmul(a, b)
+        want = ref.ref_grouped_matmul(a, b)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        kind = "bf16" if a.dtype == b.dtype == bf else "tf32"
+        if not rel <= MM_REL[kind]:
+            raise AssertionError(f"grouped_matmul {name}: max rel err {rel} "
+                                 f"> {MM_REL[kind]}")
+        e, m, k = a.shape
+        n = b.shape[2]
+        ms = time_ms(lambda: grouped_matmul(a, b), 20)
+        dms = device_ms(lambda: grouped_matmul(a, b), 10)
+        plain = time_ms(lambda: ref.ref_grouped_matmul(a, b), 20)
+        # library yardstick: torch.bmm on operands of one type (bf16, or
+        # fp32 at TF32, the kernel's own arithmetic); casts made beforehand
+        a2, b2 = (a, b) if kind == "bf16" else (a.float(), b.float())
+        torch.backends.cuda.matmul.allow_tf32 = kind == "tf32"
+        lib = time_ms(lambda: torch.bmm(a2, b2), 20)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        nbytes = a.numel() * a.element_size() + b.numel() * b.element_size() \
+            + e * m * n * 4
+        bnd, by = bound_ms(nbytes, 2 * e * m * n * k, hw,
+                           peak=None if kind == "bf16" else TF32_FLOPS)
+        bys[by] += bnd
+        print(f"  grouped_matmul     {name:4s} [{e},{m},{k}]x[{e},{k},{n}] "
+              f"{kind}: rel err {rel:.3e} (limit {MM_REL[kind]})  kernel "
+              f"{ms:.4f} ms (device {dms:.4f}, "
+              f"{2 * e * m * n * k / dms / 1e9:.1f} TFLOP/s)  plain "
+              f"{plain:.4f} ms  torch.bmm {lib:.4f} ms  bound {bnd:.4f} ms "
+              f"({by})", flush=True)
+        for key, v in (("ms", ms), ("device_ms", dms), ("plain_ms", plain),
+                       ("library_ms", lib), ("bound_ms", bnd)):
+            tot[key] += v
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        del got, want, a2, b2
+    print(f"  grouped_matmul, one layer's backward (5 GEMMs): kernel "
+          f"{tot['ms']:.4f} ms (device {tot['device_ms']:.4f})  plain "
+          f"{tot['plain_ms']:.4f} ms  torch.bmm {tot['library_ms']:.4f} ms  "
+          f"bound {tot['bound_ms']:.4f} ms", flush=True)
+    return dict(tot, case="layer backward (5 GEMMs)",
+                bound_by=max(bys, key=lambda b: bys[b]))
 
 
 # ---------------------------------------------------------------------------
@@ -507,7 +670,8 @@ def phase2(dev) -> dict:
           f"peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
     print("phase 2 launches: " + json.dumps(launches), flush=True)
-    missing = [n for n, c in launches.items() if c == 0]
+    missing = [n for n, c in launches.items()
+               if c == 0 and n not in TRAIN_ONLY]
     if missing:
         raise AssertionError(f"kernels never launched on the serve path: "
                              f"{missing}")
@@ -554,6 +718,219 @@ def phase2(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3: training
+# ---------------------------------------------------------------------------
+
+# norm-wise relative error ||kernel - plain|| / ||plain|| allowed for each
+# gradient of the layer check: the plain route computes in bf16 (h, the
+# activations and every product rounded to 8 bits, 2**-8 = 3.9e-3 each),
+# the kernel route keeps the backward in fp32 / TF32; a few such roundings
+# in a chain
+GRAD_REL = 2e-2
+TRAIN_ARGV = ["--arch", "gpt2-moe", "--steps", "12", "--batch", "8", "--seq",
+              "1024", "--ckpt-every", "100"]
+
+
+def phase3_layer(dev) -> None:
+    """One gpt2-moe MoE layer at the training shape (8 x 1024 tokens, bf16)
+    on the kernel route (gating, positions, dispatch, grouped FFN, combine
+    kernels; backward through grouped_matmul, combine and dispatch) against
+    the plain route (einsum / scatter), same input and weights.  A gate id
+    that differs between the routes (a near-tie in bf16) changes the
+    buffers of the two experts it touches, so outputs and gradients are
+    held on the tokens and experts no flip touched; the router gradient,
+    a sum over every token, only when no gate flipped.  More than 8 flips
+    (0.1% of the tokens) or fewer than 90% of tokens untouched fails."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe import MoEParams, moe_layer
+    cfg = get_config("gpt2-moe")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    bf = torch.bfloat16
+    x = torch.randn(8, 1024, D, generator=gen, device=dev).to(bf)
+    router = (torch.randn(D, E, generator=gen, device=dev)
+              * D ** -0.5).to(bf)
+    wi = (torch.randn(E, D, F, generator=gen, device=dev) * D ** -0.5).to(bf)
+    wo = (torch.randn(E, F, D, generator=gen, device=dev) * F ** -0.5).to(bf)
+    ct = torch.randn(8, 1024, D, generator=gen, device=dev)
+
+    def run(backend, dispatch_backend):
+        leaves = [a.detach().requires_grad_() for a in (x, router, wi, wo)]
+        mcfg = dataclasses.replace(cfg.moe, compute_backend=backend)
+        out = moe_layer(leaves[0], MoEParams(leaves[1], leaves[2], None,
+                                             leaves[3]), mcfg,
+                        ffn_type=cfg.ffn_type,
+                        dispatch_backend=dispatch_backend)
+        grads = torch.autograd.grad((out.y.float() * ct).sum(), leaves)
+        return out, [g.float() for g in grads]
+
+    ko, kg = run("pallas", "pallas")
+    po, pg = run("xla", "scatter")
+    torch.cuda.synchronize()
+    ik, ip = ko.expert_idx, po.expert_idx
+    flip = (ik != ip).any(-1)
+    touched = torch.unique(torch.cat([ik[flip].reshape(-1),
+                                      ip[flip].reshape(-1)]))
+    alike = ~(torch.isin(ik, touched) | torch.isin(ip, touched)).any(-1)
+    experts = ~torch.isin(torch.arange(E, device=dev), touched)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    checks = {
+        "y": rel(ko.y.reshape(-1, D)[alike].float(),
+                 po.y.reshape(-1, D)[alike].float()),
+        "dx": rel(kg[0].reshape(-1, D)[alike], pg[0].reshape(-1, D)[alike]),
+        "dwi": rel(kg[2][experts], pg[2][experts]),
+        "dwo": rel(kg[3][experts], pg[3][experts]),
+    }
+    if not flip.any():
+        checks["drouter"] = rel(kg[1], pg[1])
+    print(f"phase 3 layer check (8 x 1024 tokens, cap {C_TRAIN}): "
+          f"{int(flip.sum())} gate flips touching {touched.numel()} experts; "
+          f"norm-wise rel err kernel vs plain route: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in checks.items())
+          + f" (limit {GRAD_REL})", flush=True)
+    bad = {k: v for k, v in checks.items() if not v <= GRAD_REL}
+    if bad or int(flip.sum()) > 8 or not alike.float().mean() > 0.9:
+        raise AssertionError(f"layer check: kernel route disagrees with the "
+                             f"plain route: {bad}, {int(flip.sum())} flips")
+
+
+def phase3_train(dev) -> dict:
+    """gpt2-moe at full width and depth through launch.train, kernel
+    route, counters zeroed just before and read just after."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import COUNTERS, reset_counters
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    ck = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counters()
+        t0 = time.perf_counter()
+        out = train.run(TRAIN_ARGV + ["--ckpt-dir", ck, "--device",
+                                      str(dev)])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = {n: c.count for n, c in COUNTERS.items()}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        tr, state = out["trainer"], out["state"]
+        log = tr.metrics_log
+        print("phase 3 launches: " + json.dumps(launches), flush=True)
+        missing = [n for n, c in launches.items()
+                   if c == 0 and n not in SERVE_ONLY]
+        if missing:
+            raise AssertionError(f"kernels never launched in training: "
+                                 f"{missing}")
+        losses = [r["loss"] for r in log]
+        if len(log) != 12 or any(r.get("skipped") for r in log):
+            raise AssertionError(f"expected 12 committed steps, got {log}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"non-finite loss: {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"loss did not fall: {losses}")
+        if tr.packing_decision is None:
+            raise AssertionError("the packing decision was not made")
+        cfg = tr.model_cfg
+        n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+        dts = [r["dt"] for r in log]
+        med = float(np.median(dts[1:]))
+        tokens = tr.data_cfg.global_batch * tr.data_cfg.seq_len
+        ck_log = tr.checkpoint_log[-1]
+        print(f"phase 3: trained {cfg.name} ({cfg.n_layers} layers, "
+              f"{n_params} params) {len(log)} steps of {tokens} tokens in "
+              f"{wall:.2f} s wall; losses "
+              f"{[round(v, 6) for v in losses]}; grad norms "
+              f"{[round(r['grad_norm'], 4) for r in log]}", flush=True)
+        print(f"phase 3: step time (fwd_bwd stopwatch) first {dts[0]:.4f} s, "
+              f"median of steps 1-11 {med:.4f} s (min {min(dts[1:]):.4f}, "
+              f"max {max(dts[1:]):.4f}); {tokens / med:.1f} tokens/s; peak "
+              f"device memory {peak:.2f} GiB; checkpoint "
+              f"{ck_log['bytes']} bytes in {ck_log['seconds']:.3f} s; "
+              f"packing {tr.packing_decision}", flush=True)
+
+        # the card's busy share of one more step (not counted above)
+        batch = tr._batch(12)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            _, _, m = tr.step_fn(state["params"], state["opt_state"], batch)
+            float(m["loss"])
+            pwall = time.perf_counter() - t1
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        print(f"phase 3 step under the profiler: wall {pwall * 1e3:.3f} ms, "
+              f"device busy {dev_ms:.3f} ms = {100 * dev_ms / 1e3 / med:.1f}% "
+              f"of the median step ({100 * dev_ms / 1e3 / pwall:.1f}% of "
+              f"the profiled wall), {sum(e.count for e in kern)} kernels",
+              flush=True)
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+            print(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
+                  f"x{e.count:<5d} {e.key[:90]}", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+
+
+def phase3_resume(dev) -> None:
+    """4 straight steps against 2 + injected failure + restart + 2, bitwise,
+    at full width and 2 layers, with deterministic algorithms on."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import tree_items
+    cfg = dataclasses.replace(get_config("gpt2-moe"), n_layers=2)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=1024,
+                      global_batch=8)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    root = tempfile.mkdtemp(prefix="repro_torch_resume_")
+
+    def trainer(name, **kw):
+        return Trainer(cfg, dcfg, ocfg, TrainerConfig(
+            steps=4, ckpt_every=2, ckpt_dir=f"{root}/{name}", device=str(dev),
+            **kw))
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight = trainer("a")
+        want = straight.run()
+        failing = trainer("b", fail_at_step=2)
+        try:
+            failing.run()
+        except RuntimeError as e:
+            if "injected failure at step 2" not in str(e):
+                raise
+        else:
+            raise AssertionError("the injected failure did not fire")
+        resumed = trainer("b")
+        got = resumed.run()
+        torch.cuda.synchronize(dev)
+        differ = [k for (k, a), (_, b) in zip(tree_items(got),
+                                              tree_items(want))
+                  if not torch.equal(a, b)]
+        la = [r["loss"] for r in straight.metrics_log]
+        lb = [r["loss"] for r in failing.metrics_log + resumed.metrics_log]
+        print(f"phase 3 resume (2 layers, full width): straight losses {la}, "
+              f"2 + restart + 2 losses {lb}; {len(differ)} of "
+              f"{len(tree_items(got))} state leaves differ", flush=True)
+        if differ or la != lb:
+            raise AssertionError(f"resume is not bitwise: {differ[:8]}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -568,6 +945,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # deterministic cuBLAS for phase 3's bitwise resume check (read when
+    # cuBLAS starts, so set before any work on the card: phases 1 and 2 run
+    # under it too)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import H100
@@ -588,14 +969,20 @@ def main() -> int:
 
     print("phase 1: kernels against their plain versions", flush=True)
     rows = phase1(dev, H100)
-    launches = phase2(dev)
+    serve = phase2(dev)
+    phase3_layer(dev)
+    train_launches = phase3_train(dev)
+    phase3_resume(dev)
 
     kernels = []
     for name in REPLACES:
         r = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": serve[name] + train_launches[name],
+            "launches_serve": serve[name],
+            "launches_train": train_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -1,10 +1,13 @@
-"""The reference's parameters -> the port's.
+"""The reference's parameters <-> the port's.
 
 ``from_reference`` takes the JAX package's ``LMParams`` of the transformer
 family as a tree of numpy arrays (``jax.tree.map(np.asarray, params)``:
 the NamedTuples keep their field names) and returns the port's
 ``LMParams`` with the same numbers, so both packages compute the same
-function.  It reads fields by name and imports nothing of the reference.
+function.  ``to_reference`` goes back: the port's params into a numpy tree
+of the structure of a reference tree the caller passes, so two trained
+models can be compared leaf by leaf.  Both read fields by name and import
+nothing of the reference.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.moe import MoEParams
+from repro_torch.devices import resolve_device
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.lm import FFNParams, GroupParams, LMParams
 
@@ -29,9 +33,10 @@ def _ffn(p, device):
                      _t(p.w_out, device))
 
 
-def from_reference(np_params, device="cpu") -> LMParams:
+def from_reference(np_params, device="cuda") -> LMParams:
     """Reference ``LMParams`` (numpy leaves, transformer family) -> port
-    ``LMParams`` on ``device``."""
+    ``LMParams`` on ``device`` (the card by default; raises without one)."""
+    device = resolve_device(device)
     st = np_params.stack
     if not hasattr(st, "attn"):
         raise NotImplementedError("only the transformer family is ported")
@@ -50,3 +55,22 @@ def from_reference(np_params, device="cpu") -> LMParams:
     return LMParams(_t(np_params.embed, device), stack,
                     _t(np_params.final_norm, device),
                     _t(np_params.lm_head, device))
+
+
+def to_reference(params, like):
+    """Port params (any tree of tensors: ``LMParams``, ``OptState`` moments)
+    -> numpy arrays in the structure of ``like``, a reference tree with the
+    same field names (its leaves only give the structure).  A bf16 leaf
+    comes back as float32."""
+    if like is None:
+        return None
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(to_reference(getattr(params, f, None),
+                                         getattr(like, f))
+                            for f in like._fields))
+    if params is None:
+        raise ValueError("the port has no leaf where the reference has one")
+    t = params.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

@@ -1,13 +1,15 @@
 """Token dispatch/combine into per-expert capacity buffers, in PyTorch.
 
-Two backends with identical semantics:
-  * ``scatter`` — index-based scatter/gather (the training forward's
-    default, which the profiling pass uses);
+Three backends with identical semantics, all differentiable:
+  * ``einsum``  — one-hot matmul (the GShard formulation; O(T*E*C) work),
+    the oracle;
+  * ``scatter`` — index-based scatter/gather (the plain route's default);
   * ``pallas``  — the kernel route: a metadata-sized int32 slot inversion
     (``kernels.dispatch.invert_slots``) plus the ``dispatch_rows`` /
-    ``combine_rows`` kernels.
+    ``combine_rows`` kernels, whose backward is the other kernel
+    (``kernels.ops``).
 
-Both produce ``[E, C, d]`` dispatch buffers.
+All produce ``[E, C, d]`` dispatch buffers.
 """
 from __future__ import annotations
 
@@ -16,6 +18,36 @@ import torch
 from repro_torch.core.gating import GatingResult
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.dispatch import invert_slots
+
+
+def _one_hot(idx, n: int):
+    """float one-hot of an int tensor; out-of-range ids give all zeros, as
+    ``jax.nn.one_hot``."""
+    ar = torch.arange(n, device=idx.device)
+    return (idx.long()[..., None] == ar).float()
+
+
+def dispatch_mask(g: GatingResult, n_experts: int, cap: int):
+    """[T, k] metadata -> float mask [T, E, C] (1 where token t sits)."""
+    keep = (~g.dropped).float()[..., None]
+    e_oh = _one_hot(g.expert_idx, n_experts) * keep
+    c_oh = _one_hot(g.position, cap) * keep
+    return torch.einsum("tke,tkc->tec", e_oh, c_oh)
+
+
+def dispatch_einsum(x, g: GatingResult, n_experts: int, cap: int):
+    """x: [T, d] -> buffers [E, C, d]."""
+    mask = dispatch_mask(g, n_experts, cap)
+    return torch.einsum("tec,td->ecd", mask, x.float()).to(x.dtype)
+
+
+def combine_einsum(buf, g: GatingResult, n_experts: int, cap: int):
+    """buffers [E, C, d] -> [T, d], weighted by the gate weights."""
+    e_oh = _one_hot(g.expert_idx, n_experts)
+    c_oh = _one_hot(g.position, cap)
+    cmb = torch.einsum("tke,tkc,tk->tec", e_oh, c_oh,
+                       g.gate_weights.float())
+    return torch.einsum("tec,ecd->td", cmb, buf.float()).to(buf.dtype)
 
 
 def dispatch_scatter(x, g: GatingResult, n_experts: int, cap: int):
@@ -55,8 +87,8 @@ def dispatch_pallas(x, g: GatingResult, n_experts: int, cap: int):
     """x: [T, d] -> buffers [E, C, d] via the dispatch kernel."""
     rows = _flat_rows(g, cap)
     src_tok, _ = invert_slots(rows, n_experts * cap)
-    return kernel_ops.dispatch_op(x, src_tok).reshape(n_experts, cap,
-                                                      x.shape[-1])
+    return kernel_ops.dispatch_op(x, src_tok, rows).reshape(
+        n_experts, cap, x.shape[-1])
 
 
 def combine_pallas(buf, g: GatingResult, n_experts: int, cap: int):
@@ -67,6 +99,7 @@ def combine_pallas(buf, g: GatingResult, n_experts: int, cap: int):
 
 
 BACKENDS = {
+    "einsum": (dispatch_einsum, combine_einsum),
     "scatter": (dispatch_scatter, combine_scatter),
     "pallas": (dispatch_pallas, combine_pallas),
 }

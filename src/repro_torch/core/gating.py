@@ -2,7 +2,10 @@
 loss (paper §2.1), in PyTorch.
 
 The gating network is one matrix; tokens go to their top-k experts subject
-to a per-expert capacity, so every buffer shape is static.
+to a per-expert capacity, so every buffer shape is static.  Both routes are
+differentiable in x and the router: the plain route by autograd through
+the gather of the top-k probabilities, the kernel route through the gating
+op's backward (``kernels.ops``); the aux loss through the mean probs.
 """
 from __future__ import annotations
 

@@ -4,7 +4,10 @@ combine (paper Fig. 1), in PyTorch.
 This slice runs expert parallelism of 1: the all-to-all exchanges of the
 reference's ``shard_map`` body are the identity and the Lina micro-op
 pipeline (``core/microop``) is not ported yet, so ``moe_layer`` is the
-reference's ``lina=False`` forward.
+reference's ``lina=False`` layer.  It is differentiable on both routes:
+the kernel route's ops are ``torch.autograd.Function``s whose backward
+launches kernels too (``kernels.ops``), so ``loss.backward()`` reaches the
+router and the expert weights.
 """
 from __future__ import annotations
 

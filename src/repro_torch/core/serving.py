@@ -287,7 +287,7 @@ def serve_moe_layer(x, params: MoEParams, cfg: MoEConfig, plan: PlanArrays,
                            (slots * slot_cap + pos).to(torch.int32))
     if backend == "pallas":
         src_tok, _ = invert_slots(rows, n_slots * slot_cap)
-        buf = kernel_ops.dispatch_op(x, src_tok)
+        buf = kernel_ops.dispatch_op(x, src_tok, rows)
     else:
         flat_idx = torch.where(rows < 0, torch.full_like(rows, n_slots
                                                          * slot_cap), rows)

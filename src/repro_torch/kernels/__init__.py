@@ -1,6 +1,7 @@
-"""Hand-written Hopper kernels of the serve path (CUDA C++ under ``csrc/``,
-built at first use by ``_build``), their plain PyTorch versions (``ref``)
-and the op layer the models call (``ops``).
+"""Hand-written Hopper kernels of the serve and training paths (CUDA C++
+under ``csrc/``, built at first use by ``_build``), their plain PyTorch
+versions (``ref``) and the op layer the models call, with the backward of
+each MoE op (``ops``).
 
 ``COUNTERS`` maps each kernel's name to its launch counter;
 ``reset_counters()`` sets them all to 0.

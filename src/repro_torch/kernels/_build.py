@@ -48,6 +48,7 @@ SIGNATURES = {
     },
     "moe_ffn": {
         "grouped_ffn": (P, P, P, P, P, P, I, I, I, I, I, P),
+        "grouped_matmul": (P, P, P, I, I, I, I, I, I, I, I, P),
     },
 }
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the serve path's six kernels (the allclose
+"""Plain PyTorch versions of the port's seven kernels (the allclose
 targets), with the reference oracles' names and signatures.
 
 Each function is the semantic ground truth: simple tensor code with no
@@ -23,13 +23,12 @@ def first_max_topk(p, k: int):
     """Top-k along the last axis by iterated first-max argmax: ties go to
     the lower index, as in ``lax.top_k`` and the Pallas gating kernel.
     Returns (values, int32 indices), each [..., k]."""
-    p = p.clone()
     vals, ids = [], []
     for _ in range(k):
         arg = torch.argmax(p, dim=-1, keepdim=True)
         vals.append(torch.gather(p, -1, arg))
         ids.append(arg)
-        p.scatter_(-1, arg, float("-inf"))
+        p = p.scatter(-1, arg, float("-inf"))   # out of place: autograd
     return torch.cat(vals, -1), torch.cat(ids, -1).to(torch.int32)
 
 
@@ -41,6 +40,11 @@ def ref_grouped_ffn(x, wi, wu, wo, ffn_type: str = "swiglu"):
     else:
         h = gelu(h)
     return torch.einsum("etf,efd->etd", h, wo).to(x.dtype)
+
+
+def ref_grouped_matmul(a, b):
+    """Grouped GEMM in fp32.  a: [E, M, K]; b: [E, K, N] -> [E, M, N] f32."""
+    return torch.matmul(a.float(), b.float())
 
 
 def ref_topk_gating(logits, k: int):

@@ -4,19 +4,22 @@ in PyTorch.
 Parameters are NamedTuples of tensors in the reference's layout: every
 leaf of ``LMParams.stack`` carries a leading layer-group dim G (one group =
 ``moe.every`` transformer blocks; ``attn``/``ln*`` add an ``every`` dim).
-``forward_train`` is the forward the profiling stage replays (loss plus
-per-layer top-1 expert choices); serving runs layer by layer in
-``runtime.server``.
+``forward_train`` is the training forward (loss plus per-layer top-1
+expert choices, differentiable in the params) that the train step and the
+profiling stage run; serving runs layer by layer in ``runtime.server``.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.moe import MoEParams, moe_layer
+from repro_torch.devices import resolve_device
 from repro_torch.models.attention import AttnParams, KVCache, attention
 from repro_torch.models.layers import dense_init, ffn_branch, rms_norm
+from repro_torch.tree import tree_map
 
 CE_CHUNK = 1024      # sequence chunk for the memory-bounded CE
 
@@ -60,15 +63,6 @@ class ModelOutput(NamedTuple):
     expert_choices: Optional[torch.Tensor]   # [n_moe_layers, T] top-1
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of nested NamedTuples (None kept)."""
-    if tree is None:
-        return None
-    if isinstance(tree, tuple):
-        return type(tree)(*(tree_map(fn, t) for t in tree))
-    return fn(tree)
-
-
 def tree_idx(tree, i):
     return tree_map(lambda a: a[i], tree)
 
@@ -83,12 +77,14 @@ def _check_family(cfg) -> None:
 # init
 # ---------------------------------------------------------------------------
 
-def init_params(cfg, gen: torch.Generator, device="cpu") -> LMParams:
+def init_params(cfg, gen: torch.Generator, device="cuda") -> LMParams:
     """Random weights with the reference's distributions: N(0, 1/fan_in)
-    dense layers, N(0, 1/d) embeddings and router, ones for norms.  The
-    numbers are not JAX's; tests convert the reference's with
-    ``repro_torch.convert.from_reference``."""
+    dense layers, N(0, 1/d) embeddings and router, ones for norms, on
+    ``device`` (the card by default; raises without one).  ``gen`` is a
+    generator on that device.  The numbers are not JAX's; tests convert
+    the reference's with ``repro_torch.convert.from_reference``."""
     _check_family(cfg)
+    device = resolve_device(device)
     dtype = DTYPES[cfg.param_dtype]
     d = cfg.d_model
     hd = cfg.resolved_head_dim
@@ -156,8 +152,18 @@ def _ffn_apply(p: FFNParams, x, ffn_type):
     return ffn_branch(x, p.w_in, p.w_up, p.w_out, ffn_type)
 
 
-def chunked_ce_loss(x, w_unembed, labels, loss_mask, chunk=CE_CHUNK):
-    """Cross-entropy over sequence chunks without [B, S, V] logits."""
+def _ce_chunk(xc, w_unembed, lab, m):
+    logits = (xc @ w_unembed).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab.long()[..., None])[..., 0]
+    return ((lse - gold) * m).sum()
+
+
+def chunked_ce_loss(x, w_unembed, labels, loss_mask, chunk=CE_CHUNK,
+                    remat: bool = False):
+    """Cross-entropy over sequence chunks without [B, S, V] logits.  With
+    ``remat`` each chunk's logits are recomputed in the backward instead of
+    saved, as the reference's checkpointed chunk scan."""
     b, s, d = x.shape
     c = min(chunk, s)
     while s % c:
@@ -165,13 +171,12 @@ def chunked_ce_loss(x, w_unembed, labels, loss_mask, chunk=CE_CHUNK):
     tot = torch.zeros((), device=x.device)
     cnt = torch.zeros((), device=x.device)
     for i in range(0, s, c):
-        logits = (x[:, i:i + c] @ w_unembed).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        lab = labels[:, i:i + c].long()
-        gold = torch.gather(logits, -1, lab[..., None])[..., 0]
-        m = loss_mask[:, i:i + c]
-        tot = tot + ((lse - gold) * m).sum()
-        cnt = cnt + m.sum()
+        args = (x[:, i:i + c], w_unembed, labels[:, i:i + c],
+                loss_mask[:, i:i + c])
+        nll = checkpoint(_ce_chunk, *args, use_reentrant=False) if remat \
+            else _ce_chunk(*args)
+        tot = tot + nll
+        cnt = cnt + args[3].sum()
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -179,42 +184,66 @@ def chunked_ce_loss(x, w_unembed, labels, loss_mask, chunk=CE_CHUNK):
 # forward
 # ---------------------------------------------------------------------------
 
+def _group_apply(cfg, gp: GroupParams, x, dispatch_backend: str):
+    """One layer group (``moe.every`` blocks) on [B, S, d] ->
+    (x, aux loss, top-1 expert per token or None)."""
+    every = cfg.moe.every if cfg.moe.enabled else 1
+    aux = torch.zeros((), device=x.device)
+    top1 = None
+    for j in range(every):
+        h = rms_norm(x, gp.ln1[j], cfg.norm_eps)
+        y, _ = attention(tree_idx(gp.attn, j), h, cfg)
+        x = x + y
+        h = rms_norm(x, gp.ln2[j], cfg.norm_eps)
+        if not (cfg.moe.enabled and j == every - 1):
+            x = x + _ffn_apply(tree_idx(gp.ffn, j), h, cfg.ffn_type)
+            continue
+        out = moe_layer(h, gp.moe, cfg.moe, ffn_type=cfg.ffn_type,
+                        dispatch_backend=dispatch_backend)
+        moe_y = out.y
+        if gp.shared is not None:
+            moe_y = moe_y + _ffn_apply(gp.shared, h, cfg.ffn_type)
+        x = x + moe_y
+        aux = aux + out.aux_loss
+        top1 = out.expert_idx[:, 0]
+    return x, aux, top1
+
+
 def forward_train(cfg, params: LMParams, batch: dict, *,
                   dispatch_backend: str = "scatter") -> ModelOutput:
-    """Training forward on one rank (the reference's ``lina=False``):
-    loss (CE + aux), aux loss, and per-MoE-layer top-1 expert choices
+    """Training forward on one rank (the reference's ``lina=False``; at
+    expert parallelism 1 the all-to-alls are the identity): loss (CE +
+    aux), aux loss, and per-MoE-layer top-1 expert choices
     [n_moe_layers, B*S].  ``batch`` holds ``tokens`` and ``labels`` [B, S]
-    tensors on the params' device."""
+    tensors on the params' device.
+
+    Differentiable in ``params`` (fp32 masters cast to ``cfg.dtype`` for
+    compute).  With ``cfg.remat`` each layer group runs under
+    ``torch.utils.checkpoint`` (non-reentrant): only the group boundaries
+    are kept and the backward recomputes the group, kernels included, as
+    the reference's ``jax.checkpoint`` over the scan body."""
     _check_family(cfg)
     p = cast_for_compute(cfg, params)
     dtype = DTYPES[cfg.dtype]
     tokens = batch["tokens"].long()
     labels = batch["labels"]
     x = p.embed[tokens].to(dtype)
-    b, s, d = x.shape
     every = cfg.moe.every if cfg.moe.enabled else 1
     aux = torch.zeros((), device=x.device)
     top1s = []
     for gi in range(cfg.n_layers // every):
         gp = tree_idx(p.stack, gi)
-        for j in range(every):
-            h = rms_norm(x, gp.ln1[j], cfg.norm_eps)
-            y, _ = attention(tree_idx(gp.attn, j), h, cfg)
-            x = x + y
-            h = rms_norm(x, gp.ln2[j], cfg.norm_eps)
-            if not (cfg.moe.enabled and j == every - 1):
-                x = x + _ffn_apply(tree_idx(gp.ffn, j), h, cfg.ffn_type)
-                continue
-            out = moe_layer(h, gp.moe, cfg.moe, ffn_type=cfg.ffn_type,
-                            dispatch_backend=dispatch_backend)
-            moe_y = out.y
-            if gp.shared is not None:
-                moe_y = moe_y + _ffn_apply(gp.shared, h, cfg.ffn_type)
-            x = x + moe_y
-            aux = aux + out.aux_loss
-            top1s.append(out.expert_idx[:, 0])
+        if cfg.remat:
+            x, a, top1 = checkpoint(_group_apply, cfg, gp, x,
+                                    dispatch_backend, use_reentrant=False)
+        else:
+            x, a, top1 = _group_apply(cfg, gp, x, dispatch_backend)
+        aux = aux + a
+        if top1 is not None:
+            top1s.append(top1)
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
     loss = chunked_ce_loss(x, unembed_weight(p), labels,
-                           torch.ones(labels.shape, device=x.device))
+                           torch.ones(labels.shape, device=x.device),
+                           remat=cfg.remat)
     experts = torch.stack(top1s) if top1s else None
     return ModelOutput(loss + aux, aux, experts)

@@ -1,1 +1,2 @@
-"""Port runtime: the two-phase MoE server and its serving engine."""
+"""Port runtime: the two-phase MoE server, its serving engine, and the
+training loop."""

@@ -45,7 +45,8 @@ from repro_torch.kernels.ref import first_max_topk
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.attention import KVCache, attention, decode_attention
 from repro_torch.models.layers import rms_norm
-from repro_torch.models.lm import LMCache, tree_idx, tree_map
+from repro_torch.models.lm import LMCache, tree_idx
+from repro_torch.tree import tree_map
 from repro_torch.obs import ObsContext
 
 

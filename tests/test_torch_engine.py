@@ -37,7 +37,7 @@ def test_simulate_generates_the_reference_tokens():
     jcfg = j_get_config("gpt2-moe-smoke")
     cfg = get_config("gpt2-moe-smoke")
     jparams = jlm.init_params(jcfg, jax.random.PRNGKey(2))
-    params = from_reference(jax.tree.map(np.asarray, jparams))
+    params = from_reference(jax.tree.map(np.asarray, jparams), device="cpu")
     ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
                                 global_batch=4, seed=0))
     jprof = j_profile(jcfg, jparams, (ds.batch(i) for i in range(3)))

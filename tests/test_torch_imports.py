@@ -57,6 +57,35 @@ def test_serve_entry_point_raises_without_a_card():
         serve.main(["--arch", "gpt2-moe-smoke", "--requests", "1"])
 
 
+def test_train_entry_points_default_to_the_card_and_raise_without_one(
+        tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.convert import from_reference
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import tree_map
+    cfg = get_config("gpt2-moe-smoke")
+    no_card = pytest.raises(RuntimeError, match="CUDA is not available")
+    with no_card:
+        train.main(["--arch", "gpt2-moe-smoke", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path)])
+    with no_card:
+        Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
+                                global_batch=2), AdamWConfig(),
+                TrainerConfig(ckpt_dir=str(tmp_path)))
+    with no_card:
+        lm.init_params(cfg, torch.Generator())
+    params = lm.init_params(cfg, torch.Generator(), device="cpu")
+    with no_card:
+        from_reference(tree_map(np.asarray, params))
+
+
 def test_chip_smoke_fails_without_a_card_and_prints_no_result():
     if torch.cuda.is_available():
         pytest.skip("a card is present")

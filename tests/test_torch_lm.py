@@ -35,7 +35,7 @@ def setup():
     cfg = get_config("gpt2-moe-smoke")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     jparams = jlm.init_params(jcfg, jax.random.PRNGKey(0))
-    params = from_reference(jax.tree.map(np.asarray, jparams))
+    params = from_reference(jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, cfg, jparams, params
 
 
