@@ -4,14 +4,20 @@
     python3 chip_smoke.py
 
 Phase 0  prints the card (``nvidia-smi`` name and power limit) and builds
-         the CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed).
+         the four CUDA kernel sources of ``src/repro_torch/kernels/csrc``
+         (one ``nvcc`` each, started together; timed).
 Phase 1  holds each of the six serve-path kernels against its plain PyTorch
          version on the card, at the serve path's shapes (gpt2-moe: D=768,
          E=16, F=3072, 64 slots; prefill T<=256 slot_cap 24, decode T=8
          slot_cap 8, profiling k=2 and G=16 x 48 rows), and times the
          kernel and its plain version per call with CUDA events and the
          kernel alone with torch.profiler.  No single PyTorch call computes
-         any of the six functions, so ``library_ms`` is null.
+         any of the six functions, so ``library_ms`` is null.  It holds
+         ``flash_attention`` against ``ref_attention`` at four shapes
+         (gpt2-moe's prefill 4 x 64 and 8 x 1024, 12 heads, hd 64, causal;
+         mixtral-8x22b's 1 x 2048 and 1 x 6144, 48 / 8 heads, hd 128, causal,
+         window 4096), norm-wise, timed beside
+         ``scaled_dot_product_attention`` (the yardstick only).
 Phase 2  zeroes the launch counters, serves 8 requests x 8 new tokens of
          gpt2-moe at full width through ``repro_torch.launch.serve``,
          fails if any kernel was never launched, checks the output, and
@@ -40,6 +46,17 @@ top-2, E=16, C=1288): gating at k=2, ``dispatch_rows`` with a per-row scale
 backward), ``grouped_ffn`` at [16, 1288, 768], and ``grouped_matmul`` (the
 FFN backward's GEMM) at the five backward GEMM shapes (D=768, F=3072),
 timed beside ``torch.bmm``.
+Phase 4  serves mixtral-8x22b at full width (d 6144, 48 / 8 heads, hd 128,
+         8 swiglu experts of 16384, window 4096) and depth 2 through the
+         port's ``MoEServer`` and ``ServingEngine`` (defaults, kernel route):
+         profiling on 3 batches of 2 x 2048, 4 requests of 2048 prompt
+         tokens x 16 new tokens, 2 score-only requests of 6144 tokens (past
+         the window).  Counters zeroed just before, read just after; every
+         serve-path kernel and ``flash_attention`` must launch.  It prints
+         TTFT, TPOT, tokens/s, peak memory and the card's busy share, replays
+         a prefill and a decode step layer by layer through the plain route,
+         and runs a 6144-token prompt through both routes (flash attention
+         against the query-blocked plain attention).
 
 Prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit).
@@ -49,6 +66,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -67,6 +85,7 @@ REPLACES = {
     "weighted_route": "src/repro/kernels/dispatch.py:273",
     "grouped_ffn": "src/repro/kernels/moe_ffn.py:73",
     "grouped_matmul": "src/repro/kernels/moe_ffn.py:128",
+    "flash_attention": "src/repro/kernels/flash_attention.py:87",
 }
 SOURCE = {
     "topk_gating_fused": "src/repro_torch/kernels/csrc/topk_gating.cu",
@@ -76,8 +95,11 @@ SOURCE = {
     "weighted_route": "src/repro_torch/kernels/csrc/dispatch.cu",
     "grouped_ffn": "src/repro_torch/kernels/csrc/moe_ffn.cu",
     "grouped_matmul": "src/repro_torch/kernels/csrc/moe_ffn.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
-SERVE_ONLY = {"weighted_route"}     # every other kernel runs in training
+# every other kernel runs in training (its attention is plain: the flash
+# kernel has no backward)
+SERVE_ONLY = {"weighted_route", "flash_attention"}
 TRAIN_ONLY = {"grouped_matmul"}     # the FFN backward
 
 # gpt2-moe serve-path geometry (configs/paper_models.py, ServerConfig and
@@ -370,6 +392,7 @@ def phase1(dev, hw) -> dict:
         del wi, wu, wo
 
     rows["grouped_matmul"] = phase1_grouped_matmul(dev, hw, gen)
+    rows["flash_attention"] = phase1_flash(dev, hw, gen)
     return rows
 
 
@@ -453,18 +476,119 @@ def phase1_grouped_matmul(dev, hw, gen) -> dict:
                 bound_by=max(bys, key=lambda b: bys[b]))
 
 
+# flash_attention against ref_attention: (name, B, S, H, KV, hd, causal,
+# window, timed iterations).  gpt2-moe's serve prefill and a GPT-2 context;
+# mixtral-8x22b within its 4096 window and past it (phase 4's score-only
+# prompts)
+FLASH_CASES = (("a gpt2 prefill", 4, 64, 12, 12, 64, True, 0, 50),
+               ("b gpt2 1024", 8, 1024, 12, 12, 64, True, 0, 20),
+               ("c mixtral 2048", 1, 2048, 48, 8, 128, True, 4096, 20),
+               ("d mixtral 6144", 1, 6144, 48, 8, 128, True, 4096, 10))
+# norm-wise ||kernel - plain|| / ||plain||: the kernel rounds P to bf16
+# before P.V (2**-9 relative per element) and its output to bf16
+FLASH_REL = 1e-2
+
+
+def unmasked_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs of one head that the mask keeps."""
+    import numpy as np
+    i = np.arange(s, dtype=np.int64)
+    hi = i + 1 if causal else np.full_like(i, s)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros_like(i)
+    return int((hi - lo).sum())
+
+
+def plain_attention(q, k, v, causal: bool, window: int):
+    """ref_attention, over one KV head's query heads at a time past 2048
+    tokens, so its fp32 [S, S] logits fit."""
+    import torch
+    from repro_torch.kernels import ref
+    s, h, kv = q.shape[1], q.shape[2], k.shape[2]
+    if s <= 2048:
+        return ref.ref_attention(q, k, v, causal=causal, window=window)
+    rep = h // kv
+    return torch.cat([ref.ref_attention(
+        q[:, :, j * rep:(j + 1) * rep], k[:, :, j:j + 1], v[:, :, j:j + 1],
+        causal=causal, window=window) for j in range(kv)], dim=2)
+
+
+def phase1_flash(dev, hw, gen) -> dict:
+    """flash_attention at FLASH_CASES against its plain version; timed
+    beside torch's scaled_dot_product_attention (enable_gqa; is_causal, or
+    an explicit mask where the window cuts).  Returns the summary row of
+    the last case (phase 4's 6144-token prompt)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    bf = torch.bfloat16
+    row = None
+    for name, b, s, h, kv, hd, causal, window, iters in FLASH_CASES:
+        q = torch.randn(b, s, h, hd, generator=gen, device=dev).to(bf)
+        k, v = (torch.randn(b, s, kv, hd, generator=gen, device=dev).to(bf)
+                for _ in range(2))
+        with torch.inference_mode():
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            want = plain_attention(q, k, v, causal, window).float()
+            torch.cuda.synchronize()
+            diff = got.float() - want
+            err = diff.abs().max().item()
+            rel = (diff.norm() / want.norm()).item()
+            del diff
+            if not (torch.isfinite(got).all() and rel <= FLASH_REL):
+                raise AssertionError(f"flash_attention {name}: norm-wise rel "
+                                     f"err {rel} > {FLASH_REL}")
+            ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                                 window=window), iters, 3)
+            dms = device_ms(lambda: flash_attention(
+                q, k, v, causal=causal, window=window), min(iters, 10))
+            plain = time_ms(lambda: plain_attention(q, k, v, causal, window),
+                            min(iters, 10), 2)
+            # the yardstick: one PyTorch call, [B, H, S, hd] views
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            mask = None
+            if window and window < s:
+                i = torch.arange(s, device=dev)
+                mask = (i[None, :] > i[:, None] - window) & \
+                    ((i[None, :] <= i[:, None]) if causal else True)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=True)
+            lib_rel = ((sdpa().transpose(1, 2).float() - want).norm()
+                       / want.norm()).item()
+            lib = time_ms(sdpa, iters, 3)
+            del got, want
+        pairs = unmasked_pairs(s, causal, window)
+        nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)
+        bnd, by = bound_ms(nbytes, 4 * hd * pairs * h * b, hw)
+        print(f"  flash_attention    {name}: B{b} S{s} H{h}/{kv} hd{hd} "
+              f"causal={causal} window={window}: max abs err {err:.3e}, "
+              f"norm-wise {rel:.3e} (limit {FLASH_REL})  kernel {ms:.4f} ms "
+              f"(device {dms:.4f}, {4 * hd * pairs * h * b / dms / 1e9:.1f} "
+              f"TFLOP/s)  plain {plain:.4f} ms  sdpa {lib:.4f} ms (norm-wise "
+              f"{lib_rel:.3e})  bound {bnd:.4f} ms ({by}; {pairs} pairs a "
+              f"head)", flush=True)
+        row = dict(case=name, ms=ms, device_ms=dms, plain_ms=plain,
+                   library_ms=lib, bound_ms=bnd, bound_by=by,
+                   max_abs_err=max(err, row["max_abs_err"]) if row else err)
+        del q, k, v, qt, kt, vt, mask
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the serve path end to end
 # ---------------------------------------------------------------------------
 
-def device_busy(srv, toks) -> None:
+def device_busy(srv, toks, tag: str = "phase 2",
+                cache_len: int = 40) -> None:
     """Device busy share of one prefill and one decode step of the served
     model: kernel time summed by torch.profiler over the host wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    pre = srv.prefill_batch(toks, cache_len=40)
+    pre = srv.prefill_batch(toks, cache_len=cache_len)
     for name, step in (
-            ("prefill", lambda: srv.prefill_batch(toks, cache_len=40)),
+            ("prefill", lambda: srv.prefill_batch(toks, cache_len=cache_len)),
             ("decode", lambda: srv.decode_batch(
                 pre.logits.argmax(-1), pre.cache, pre.path_ids[:, -1]))):
         step()
@@ -479,7 +603,7 @@ def device_busy(srv, toks) -> None:
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         dev_us = sum(e.self_device_time_total for e in kern)
-        print(f"phase 2 {name} step: wall {wall * 1e3:.3f} ms, device busy "
+        print(f"{tag} {name} step: wall {wall * 1e3:.3f} ms, device busy "
               f"{dev_us / 1e3:.3f} ms "
               f"({100 * dev_us / 1e6 / wall:.1f}% of wall), "
               f"{sum(e.count for e in kern)} kernels", flush=True)
@@ -522,12 +646,22 @@ def _flip_margin(probs, k: int):
     return srt[:, k - 1] - srt[:, k]
 
 
-def replay_plain(calls, what: str) -> None:
+def replay_plain(calls, what: str, tag: str = "phase 2",
+                 ulp_margin: bool = False) -> None:
     """Each recorded kernel-route layer call again through the plain route,
-    on the same input, plan, cap, slot_cap and route mode.  Gate ids may
-    differ only where the top-k probability margin is within PROB_MARGIN;
-    every token whose expert no flip touched must be kept or dropped alike
-    and agree within FFN_REL."""
+    on the same input, plan, cap, slot_cap and route mode.  Router
+    probabilities must agree within PROB_MARGIN and gate ids may differ
+    only where the top-k probability margin is within PROB_MARGIN; every
+    token whose expert no flip touched must be kept or dropped alike and
+    agree within FFN_REL.
+
+    With ``ulp_margin`` both margins grow by what one bf16 ulp of the
+    token's largest logit allows: both routes round an fp32 sum of D
+    products to bf16, in different orders, so a logit may land one ulp
+    (u) apart; that moves a probability by up to u/2 (|dp_i| <= 2 p_i
+    (1 - p_i) u) and a top-k gap by up to 2u.  At gpt2-moe's width the
+    logits stay small enough for PROB_MARGIN alone; at mixtral's (D=6144,
+    8 experts, |logit| up to ~4, u = 2**-6) they do not."""
     import torch
     from repro_torch.core.serving import serve_moe_layer, slot_capacity
     report = []
@@ -536,9 +670,16 @@ def replay_plain(calls, what: str) -> None:
             x, params, dataclasses.replace(mcfg, compute_backend="xla"), plan,
             **kw)
         k = ik.shape[1]
-        perr = (pk - pp).abs().max().item()
+        ptol = gtol = torch.full((x.shape[0],), PROB_MARGIN, device=x.device)
+        if ulp_margin:
+            top = (x @ params.router).float().abs().amax(-1)
+            ulp = torch.exp2(torch.floor(torch.log2(
+                top.clamp_min(2.0 ** -126))) - 7)
+            ptol, gtol = ptol + ulp / 2, gtol + 2 * ulp
+        perr_t = (pk - pp).abs().amax(-1)
+        perr = perr_t.max().item()
         flip = (ik != ip).any(-1)
-        wide = flip & (_flip_margin(pp, k) > PROB_MARGIN)
+        wide = flip & (_flip_margin(pp, k) > gtol)
         touched = torch.cat([ik[flip].reshape(-1), ip[flip].reshape(-1)])
         alike = ~(torch.isin(ik.long(), touched.long())
                   | torch.isin(ip.long(), touched.long())).any(-1)
@@ -547,60 +688,58 @@ def replay_plain(calls, what: str) -> None:
                / yp.float().abs().max()).item() if alike.any() else 0.0
         cap = kw["cap_override"]
         report.append(f"L{li}:{int(flip.sum())}f/{int(dp.sum())}d/"
-                      f"{rel:.1e}")
-        if perr > PROB_MARGIN or wide.any() or \
+                      f"{rel:.1e}/p{perr:.1e}")
+        if (perr_t > ptol).any() or wide.any() or \
                 not torch.equal(dk[alike], dp[alike]) or not rel <= FFN_REL:
             raise AssertionError(
                 f"{what} layer {li} (T={x.shape[0]}, cap {cap}, slot_cap "
                 f"{slot_capacity(cap, kw['min_replicas'])}): kernel route "
-                f"disagrees with the plain route: probs err {perr:.3e}, "
+                f"disagrees with the plain route: probs err {perr:.3e} "
+                f"({int((perr_t > ptol).sum())} tokens beyond their margin), "
                 f"{int(wide.sum())} flips beyond the margin, max rel err "
                 f"{rel:.3e}")
     x, _, _, _, kw, _ = calls[0]
-    print(f"phase 2: {what}, each MoE layer's kernel route replayed through "
+    print(f"{tag}: {what}, each MoE layer's kernel route replayed through "
           f"the plain route (T={x.shape[0]}, cap {kw['cap_override']}, "
           f"slot_cap {slot_capacity(kw['cap_override'], kw['min_replicas'])} "
-          f"at layer 0; per layer flips f / drops d / max rel err): "
+          f"at layer 0; per layer flips f / drops d / max rel err / max "
+          f"probs err): "
           f"{' '.join(report)}", flush=True)
 
 
-def compare_routes(srv, toks) -> None:
-    """The served model's kernel route against its plain route.
-
-    Layer by layer: every MoE call of one kernel-route prefill and decode
-    step is replayed through the plain route (``replay_plain``).  Whole
-    model: one prefill both ways, with the same weights and profile.  A
-    token is *clean* at a layer while no gate flip and no drop difference
-    has happened at or before it in its row (attention is causal); a
-    clean token's MoE input must agree within DRIFT_REL, and a gate id may
-    differ at a clean token only where the plain route's fp32 logit gap is
-    within what that drift and bf16 rounding allow."""
-    import numpy as np
+def replay_prefill_decode(srv, toks, tag: str = "phase 2",
+                          ulp_margin: bool = False):
+    """One kernel-route prefill (cache_len S + 8) and decode step of
+    ``srv``, every MoE layer call of each replayed through the plain route
+    (``replay_plain``).  Returns (prefill result, its tapped layer calls)."""
     import torch
-    from repro_torch.runtime.server import MoEServer
-    cfg = srv.cfg
-    b, s = toks.shape
-    kcalls, dcalls, pcalls = [], [], []
+    s = toks.shape[1]
+    kcalls, dcalls = [], []
     with torch.inference_mode():
         with tap_layers(kcalls):
             pre = srv.prefill_batch(toks, cache_len=s + 8)
         with tap_layers(dcalls):
             srv.decode_batch(pre.logits.argmax(-1), pre.cache,
                              pre.path_ids[:, -1])
-        replay_plain(kcalls, "prefill")
-        replay_plain(dcalls, "decode step")
+        replay_plain(kcalls, "prefill", tag, ulp_margin)
+        replay_plain(dcalls, "decode step", tag, ulp_margin)
+    return pre, kcalls
 
-        plain_cfg = dataclasses.replace(
-            cfg, moe=dataclasses.replace(cfg.moe, compute_backend="xla"))
-        plain = MoEServer(plain_cfg, srv.params, srv.profile, srv.scfg,
-                          device=srv.device)
-        with tap_layers(pcalls):
-            lp_last = plain.prefill_batch(toks, cache_len=s + 8).logits
-    lk_last = pre.logits
-    if not (np.isfinite(lk_last).all() and lk_last.shape == lp_last.shape):
-        raise AssertionError("kernel-route prefill logits not finite")
 
-    dirty = torch.zeros(b, s, dtype=torch.bool, device=srv.device)
+def compare_whole(kcalls, pcalls, shape, device, what: str,
+                  tag: str = "phase 2"):
+    """The whole model's kernel route against its plain route on the same
+    tokens, from the two runs' tapped MoE layer calls.  A token is *clean*
+    at a layer while no gate flip and no drop difference has happened at or
+    before it in its row (attention is causal); a clean token's MoE input
+    must agree within DRIFT_REL, and a gate id may differ at a clean token
+    only where the plain route's fp32 logit gap is within what that drift
+    and bf16 rounding allow.  Returns ([B] rows with no event, [B] rows
+    whose last token flipped no gate)."""
+    import torch
+    b, s = shape
+    dirty = torch.zeros(b, s, dtype=torch.bool, device=device)
+    own = torch.zeros(b, s, dtype=torch.bool, device=device)
     report, worst = [], 0.0
     for li, (kc, pc) in enumerate(zip(kcalls, pcalls)):
         xk, xp = kc[0].float(), pc[0].float()
@@ -611,7 +750,7 @@ def compare_routes(srv, toks) -> None:
             worst = max(worst, drift[clean].max().item())
         if clean.any() and drift[clean].max().item() > DRIFT_REL:
             raise AssertionError(
-                f"whole model layer {li}: clean tokens drifted "
+                f"{what} layer {li}: clean tokens drifted "
                 f"{drift[clean].max().item():.3e} > {DRIFT_REL}")
         flip = (ik != ip).any(-1)
         drop = (yk == 0).all(-1) != (yp == 0).all(-1)
@@ -627,22 +766,52 @@ def compare_routes(srv, toks) -> None:
         wide = flip & clean & (gap > allow)
         if wide.any():
             raise AssertionError(
-                f"whole model layer {li}: {int(wide.sum())} clean-token gate "
+                f"{what} layer {li}: {int(wide.sum())} clean-token gate "
                 f"flips beyond the bf16 margin (max gap "
                 f"{gap[wide].max().item():.3e})")
         report.append(f"L{li}:{int((flip & clean).sum())}c+"
                       f"{int((flip & ~clean).sum())}")
         event = (flip | drop).reshape(b, s)
+        own |= event
         dirty |= torch.cummax(event.int(), dim=1).values.bool()
-    clean_rows = ~dirty.any(1).cpu().numpy()
+        del xk, xp, drift, lp
+    print(f"{tag}: {what} ({b} x {s} tokens): gate ids that differ per "
+          f"layer, at clean + at already-diverged tokens: {' '.join(report)};"
+          f" max clean drift {worst:.3e} (limit {DRIFT_REL})", flush=True)
+    return ~dirty.any(1).cpu().numpy(), ~own[:, -1].cpu().numpy()
+
+
+def compare_routes(srv, toks) -> None:
+    """The served model's kernel route against its plain route: every MoE
+    call of one kernel-route prefill and decode step replayed through the
+    plain route (``replay_prefill_decode``), and one prefill of the whole
+    model both ways, with the same weights and profile
+    (``compare_whole``); a row with no gate flip must agree at the
+    last-token logits."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime.server import MoEServer
+    cfg = srv.cfg
+    b, s = toks.shape
+    pre, kcalls = replay_prefill_decode(srv, toks)
+    pcalls = []
+    with torch.inference_mode():
+        plain_cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, compute_backend="xla"))
+        plain = MoEServer(plain_cfg, srv.params, srv.profile, srv.scfg,
+                          device=srv.device)
+        with tap_layers(pcalls):
+            lp_last = plain.prefill_batch(toks, cache_len=s + 8).logits
+    lk_last = pre.logits
+    if not (np.isfinite(lk_last).all() and lk_last.shape == lp_last.shape):
+        raise AssertionError("kernel-route prefill logits not finite")
+    clean_rows, _ = compare_whole(kcalls, pcalls, (b, s), srv.device,
+                                  "whole model, kernel vs plain route prefill")
     cos = (lk_last * lp_last).sum(1) / (np.linalg.norm(lk_last, axis=1)
                                          * np.linalg.norm(lp_last, axis=1))
-    print(f"phase 2: whole model, kernel vs plain route prefill "
-          f"({b} x {s} tokens): gate ids that differ per layer, at clean + "
-          f"at already-diverged tokens: {' '.join(report)}; max clean drift "
-          f"{worst:.3e} (limit {DRIFT_REL}); rows with no flip "
-          f"{int(clean_rows.sum())} of {b}; last-token logits cosine per row "
-          f"{np.round(cos, 6).tolist()}, argmax agreement "
+    print(f"phase 2: rows with no flip {int(clean_rows.sum())} of {b}; "
+          f"last-token logits cosine per row {np.round(cos, 6).tolist()}, "
+          f"argmax agreement "
           f"{float((lk_last.argmax(1) == lp_last.argmax(1)).mean()):.2f}",
           flush=True)
     if clean_rows.any() and cos[clean_rows].min() < 1 - DRIFT_REL:
@@ -715,6 +884,147 @@ def phase2(dev) -> dict:
     device_busy(srv, toks)
 
     compare_routes(srv, toks)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4: mixtral-8x22b served at full width
+# ---------------------------------------------------------------------------
+
+MIX_LAYERS = 2           # depth cut: 2.504 B parameters a layer
+MIX_GEN = (4, 2048, 16)  # requests, prompt tokens, new tokens (in the window)
+MIX_SCORE = (2, 6144)    # score-only requests, prompt tokens (past it)
+LOGIT_REL = 2e-2         # norm-wise, last-token logits, kernel vs plain
+
+
+@contextlib.contextmanager
+def plain_route(srv):
+    """``srv`` on the plain route ("xla": plain attention, plain MoE ops)
+    for the duration, sharing its bf16 weights (a second server would cast
+    the 21.6 GB of fp32 masters again)."""
+    cfg = srv.cfg
+    srv.cfg = dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, compute_backend="xla"))
+    try:
+        yield srv
+    finally:
+        srv.cfg = cfg
+
+
+def phase4(dev) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import COUNTERS, reset_counters
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.runtime.engine import (ServingEngine, simulate,
+                                            summarize_results)
+    from repro_torch.runtime.server import (MoEServer, ServerConfig,
+                                            profile_from_training)
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=MIX_LAYERS)
+    n_gen, gen_len, new_tok = MIX_GEN
+    n_score, score_len = MIX_SCORE
+    gc.collect()                  # the earlier phases' tensors
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = lm_mod.init_params(cfg, gen, device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.synchronize(dev)
+    print(f"phase 4: {cfg.name} at depth {cfg.n_layers} (d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, "
+          f"{cfg.moe.n_experts} {cfg.ffn_type} experts of {cfg.moe.d_ff}, "
+          f"vocab {cfg.vocab_size}, window {cfg.sliding_window}): "
+          f"{n_params} params, initialised in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=gen_len,
+                                global_batch=2, seed=0))
+    rng = np.random.RandomState(11)
+    gen_trace = [(rng.randint(0, cfg.vocab_size, (gen_len,)), 0.05 * i)
+                 for i in range(n_gen)]
+    score_trace = [(rng.randint(0, cfg.vocab_size, (score_len,)), 0.05 * i)
+                   for i in range(n_score)]
+
+    reset_counters()
+    t0 = time.perf_counter()
+    prof = profile_from_training(
+        cfg, params, (ds.batch(i) for i in range(3)), device=dev)
+    srv = MoEServer(cfg, params, prof, ServerConfig(), device=dev)
+    engine = ServingEngine(srv)
+    with torch.inference_mode():
+        gen_res = simulate(engine, gen_trace, max_new_tokens=new_tok)
+        score_res = simulate(engine, score_trace, max_new_tokens=0)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {n: c.count for n, c in COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"phase 4: profiled and served in {wall:.2f} s wall; peak device "
+          f"memory {peak:.2f} GiB", flush=True)
+    print("phase 4 launches: " + json.dumps(launches), flush=True)
+    missing = [n for n, c in launches.items()
+               if c == 0 and n not in TRAIN_ONLY]
+    if missing:
+        raise AssertionError(f"kernels never launched serving {cfg.name}: "
+                             f"{missing}")
+
+    for r in gen_res + score_res:
+        if not np.isfinite(r.logits).all() or r.logits.shape != \
+                (cfg.vocab_size,):
+            raise AssertionError(f"request {r.rid}: bad logits")
+    for r in gen_res:
+        if r.tokens is None or r.tokens.shape != (new_tok,) or \
+                r.tokens.min() < 0 or r.tokens.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {r.rid}: bad tokens")
+    if len(gen_res) != n_gen or len(score_res) != n_score or \
+            any(r.tokens is not None for r in score_res):
+        raise AssertionError("phase 4: requests missing")
+    m = summarize_results(gen_res)
+    ms = summarize_results(score_res)
+    print(f"phase 4: {n_gen} requests x {gen_len} prompt + {new_tok} new "
+          f"tokens: TTFT p50 {m['ttft_p50'] * 1e3:.3f} ms p95 "
+          f"{m['ttft_p95'] * 1e3:.3f} ms  TPOT p50 {m['tpot_p50'] * 1e3:.3f} "
+          f"ms p95 {m['tpot_p95'] * 1e3:.3f} ms  {m['gen_tok_s']:.3f} gen "
+          f"tok/s  latency p50 {m['latency_p50'] * 1e3:.3f} ms; {n_score} "
+          f"score-only x {score_len}: latency p50 "
+          f"{ms['latency_p50'] * 1e3:.3f} ms p95 "
+          f"{ms['latency_p95'] * 1e3:.3f} ms; plan reuse "
+          f"{engine.plan_reuse_rate:.4f}  fine-tune rate "
+          f"{engine.finetune_rate:.4f}", flush=True)
+
+    toks = np.random.RandomState(7).randint(0, cfg.vocab_size, (2, gen_len))
+    device_busy(srv, toks, "phase 4", cache_len=gen_len + 8)
+    replay_prefill_decode(srv, toks, "phase 4", ulp_margin=True)
+
+    # a score-only prompt past the window through both routes: flash (the
+    # window branch) against the query-blocked plain attention
+    long = np.random.RandomState(8).randint(0, cfg.vocab_size,
+                                            (1, score_len))
+    kcalls, pcalls = [], []
+    with torch.inference_mode():
+        with tap_layers(kcalls):
+            lk = srv.serve_batch(long).logits
+        with plain_route(srv), tap_layers(pcalls):
+            lp = srv.serve_batch(long).logits
+    if not (np.isfinite(lk).all() and lk.shape == lp.shape):
+        raise AssertionError("phase 4: kernel-route logits not finite")
+    _, last_clean = compare_whole(
+        kcalls, pcalls, long.shape, dev,
+        "whole model, kernel vs plain route, score-only past the window",
+        "phase 4")
+    del kcalls, pcalls
+    rel = np.linalg.norm(lk - lp, axis=1) / np.linalg.norm(lp, axis=1)
+    print(f"phase 4: last-token logits, norm-wise rel err per row "
+          f"{[float(f'{r:.3e}') for r in rel]} (limit {LOGIT_REL}; held "
+          f"where the last token flipped no gate: {last_clean.tolist()}), "
+          f"argmax agreement {float((lk.argmax(1) == lp.argmax(1)).mean()):.2f}",
+          flush=True)
+    if (rel[last_clean] > LOGIT_REL).any():
+        raise AssertionError(f"phase 4: kernel-route logits disagree with the "
+                             f"plain route: {rel}")
     return launches
 
 
@@ -973,6 +1283,7 @@ def main() -> int:
     phase3_layer(dev)
     train_launches = phase3_train(dev)
     phase3_resume(dev)
+    mixtral = phase4(dev)
 
     kernels = []
     for name in REPLACES:
@@ -980,9 +1291,10 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name],
-            "launches": serve[name] + train_launches[name],
+            "launches": serve[name] + train_launches[name] + mixtral[name],
             "launches_serve": serve[name],
             "launches_train": train_launches[name],
+            "launches_mixtral": mixtral[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -1,6 +1,7 @@
 """Architecture registry of the port: ``get_config(name)`` / ``--arch <id>``.
 
-Holds the paper's §7.1 models, the family this slice serves; the other
+Holds the paper's §7.1 models and ``mixtral-8x22b`` (GQA, sliding-window
+attention, swiglu experts), the MoE families the port serves; the other
 architectures of the reference registry arrive with their model families.
 """
 from repro_torch.configs.base import (
@@ -8,13 +9,15 @@ from repro_torch.configs.base import (
     SHAPES, TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K, V5E, H100,
     applicable_shapes, skip_reason,
 )
+from repro_torch.configs.mixtral_8x22b import CONFIG as MIXTRAL_8X22B
 from repro_torch.configs.paper_models import (
     TRANSFORMER_XL, GPT2_MOE, BERT2GPT2, BERT_LARGE, with_experts,
 )
 
 PAPER = [TRANSFORMER_XL, GPT2_MOE, BERT2GPT2, BERT_LARGE]
+PORTED = [MIXTRAL_8X22B]      # of the reference's ASSIGNED architectures
 
-REGISTRY = {c.name: c for c in PAPER}
+REGISTRY = {c.name: c for c in PORTED + PAPER}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -28,4 +31,4 @@ def get_config(name: str) -> ModelConfig:
 
 
 def list_archs() -> list:
-    return [c.name for c in PAPER]
+    return [c.name for c in PORTED + PAPER]

@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("topk_gating", "dispatch", "moe_ffn")
+SOURCES = ("topk_gating", "dispatch", "moe_ffn", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -49,6 +49,9 @@ SIGNATURES = {
     "moe_ffn": {
         "grouped_ffn": (P, P, P, P, P, P, I, I, I, I, I, P),
         "grouped_matmul": (P, P, P, I, I, I, I, I, I, I, I, P),
+    },
+    "flash_attention": {
+        "flash_attention": (P, P, P, P, I, I, I, I, I, I, I, P),
     },
 }
 

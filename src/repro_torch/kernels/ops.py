@@ -34,8 +34,10 @@ launches the same kernels:
 On a CPU tensor the same Functions run and their kernels' plain versions
 run inside, so the CPU tests exercise these backward formulas.
 ``topk_positions_op`` and ``weighted_route_op`` have integer outputs and no
-backward.  The ops make their inputs contiguous and of the index type the
-kernels take.
+backward.  ``flash_attention_op`` (the prefill attention) has no backward
+either, as the reference's Pallas kernel has no VJP: on a CUDA tensor that
+requires grad it raises.  The ops make their inputs contiguous and of the
+index type the kernels take.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.dispatch import (combine_rows, dispatch_rows,
                                           invert_slots, weighted_route)
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.moe_ffn import grouped_ffn, grouped_matmul
 from repro_torch.kernels.topk_gating import topk_gating_fused, topk_positions
 
@@ -216,3 +219,14 @@ def combine_op(buf, rows, weights):
     differentiable in buf and weights."""
     return _Combine.apply(buf.contiguous(), rows.int().contiguous(),
                           weights.float().contiguous())
+
+
+# ---------------------------------------------------------------------------
+# prefill attention (reference ops.py:flash_attention_op; forward only)
+# ---------------------------------------------------------------------------
+
+def flash_attention_op(q, k, v, causal: bool = True, window: int = 0):
+    """q [B, S, H, hd], k/v [B, S, KV, hd] -> [B, S, H, hd] in q.dtype:
+    the flash kernel for CUDA tensors, its plain version for CPU ones."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, window=window)

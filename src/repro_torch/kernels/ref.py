@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's seven kernels (the allclose
+"""Plain PyTorch versions of the port's eight kernels (the allclose
 targets), with the reference oracles' names and signatures.
 
 Each function is the semantic ground truth: simple tensor code with no
@@ -107,3 +107,28 @@ def ref_weighted_route(expert_idx, position, cum_weights, slot_of,
     rows = slot * slot_cap + (position - prev)
     keep = (expert_idx >= 0) & (position < total) & (slot >= 0)
     return torch.where(keep, rows, torch.full_like(rows, -1)).to(torch.int32)
+
+
+def ref_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """Attention in fp32.  q: [B, Sq, H, hd]; k/v: [B, Skv, KV, hd] ->
+    [B, Sq, H, hd] in q.dtype.  Query head h reads KV head h // (H/KV);
+    masked logits are -1e30, the scale is hd**-0.5; query and key
+    positions both start at 0."""
+    b, sq, h, hd = q.shape
+    rep = h // k.shape[2]
+    kk = torch.repeat_interleave(k, rep, dim=2) if rep > 1 else k
+    vv = torch.repeat_interleave(v, rep, dim=2) if rep > 1 else v
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          kk.float()) / (hd ** 0.5)
+    skv = k.shape[1]
+    qpos = torch.arange(sq, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None] <= qpos[:, None]
+    if window:
+        mask &= kpos[None] > qpos[:, None] - window
+    logits = torch.where(mask[None, None], logits,
+                         torch.full((), -1e30, device=q.device))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vv.float()).to(q.dtype)

@@ -1,9 +1,14 @@
 """GQA/MQA/MHA attention with qk-norm, QKV bias, sliding window and RoPE:
 full-sequence (prefill) and one-token decode against a KV cache.
 
-Plain tensor code, as in the reference (its models never call the Pallas
-flash-attention kernel).  Layouts follow the reference: q [B, S, H, hd],
-k/v [B, S, KV, hd].
+The full-sequence path is plain tensor code, as in the reference: the
+O(S^2)-memory ``_sdpa`` up to ``BLOCKWISE_THRESHOLD`` tokens, the
+query-blocked ``_sdpa_blockwise`` beyond.  With ``use_kernel`` (the
+server's kernel route) it calls ``kernels.ops.flash_attention_op`` instead,
+the same function: the Hopper flash kernel on a CUDA tensor.  That op has
+no backward, so the training forward keeps the plain path.  Decode stays
+plain: the kernel does not compute the ring-buffer mask of the cache.
+Layouts follow the reference: q [B, S, H, hd], k/v [B, S, KV, hd].
 """
 from __future__ import annotations
 
@@ -11,6 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels.ops import flash_attention_op
 from repro_torch.models.layers import rms_norm, rope
 
 
@@ -54,14 +60,15 @@ def _repeat_kv(k, rep: int):
     return torch.repeat_interleave(k, rep, dim=2) if rep > 1 else k
 
 
-def _sdpa(q, k, v, *, causal, window):
-    """Reference attention.  q: [B,Sq,H,hd], k/v: [B,Sk,KV,hd]."""
+def _sdpa(q, k, v, *, causal, window, q_offset=0):
+    """Reference attention.  q: [B,Sq,H,hd], k/v: [B,Sk,KV,hd]; query i
+    sits at position q_offset + i."""
     b, sq, h, hd = q.shape
     rep = h // k.shape[2]
     k, v = _repeat_kv(k, rep), _repeat_kv(v, rep)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / (hd ** 0.5)
     sk = k.shape[1]
-    qpos = torch.arange(sq, device=q.device)
+    qpos = torch.arange(sq, device=q.device) + q_offset
     kpos = torch.arange(sk, device=q.device)
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -74,15 +81,40 @@ def _sdpa(q, k, v, *, causal, window):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def attention(p: AttnParams, x, cfg):
-    """Full-sequence path (prefill / profiling).  x: [B, S, d] ->
-    (y [B, S, d], KVCache(k, v) of this layer)."""
+BLOCKWISE_THRESHOLD = 2048   # S beyond which the O(S^2)-memory path is unsafe
+BLOCK_Q = 1024
+
+
+def _sdpa_blockwise(q, k, v, *, causal, window, block_q=BLOCK_Q):
+    """Memory-bounded attention: ``_sdpa`` over query blocks (the logits
+    peak at [B, H, block_q, S] instead of [B, H, S, S]); each block sees
+    every key, so a plain softmax per block is exact."""
+    s = q.shape[1]
+    bq = min(block_q, s)
+    while s % bq:
+        bq -= 1
+    return torch.cat([_sdpa(q[:, i:i + bq], k, v, causal=causal,
+                            window=window, q_offset=i)
+                      for i in range(0, s, bq)], dim=1)
+
+
+def attention(p: AttnParams, x, cfg, *, use_kernel: bool = False):
+    """Full-sequence path (prefill / profiling / training).  x: [B, S, d]
+    -> (y [B, S, d], KVCache(k, v) of this layer).  ``use_kernel`` takes
+    the flash-attention op (forward only) instead of the plain path."""
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     q, k, v = _project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, hd, positions,
                            cfg.rope_theta, cfg.norm_eps)
-    o = _sdpa(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
+    if use_kernel:
+        o = flash_attention_op(q, k, v, causal=cfg.causal,
+                               window=cfg.sliding_window)
+    elif s > BLOCKWISE_THRESHOLD:
+        o = _sdpa_blockwise(q, k, v, causal=cfg.causal,
+                            window=cfg.sliding_window)
+    else:
+        o = _sdpa(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
     o = o.reshape(b, s, cfg.n_heads * hd)
     return o @ p.wo, KVCache(k, v)
 

@@ -249,9 +249,12 @@ class MoEServer:
 
     # --- layer pieces -------------------------------------------------------
     def _attn(self, gp, j, x):
-        """Full-sequence attention block; also returns this layer's K/V."""
+        """Full-sequence attention block; also returns this layer's K/V.
+        The kernel route (``compute_backend`` other than "xla") runs the
+        flash-attention kernel, the plain route the plain attention."""
         h = rms_norm(x, gp.ln1[j], self.cfg.norm_eps)
-        y, kv = attention(tree_idx(gp.attn, j), h, self.cfg)
+        y, kv = attention(tree_idx(gp.attn, j), h, self.cfg,
+                          use_kernel=self.cfg.moe.compute_backend != "xla")
         return x + y, kv.k, kv.v
 
     def _attn_dec(self, gp, j, x, k, v, pos):

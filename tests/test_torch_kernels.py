@@ -161,7 +161,8 @@ def test_plain_versions_count_no_launches_and_reset_zeroes():
     reset_counters()
     assert sorted(COUNTERS) == sorted([
         "topk_gating_fused", "topk_positions", "dispatch_rows",
-        "combine_rows", "weighted_route", "grouped_ffn", "grouped_matmul"])
+        "combine_rows", "weighted_route", "grouped_ffn", "grouped_matmul",
+        "flash_attention"])
     topk_positions(torch.zeros((4, 1), dtype=torch.int32), 2)
     assert all(c.count == 0 for c in COUNTERS.values())
     COUNTERS["grouped_ffn"].inc()
