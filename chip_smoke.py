@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phase 0  prints the card (``nvidia-smi`` name and power limit) and builds
-         the four CUDA kernel sources of ``src/repro_torch/kernels/csrc``
+         the six CUDA kernel sources of ``src/repro_torch/kernels/csrc``
          (one ``nvcc`` each, started together; timed).
 Phase 1  holds each of the six serve-path kernels against its plain PyTorch
          version on the card, at the serve path's shapes (gpt2-moe: D=768,
@@ -58,6 +58,36 @@ Phase 4  serves mixtral-8x22b at full width (d 6144, 48 / 8 heads, hd 128,
          and runs a 6144-token prompt through both routes (flash attention
          against the query-blocked plain attention).
 
+Phase 1 also holds the two recurrences at the serve shapes of phases 5 and
+6, norm-wise within 1e-4: ``rwkv6_wkv`` against ``ref_rwkv6`` at 4 x 2048,
+32 heads of 64 with a random non-zero bonus u, at the decode shape (T = 1)
+from a random state, and split in two calls that carry the state;
+``ssd_scan`` against ``ref_ssd`` at 4 x 2048, 64 heads, P = N = 64 (x, B
+and C strided slices of one projection), at a ragged T = 2000 and split in
+two calls.  Neither function has a PyTorch call that computes it, so their
+``library_ms`` is null.
+Phase 5  serves rwkv6-1.6b (24 RWKV6 layers, d 2048) at full width and
+         depth, random weights from a seed, through ``models.lm``'s
+         ``forward_prefill`` (4 x 2048 tokens), ``init_cache`` and
+         ``decode_step`` (a 64-token prompt fed one token at a time, then
+         32 greedy tokens).  Counters zeroed just before, read just after:
+         ``rwkv6_wkv`` must launch 24 times per prefill and per decode step.
+         It prints prefill wall time, decode step p50 / p95, generated
+         tokens/s, peak memory and the card's busy share of a prefill and
+         of a decode step.  It replays one prefill and one decode step
+         layer by layer: every ``rwkv6_wkv`` call is run again through
+         ``ref_rwkv6`` on the very tensors the model passed it (y and the
+         final state norm-wise within 1e-4).  Then the plain route in
+         float32 on the same master weights must show decode-matches-
+         prefill at the prompt's end, and the kernel route's logits
+         (prefill of 64 and of 4 x 512 tokens, decode at the prompt's end)
+         must drift from it no further than the plain route in bf16 does.
+Phase 6  does the same for zamba2-1.2b (38 Mamba2 layers, the shared
+         attention block after every 6th): ``ssd_scan`` 38 and
+         ``flash_attention`` 6 launches per prefill, each replayed against
+         ``ref_ssd`` (1e-4) and ``ref_attention`` (1e-2); its decode steps
+         run the plain ``mamba_decode`` and ``decode_attention``.
+
 Prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit).
 Imports nothing of the JAX package.
@@ -86,6 +116,8 @@ REPLACES = {
     "grouped_ffn": "src/repro/kernels/moe_ffn.py:73",
     "grouped_matmul": "src/repro/kernels/moe_ffn.py:128",
     "flash_attention": "src/repro/kernels/flash_attention.py:87",
+    "rwkv6_wkv": "src/repro/kernels/rwkv6.py:53",
+    "ssd_scan": "src/repro/kernels/ssd.py:76",
 }
 SOURCE = {
     "topk_gating_fused": "src/repro_torch/kernels/csrc/topk_gating.cu",
@@ -96,11 +128,15 @@ SOURCE = {
     "grouped_ffn": "src/repro_torch/kernels/csrc/moe_ffn.cu",
     "grouped_matmul": "src/repro_torch/kernels/csrc/moe_ffn.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "rwkv6_wkv": "src/repro_torch/kernels/csrc/rwkv6.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd.cu",
 }
 # every other kernel runs in training (its attention is plain: the flash
 # kernel has no backward)
 SERVE_ONLY = {"weighted_route", "flash_attention"}
 TRAIN_ONLY = {"grouped_matmul"}     # the FFN backward
+# the recurrences of the RWKV6 and Mamba2 families (phases 5 and 6 only)
+RECURRENT = {"rwkv6_wkv", "ssd_scan"}
 
 # gpt2-moe serve-path geometry (configs/paper_models.py, ServerConfig and
 # the serve driver's defaults)
@@ -140,13 +176,18 @@ def device_ms(fn, iters: int = 20) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in kern) / iters / 1e3
+    # a profiling session now and then records no kernel event at all (seen
+    # on a 2.7 us kernel): profile again rather than report zero time
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / iters / 1e3
+    raise RuntimeError("torch.profiler recorded no kernel time in 3 tries")
 
 
 # dense tensor-core peak of the H100 SXM for TF32 operands (NVIDIA's data
@@ -393,6 +434,7 @@ def phase1(dev, hw) -> dict:
 
     rows["grouped_matmul"] = phase1_grouped_matmul(dev, hw, gen)
     rows["flash_attention"] = phase1_flash(dev, hw, gen)
+    rows.update(phase1_recurrences(dev, hw, gen))
     return rows
 
 
@@ -576,40 +618,246 @@ def phase1_flash(dev, hw, gen) -> dict:
     return row
 
 
+# fp32 arithmetic outside the tensor cores (NVIDIA's H100 SXM data sheet):
+# the rate the WKV and SSD kernels compute at
+FP32_FLOPS = 67e12
+# norm-wise ||kernel - plain|| / ||plain|| of the two recurrences: both
+# compute in fp32 from the same bf16 inputs, summing in other orders (and
+# the SSD kernel in its chunked form)
+REC_REL = 1e-4
+# the rwkv6-1.6b / zamba2-1.2b serve shapes: B, T, H, hd; B, T, H, P, N
+WKV_SHAPE = (4, 2048, 32, 64)
+SSD_SHAPE = (4, 2048, 64, 64, 64)
+
+
+def rel_err(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def wkv_cost(b, t, h, hd, s_in: bool = False, s_out: bool = False):
+    """(bytes, operations) of one WKV call: r, k, v bf16 and w, y fp32 read
+    or written once, u, the state in and out if present; per step of a
+    head 5 hd^2 (y and the state update) + 6 hd (exp, the bonus sum, v
+    times it)."""
+    nbytes = b * t * h * hd * (3 * 2 + 4 + 4) + h * hd * 4 \
+        + (s_in + s_out) * b * h * hd * hd * 4
+    return nbytes, b * h * t * (5 * hd * hd + 6 * hd)
+
+
+def ssd_cost(b, t, h, p, n, s_in: bool = False, s_out: bool = False,
+             q: int = 128):
+    """(bytes, operations) of one SSD scan: x, dt, B, C bf16 read once, y
+    fp32 written once, a_log and D, the state in and out if present.  Per
+    chunk of nv rows: the lower triangle of C B^T (2N), once per batch row,
+    because B and C are shared by every head; then per head its decay and
+    dt (3) and M x (2P), C h^T with the decay and D skip (2N + 4 per
+    element of y), the state update (2N + 1 per element of x) and the
+    state's decay (2PN)."""
+    nbytes = b * t * (h * p * 2 + h * 2 + 2 * n * 2 + h * p * 4) + 2 * h * 4 \
+        + (s_in + s_out) * b * h * p * n * 4
+    ops = 0
+    for t0 in range(0, t, q):
+        nv = min(q, t - t0)
+        tri = nv * (nv + 1) // 2
+        ops += tri * 2 * n + h * (tri * (3 + 2 * p) + nv * p * (4 * n + 5)
+                                  + 2 * p * n)
+    return nbytes, b * ops
+
+
+def add_costs(*costs) -> tuple:
+    return tuple(sum(c[i] for c in costs) for i in range(2))
+
+
+def phase1_recurrences(dev, hw, gen) -> dict:
+    """rwkv6_wkv and ssd_scan against ref_rwkv6 / ref_ssd on the card, at
+    the serve shapes of rwkv6-1.6b and zamba2-1.2b: WKV at the prefill shape
+    with a random non-zero bonus u (the models start it at zero), at the
+    decode shape (T = 1) from a random state, and split in two calls that
+    carry the state; SSD at the prefill shape with x, B and C sliced in
+    place from one projection, at a ragged T and split in two calls.
+    Returns each kernel's summary row (the prefill case)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv6 import rwkv6_wkv
+    from repro_torch.kernels.ssd import ssd_scan
+    bf = torch.bfloat16
+    rows = {}
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def report(name, case, errs, kernel, plain, nbytes, nops, iters=20,
+               tf32=False):
+        err = max(v for k, v in errs.items() if k != "max_abs")
+        if not err <= REC_REL:
+            raise AssertionError(f"{name} {case}: norm-wise rel err {errs} > "
+                                 f"{REC_REL}")
+        ms = time_ms(kernel, iters, 3)
+        dms = device_ms(kernel, min(iters, 10))
+        pms = time_ms(plain, 2, 1)
+        bnd, by = bound_ms(nbytes, nops, hw, peak=FP32_FLOPS)
+        extra = ""
+        if tf32:
+            b32, by32 = bound_ms(nbytes, nops, hw, peak=TF32_FLOPS)
+            extra = f"; at TF32 {b32:.4f} ms ({by32})"
+        print(f"  {name:18s} {case:8s} norm-wise rel err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (limit {REC_REL})  kernel {ms:.4f} ms (device {dms:.4f}, "
+              f"{nops / dms / 1e9:.2f} TFLOP/s)  plain {pms:.4f} ms  bound "
+              f"{bnd:.4f} ms ({by}, fp32 peak{extra}; {nbytes} bytes, "
+              f"{nops} operations)", flush=True)
+        row = dict(case=case, ms=ms, device_ms=dms, plain_ms=pms,
+                   library_ms=None, bound_ms=bnd, bound_by=by,
+                   max_abs_err=errs["max_abs"])
+        cur = rows.get(name)
+        if cur is None:
+            rows[name] = row
+        else:
+            cur["max_abs_err"] = max(cur["max_abs_err"], errs["max_abs"])
+
+    with torch.inference_mode():
+        # -- rwkv6_wkv: the model's value ranges (unit r, k, v; decays near
+        # exp(-exp(-2)) = 0.87), a random bonus u
+        b, t, h, hd = WKV_SHAPE
+        r, k, v = (rnd(b, t, h, hd).to(bf) for _ in range(3))
+        w = -torch.exp(rnd(b, t, h, hd, scale=0.5) - 2.0)
+        u = rnd(h, hd, scale=0.5)
+        y = rwkv6_wkv(r, k, v, w, u)
+        want = ref.ref_rwkv6(r, k, v, w, u)
+        errs = {"y": rel_err(y, want),
+                "max_abs": (y - want).abs().max().item()}
+        report("rwkv6_wkv", "prefill", errs,
+               lambda: rwkv6_wkv(r, k, v, w, u),
+               lambda: ref.ref_rwkv6(r, k, v, w, u),
+               *wkv_cost(b, t, h, hd))
+        # the split: two calls carrying the state against one call
+        cut = 1000
+        halves = [tuple(a[:, sl].contiguous() for a in (r, k, v, w))
+                  for sl in (slice(0, cut), slice(cut, t))]
+
+        def split_run(fn):
+            y1, s1 = fn(*halves[0], u, return_state=True)
+            y2, s2 = fn(*halves[1], u, s0=s1, return_state=True)
+            return torch.cat([y1, y2], dim=1), s2
+
+        split, s2 = split_run(rwkv6_wkv)
+        y_all, s_all = rwkv6_wkv(r, k, v, w, u, return_state=True)
+        _, s_ref = ref.ref_rwkv6(r, k, v, w, u, return_state=True)
+        errs = {"y vs one call": rel_err(split, y_all),
+                "state vs one call": rel_err(s2, s_all),
+                "y vs plain": rel_err(split, want),
+                "state vs plain": rel_err(s2, s_ref),
+                "max_abs": max((split - want).abs().max().item(),
+                               (s2 - s_ref).abs().max().item())}
+        report("rwkv6_wkv", f"split@{cut}", errs,
+               lambda: split_run(rwkv6_wkv), lambda: split_run(ref.ref_rwkv6),
+               *add_costs(wkv_cost(b, cut, h, hd, s_out=True),
+                          wkv_cost(b, t - cut, h, hd, True, True)), iters=5)
+        del r, k, v, w, y, want, halves, split, y_all
+        # decode: one step from a random state
+        r1, k1, v1 = (rnd(b, 1, h, hd).to(bf) for _ in range(3))
+        w1 = -torch.exp(rnd(b, 1, h, hd, scale=0.5) - 2.0)
+        s0 = rnd(b, h, hd, hd, scale=2.0)
+        y, st = rwkv6_wkv(r1, k1, v1, w1, u, s0=s0, return_state=True)
+        wy, ws = ref.ref_rwkv6(r1, k1, v1, w1, u, s0=s0, return_state=True)
+        errs = {"y": rel_err(y, wy), "state": rel_err(st, ws),
+                "max_abs": max((y - wy).abs().max().item(),
+                               (st - ws).abs().max().item())}
+        report("rwkv6_wkv", "decode", errs,
+               lambda: rwkv6_wkv(r1, k1, v1, w1, u, s0=s0,
+                                 return_state=True),
+               lambda: ref.ref_rwkv6(r1, k1, v1, w1, u, s0=s0,
+                                     return_state=True),
+               *wkv_cost(b, 1, h, hd, True, True), iters=50)
+
+        # -- ssd_scan: x, B and C sliced from one [B, T, H*P + 2N] tensor as
+        # the model's convolved projection; zamba2's a_log, unit D
+        b, t, h, p, n = SSD_SHAPE
+        a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+        d_skip = torch.ones(h, device=dev)
+        for case, tt in (("prefill", t), ("ragged", 2000)):
+            xbc = rnd(b, tt, h * p + 2 * n).to(bf)
+            x = xbc[..., :h * p].reshape(b, tt, h, p)
+            bb, cc = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+            dt = rnd(b, tt, h).to(bf)
+            y = ssd_scan(x, dt, a_log, bb, cc, d_skip)
+            want = ref.ref_ssd(x, dt, a_log, bb, cc, d_skip)
+            if not torch.isfinite(y).all():
+                raise AssertionError(f"ssd_scan {case}: non-finite output")
+            errs = {"y": rel_err(y, want),
+                    "max_abs": (y - want).abs().max().item()}
+            report("ssd_scan", case, errs,
+                   lambda: ssd_scan(x, dt, a_log, bb, cc, d_skip),
+                   lambda: ref.ref_ssd(x, dt, a_log, bb, cc, d_skip),
+                   *ssd_cost(b, tt, h, p, n), tf32=True)
+        # the split (at T = 2000, mid-chunk): two calls carrying the state,
+        # the strided slices passed as they are
+        cut = 1000
+
+        def ssd_split(fn):
+            y1, h1 = fn(x[:, :cut], dt[:, :cut], a_log, bb[:, :cut],
+                        cc[:, :cut], d_skip, return_state=True)
+            y2, h2 = fn(x[:, cut:], dt[:, cut:], a_log, bb[:, cut:],
+                        cc[:, cut:], d_skip, h0=h1, return_state=True)
+            return torch.cat([y1, y2], dim=1), h2
+
+        split, h2 = ssd_split(ssd_scan)
+        _, h_ref = ref.ref_ssd(x, dt, a_log, bb, cc, d_skip,
+                               return_state=True)
+        errs = {"y vs plain": rel_err(split, want),
+                "state vs plain": rel_err(h2, h_ref),
+                "max_abs": max((split - want).abs().max().item(),
+                               (h2 - h_ref).abs().max().item())}
+        report("ssd_scan", f"split@{cut}", errs,
+               lambda: ssd_split(ssd_scan), lambda: ssd_split(ref.ref_ssd),
+               *add_costs(ssd_cost(b, cut, h, p, n, s_out=True),
+                          ssd_cost(b, 2000 - cut, h, p, n, True, True)),
+               iters=5, tf32=True)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the serve path end to end
 # ---------------------------------------------------------------------------
+
+def profile_busy(step, what: str) -> float:
+    """Run ``step`` once more (after one unprofiled run) under
+    torch.profiler; print its host wall time, the card's busy time (kernel
+    time summed) and share, and the top kernels.  Returns the busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # kernel events only: an operator's row repeats its kernels' time
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    print(f"{what}: wall {wall * 1e3:.3f} ms, device busy "
+          f"{dev_us / 1e3:.3f} ms "
+          f"({100 * dev_us / 1e6 / wall:.1f}% of wall), "
+          f"{sum(e.count for e in kern)} kernels", flush=True)
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
+              f"x{e.count:<5d} {e.key[:90]}", flush=True)
+    return dev_us / 1e6 / wall
+
 
 def device_busy(srv, toks, tag: str = "phase 2",
                 cache_len: int = 40) -> None:
     """Device busy share of one prefill and one decode step of the served
     model: kernel time summed by torch.profiler over the host wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     pre = srv.prefill_batch(toks, cache_len=cache_len)
     for name, step in (
             ("prefill", lambda: srv.prefill_batch(toks, cache_len=cache_len)),
             ("decode", lambda: srv.decode_batch(
                 pre.logits.argmax(-1), pre.cache, pre.path_ids[:, -1]))):
-        step()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # kernel events only: an operator's row repeats its kernels' time
-        kern = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_us = sum(e.self_device_time_total for e in kern)
-        print(f"{tag} {name} step: wall {wall * 1e3:.3f} ms, device busy "
-              f"{dev_us / 1e3:.3f} ms "
-              f"({100 * dev_us / 1e6 / wall:.1f}% of wall), "
-              f"{sum(e.count for e in kern)} kernels", flush=True)
-        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
-                  f"x{e.count:<5d} {e.key[:90]}", flush=True)
+        profile_busy(step, f"{tag} {name} step")
 
 
 # bf16 holds 8 significant bits: a rounding moves a value by at most half
@@ -840,7 +1088,7 @@ def phase2(dev) -> dict:
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
     print("phase 2 launches: " + json.dumps(launches), flush=True)
     missing = [n for n, c in launches.items()
-               if c == 0 and n not in TRAIN_ONLY]
+               if c == 0 and n not in TRAIN_ONLY | RECURRENT]
     if missing:
         raise AssertionError(f"kernels never launched on the serve path: "
                              f"{missing}")
@@ -966,7 +1214,7 @@ def phase4(dev) -> dict:
           f"memory {peak:.2f} GiB", flush=True)
     print("phase 4 launches: " + json.dumps(launches), flush=True)
     missing = [n for n, c in launches.items()
-               if c == 0 and n not in TRAIN_ONLY]
+               if c == 0 and n not in TRAIN_ONLY | RECURRENT]
     if missing:
         raise AssertionError(f"kernels never launched serving {cfg.name}: "
                              f"{missing}")
@@ -1025,6 +1273,284 @@ def phase4(dev) -> dict:
     if (rel[last_clean] > LOGIT_REL).any():
         raise AssertionError(f"phase 4: kernel-route logits disagree with the "
                              f"plain route: {rel}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: rwkv6-1.6b and zamba2-1.2b served at full width and depth
+# ---------------------------------------------------------------------------
+
+SERVE_PROMPT = (4, 2048)   # prompts x tokens of the kernel-route prefill
+PLAIN_PROMPT = (4, 512)    # the plain route's prefill (its loops are slow)
+DECODE_PROMPT, DECODE_NEW = 64, 32
+# Accuracy is held against the plain route in float32 on the same fp32
+# master weights.  There, decode after DECODE_PROMPT one-token steps must
+# match forward_prefill of the same tokens (the reference's
+# decode-matches-prefill) to FP32_DECODE_REL, norm-wise.  In bf16 these
+# random-weight models drift from float32 by far more than any kernel
+# error (rwkv6 ~0.2 norm-wise at depth 24; the reference's own bf16 drifts
+# as much: tests/test_torch_{rwkv,zamba}.py::test_bf16_drift_is_the_
+# references), so each kernel-route result (prefill of the prompt and of
+# PLAIN_PROMPT, decode at the prompt's end) must stay within DRIFT_RATIO
+# times the bf16 plain route's own drift from float32, row by row.
+FP32_DECODE_REL = 1e-4
+DRIFT_RATIO = 1.25
+# kernel launches per prefill / per decode step of each model
+RECURRENT_PATHS = {
+    "rwkv6-1.6b": ({"rwkv6_wkv": 24}, {"rwkv6_wkv": 24}),
+    "zamba2-1.2b": ({"ssd_scan": 38, "flash_attention": 6}, {}),
+}
+
+
+def replay_hooks(arch: str) -> list:
+    """(module, op name, kernel, plain version, limit) of each kernel op
+    the model of ``arch`` calls on the kernel route."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention, rwkv, ssm
+    if arch.startswith("rwkv6"):
+        return [(rwkv, "rwkv6_op", "rwkv6_wkv", ref.ref_rwkv6, REC_REL)]
+    return [(ssm, "ssd_op", "ssd_scan", ref.ref_ssd, REC_REL),
+            (attention, "flash_attention_op", "flash_attention",
+             plain_attention, FLASH_REL)]
+
+
+def replay_kernel_calls(tag: str, what: str, run, hooks: list,
+                        want: dict) -> None:
+    """Run ``run()`` (one kernel-route prefill or decode step) with every
+    kernel op of ``hooks`` wrapped: the op runs as on the path, then its
+    plain version on the very tensors the model passed it, and each output
+    (y, and the final state where there is one) is held norm-wise to the
+    op's limit.  Each kernel must be called ``want[kernel]`` times."""
+    errs = {kernel: [] for _, _, kernel, _, _ in hooks}
+    saved = []
+
+    def wrap(mod, name, kernel, plain):
+        real = getattr(mod, name)
+
+        def op(*args, **kw):
+            out = real(*args, **kw)
+            ref_out = plain(*args, **kw)
+            pairs = zip(out, ref_out) if isinstance(out, tuple) \
+                else [(out, ref_out)]
+            errs[kernel].append(max(
+                (o.float() - r.float()).norm().item()
+                / max(r.float().norm().item(), 1e-30) for o, r in pairs))
+            return out
+        saved.append((mod, name, real))
+        setattr(mod, name, op)
+
+    try:
+        for mod, name, kernel, plain, _ in hooks:
+            wrap(mod, name, kernel, plain)
+        run()
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+    for _, name, kernel, _, limit in hooks:
+        e = errs[kernel]
+        if len(e) != want.get(kernel, 0):
+            raise AssertionError(f"{tag} {what}: {name} called {len(e)} "
+                                 f"times, expected {want.get(kernel, 0)}")
+        worst = max(e)
+        print(f"{tag} {what}, every {name} call replayed through its plain "
+              f"version on the model's own tensors: {len(e)} calls, "
+              f"norm-wise rel err max {worst:.3e} (limit {limit}), per "
+              f"call {[float(f'{x:.2e}') for x in e]}", flush=True)
+        if not worst <= limit:
+            raise AssertionError(f"{tag} {what}: {kernel} disagrees with its"
+                                 f" plain version: {worst} > {limit}")
+
+
+def row_rel(got, want):
+    """Norm-wise relative error of each row of two [B, V] logit arrays."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=1) / want.norm(dim=1)).tolist()
+
+
+def phase_recurrent(dev, arch: str, tag: str) -> dict:
+    """``arch`` at full width and depth, random weights from a seed, on the
+    card, through the port's model entry points (``models.lm``): counters
+    zeroed, ``forward_prefill`` of 4 x 2048 prompt tokens, then
+    ``init_cache`` + ``decode_step`` over a 64-token prompt fed one token
+    at a time and 32 greedy new tokens; counters read, and each kernel's
+    launches held to the path's count per prefill and per decode step.
+    Then (not counted) the card's busy share of a prefill and of a decode
+    step, every kernel call of one prefill and one decode step replayed
+    through its plain version (``replay_kernel_calls``), and accuracy
+    against the plain route ("xla": the kernels' plain
+    versions, plain attention) in float32: its decode-matches-prefill at
+    the prompt's end (FP32_DECODE_REL), and the kernel route's prefill (64
+    and PLAIN_PROMPT tokens) and decode logits within DRIFT_RATIO of the
+    bf16 plain route's drift from it.  The bf16 compute copy of the
+    weights is cast once and passed to every bf16 call."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import COUNTERS, reset_counters
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch)
+    per_prefill, per_step = RECURRENT_PATHS[arch]
+    gc.collect()                  # the earlier phases' tensors
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, gen, device=dev)
+    cparams = lm.cast_for_compute(cfg, params)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.synchronize(dev)
+    print(f"{tag}: {cfg.name} at full depth ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.ssm}, pattern {cfg.layer_pattern or 'none'},"
+          f" vocab {cfg.vocab_size}): {n_params} params, fp32 masters + the "
+          f"bf16 copy initialised in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    b, s = SERVE_PROMPT
+    rng = np.random.RandomState(5)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s)),
+                           device=dev)
+    prompt = toks[:, :DECODE_PROMPT]
+    n_steps = DECODE_PROMPT + DECODE_NEW
+
+    def prefill(c, t):
+        return lm.forward_prefill(c, cparams, {"tokens": t}).logits
+
+    with torch.inference_mode():
+        prefill(cfg, prompt)                          # warm-up
+        torch.cuda.synchronize(dev)
+        reset_counters()
+        t0 = time.perf_counter()
+        logits = prefill(cfg, toks)
+        torch.cuda.synchronize(dev)
+        pre_wall = time.perf_counter() - t0
+        pre_launch = {n: c.count for n, c in COUNTERS.items()}
+        cache = lm.init_cache(cfg, b, n_steps, lm.DTYPES[cfg.dtype],
+                              device=dev)
+        step_s, new_tokens = [], []
+        at_prompt = None
+        tok = prompt[:, 0]
+        for i in range(n_steps):
+            t1 = time.perf_counter()
+            step_logits, cache, _ = lm.decode_step(cfg, cparams, cache, tok)
+            nxt = step_logits.argmax(-1)
+            torch.cuda.synchronize(dev)
+            step_s.append(time.perf_counter() - t1)
+            if i + 1 == DECODE_PROMPT:
+                at_prompt = step_logits.float()
+            if i + 1 < DECODE_PROMPT:
+                tok = prompt[:, i + 1]
+            else:
+                tok = nxt
+                if len(new_tokens) < DECODE_NEW:
+                    new_tokens.append(nxt)
+        launches = {n: c.count for n, c in COUNTERS.items()}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+
+        print(f"{tag} launches (prefill + {n_steps} decode steps): "
+              + json.dumps(launches), flush=True)
+        for name, n in launches.items():
+            want_pre = per_prefill.get(name, 0)
+            want_all = want_pre + n_steps * per_step.get(name, 0)
+            if pre_launch[name] != want_pre or n != want_all:
+                raise AssertionError(
+                    f"{tag}: {name} launched {pre_launch[name]} times in the "
+                    f"prefill and {n - pre_launch[name]} in {n_steps} decode "
+                    f"steps, expected {want_pre} and {want_all - want_pre}")
+        gen_toks = torch.stack(new_tokens, dim=1)
+        if not (torch.isfinite(logits).all() and logits.shape ==
+                (b, cfg.vocab_size) and torch.isfinite(at_prompt).all()):
+            raise AssertionError(f"{tag}: logits not finite / mis-shaped")
+        if gen_toks.shape != (b, DECODE_NEW) or gen_toks.min() < 0 or \
+                gen_toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{tag}: bad generated tokens")
+        st = np.array(step_s) * 1e3
+        gen_s = float(np.sum(step_s[DECODE_PROMPT:]))
+        print(f"{tag}: prefill {b} x {s} tokens in {pre_wall * 1e3:.3f} ms "
+              f"wall ({b * s / pre_wall:.1f} tokens/s); decode step (batch "
+              f"{b}) p50 {np.percentile(st, 50):.3f} ms p95 "
+              f"{np.percentile(st, 95):.3f} ms over {n_steps} steps; "
+              f"{b * DECODE_NEW / gen_s:.3f} generated tokens/s; peak device "
+              f"memory {peak:.2f} GiB", flush=True)
+
+        profile_busy(lambda: prefill(cfg, toks),
+                     f"{tag} prefill {b} x {s} under the profiler")
+        profile_busy(lambda: lm.decode_step(cfg, cparams, cache, tok),
+                     f"{tag} decode step under the profiler")
+
+        # every kernel call of one prefill and one decode step (from the
+        # state after the decode run) against its plain version, layer by
+        # layer, on the tensors the model passes it
+        hooks = replay_hooks(arch)
+        replay_kernel_calls(tag, f"prefill {b} x {s}",
+                            lambda: prefill(cfg, toks), hooks, per_prefill)
+        if per_step:
+            replay_kernel_calls(
+                tag, "decode step",
+                lambda: lm.decode_step(cfg, cparams, cache, tok), hooks,
+                per_step)
+
+        # the plain route, bf16 and float32, against the kernel route
+        plain_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, compute_backend="xla"))
+        f32_cfg = dataclasses.replace(plain_cfg, dtype="float32")
+        pb, ps = PLAIN_PROMPT
+        short = toks[:pb, :ps]
+        routes = {"kernel bf16": (cfg, cparams),
+                  "plain bf16": (plain_cfg, cparams),
+                  "plain fp32": (f32_cfg, params)}
+        got, walls = {}, {}
+        for name, (c, pp) in routes.items():
+            dcache = lm.init_cache(c, b, DECODE_PROMPT, lm.DTYPES[c.dtype],
+                                   device=dev)
+            for i in range(DECODE_PROMPT):
+                dec, dcache, _ = lm.decode_step(c, pp, dcache, prompt[:, i])
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            long_pre = lm.forward_prefill(c, pp, {"tokens": short}).logits
+            torch.cuda.synchronize(dev)
+            walls[name] = time.perf_counter() - t0
+            got[name] = {
+                f"prefill@{DECODE_PROMPT}": lm.forward_prefill(
+                    c, pp, {"tokens": prompt}).logits.float(),
+                f"decode@{DECODE_PROMPT}": dec.float(),
+                f"prefill@{ps}": long_pre.float()}
+            del dcache
+        if not all(torch.isfinite(v).all() for g in got.values()
+                   for v in g.values()):
+            raise AssertionError(f"{tag}: non-finite logits")
+
+        def fmt(rel):
+            return [float(f"{r:.3e}") for r in rel]
+        pre_key = f"prefill@{DECODE_PROMPT}"
+        dec_key = f"decode@{DECODE_PROMPT}"
+        for name in routes:
+            rel = row_rel(got[name][dec_key], got[name][pre_key])
+            print(f"{tag}: {name}: decode logits after {DECODE_PROMPT} "
+                  f"one-token steps vs forward_prefill of the {DECODE_PROMPT}"
+                  f" tokens, norm-wise per row {fmt(rel)}"
+                  + (f" (limit {FP32_DECODE_REL})" if name == "plain fp32"
+                     else " (not held: bf16)"), flush=True)
+        rel = row_rel(got["plain fp32"][dec_key], got["plain fp32"][pre_key])
+        if max(rel) > FP32_DECODE_REL:
+            raise AssertionError(f"{tag}: decode does not match prefill")
+        truth = got["plain fp32"]
+        for what in truth:
+            rk = row_rel(got["kernel bf16"][what], truth[what])
+            rp = row_rel(got["plain bf16"][what], truth[what])
+            lk, lp = got["kernel bf16"][what], got["plain bf16"][what]
+            agree = float((lk.argmax(1) == lp.argmax(1)).float().mean())
+            print(f"{tag}: {what} vs the fp32 plain route, norm-wise per "
+                  f"row: kernel route {fmt(rk)}, plain bf16 route {fmt(rp)} "
+                  f"(limit {DRIFT_RATIO} x the plain route's); kernel vs "
+                  f"plain bf16 {fmt(row_rel(lk, lp))}, argmax agreement "
+                  f"{agree:.2f}", flush=True)
+            if any(k > DRIFT_RATIO * p for k, p in zip(rk, rp)):
+                raise AssertionError(f"{tag}: {what}: the kernel route drifts"
+                                     f" further from float32 than the plain "
+                                     f"bf16 route")
+        print(f"{tag}: prefill of {pb} x {ps} tokens, wall: " + ", ".join(
+            f"{n} {w * 1e3:.3f} ms" for n, w in walls.items()), flush=True)
     return launches
 
 
@@ -1135,7 +1661,7 @@ def phase3_train(dev) -> dict:
         log = tr.metrics_log
         print("phase 3 launches: " + json.dumps(launches), flush=True)
         missing = [n for n, c in launches.items()
-                   if c == 0 and n not in SERVE_ONLY]
+                   if c == 0 and n not in SERVE_ONLY | RECURRENT]
         if missing:
             raise AssertionError(f"kernels never launched in training: "
                                  f"{missing}")
@@ -1284,17 +1810,19 @@ def main() -> int:
     train_launches = phase3_train(dev)
     phase3_resume(dev)
     mixtral = phase4(dev)
+    rwkv = phase_recurrent(dev, "rwkv6-1.6b", "phase 5")
+    zamba = phase_recurrent(dev, "zamba2-1.2b", "phase 6")
 
     kernels = []
     for name in REPLACES:
         r = rows[name]
+        paths = {"serve": serve[name], "train": train_launches[name],
+                 "mixtral": mixtral[name], "rwkv": rwkv[name],
+                 "zamba": zamba[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name],
-            "launches": serve[name] + train_launches[name] + mixtral[name],
-            "launches_serve": serve[name],
-            "launches_train": train_launches[name],
-            "launches_mixtral": mixtral[name],
+            "replaces": REPLACES[name], "launches": sum(paths.values()),
+            **{f"launches_{p}": n for p, n in paths.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("topk_gating", "dispatch", "moe_ffn", "flash_attention")
+SOURCES = ("topk_gating", "dispatch", "moe_ffn", "flash_attention", "rwkv6",
+           "ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -34,8 +35,9 @@ _LIBS: dict = {}
 BUILD_LOG: dict = {}          # source name -> nvcc / ptxas output
 
 # ctypes argument kinds: a pointer or stream is c_void_p (a bare Python int
-# would be passed as a 32-bit int and cut), every size is c_int
-P, I = ctypes.c_void_p, ctypes.c_int
+# would be passed as a 32-bit int and cut), every size is c_int, a stride
+# in elements c_longlong
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "topk_gating": {
         "topk_gating": (P, P, I, I, I, I, P, P, P, P),
@@ -52,6 +54,13 @@ SIGNATURES = {
     },
     "flash_attention": {
         "flash_attention": (P, P, P, P, I, I, I, I, I, I, I, P),
+    },
+    "rwkv6": {
+        "rwkv6_wkv": (P, P, P, P, P, P, P, P, I, I, I, I, P),
+    },
+    "ssd": {
+        "ssd_scan": (P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                     L, L, L, L, L, L, L, L, P),
     },
 }
 

@@ -34,10 +34,12 @@ launches the same kernels:
 On a CPU tensor the same Functions run and their kernels' plain versions
 run inside, so the CPU tests exercise these backward formulas.
 ``topk_positions_op`` and ``weighted_route_op`` have integer outputs and no
-backward.  ``flash_attention_op`` (the prefill attention) has no backward
-either, as the reference's Pallas kernel has no VJP: on a CUDA tensor that
-requires grad it raises.  The ops make their inputs contiguous and of the
-index type the kernels take.
+backward.  ``flash_attention_op`` (the prefill attention), ``rwkv6_op`` (the
+RWKV6 WKV recurrence) and ``ssd_op`` (the Mamba2 SSD scan) have no backward
+either, as the reference's Pallas kernels have no VJP: on a CUDA tensor
+that requires grad they raise.  The ops make their inputs contiguous and
+of the index type the kernels take, except that ``ssd_op`` hands the
+model's strided slices to the kernel as they are.
 """
 from __future__ import annotations
 
@@ -48,6 +50,8 @@ from repro_torch.kernels.dispatch import (combine_rows, dispatch_rows,
                                           invert_slots, weighted_route)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.moe_ffn import grouped_ffn, grouped_matmul
+from repro_torch.kernels.rwkv6 import rwkv6_wkv
+from repro_torch.kernels.ssd import ssd_scan
 from repro_torch.kernels.topk_gating import topk_gating_fused, topk_positions
 
 
@@ -59,6 +63,12 @@ def resolve_backend(name: str | None) -> str:
     if name != "xla":
         raise ValueError(f"unknown compute backend {name!r}")
     return name
+
+
+def kernel_route(cfg) -> bool:
+    """Whether a model config's ``moe.compute_backend`` selects the kernel
+    route (the RWKV6 / hybrid families read it too)."""
+    return resolve_backend(cfg.moe.compute_backend) == "pallas"
 
 
 def _vjp(fn, primals, cotangent):
@@ -230,3 +240,27 @@ def flash_attention_op(q, k, v, causal: bool = True, window: int = 0):
     the flash kernel for CUDA tensors, its plain version for CPU ones."""
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=causal, window=window)
+
+
+# ---------------------------------------------------------------------------
+# the recurrences of the RWKV6 and Mamba2 families (reference ops.py:
+# rwkv6_op / ssd_op; forward only)
+# ---------------------------------------------------------------------------
+
+def rwkv6_op(r, k, v, w, u, s0=None, *, return_state: bool = False):
+    """r/k/v/w [B, T, H, hd] (w the log decay), u [H, hd], s0 [B, H, hd,
+    hd] or None -> y [B, T, H, hd] float32 (, final state): the WKV kernel
+    for CUDA tensors, its plain version for CPU ones."""
+    return rwkv6_wkv(r.contiguous(), k.contiguous(), v.contiguous(),
+                     w.contiguous(), u, s0=None if s0 is None
+                     else s0.contiguous(), return_state=return_state)
+
+
+def ssd_op(x, dt, a_log, b, c, d_skip, h0=None, *,
+           return_state: bool = False):
+    """x [B, T, H, P], dt [B, T, H], a_log / d_skip [H], b / c [B, T, N],
+    h0 [B, H, P, N] or None -> y [B, T, H, P] float32 (, final state): the
+    SSD kernel for CUDA tensors, its plain version for CPU ones."""
+    return ssd_scan(x, dt, a_log, b, c, d_skip,
+                    h0=None if h0 is None else h0.contiguous(),
+                    return_state=return_state)

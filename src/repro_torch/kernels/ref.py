@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's eight kernels (the allclose
+"""Plain PyTorch versions of the port's ten kernels (the allclose
 targets), with the reference oracles' names and signatures.
 
 Each function is the semantic ground truth: simple tensor code with no
@@ -132,3 +132,47 @@ def ref_attention(q, k, v, *, causal: bool = True, window: int = 0):
                          torch.full((), -1e30, device=q.device))
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vv.float()).to(q.dtype)
+
+
+def ref_rwkv6(r, k, v, w, u, s0=None, return_state: bool = False):
+    """Naive RWKV6 recurrence.  r/k/v/w: [B, T, H, hd] (w = log decay < 0);
+    u: [H, hd]; s0: [B, H, hd, hd] initial state (zeros when None).
+    Returns y [B, T, H, hd] (f32), and with ``return_state`` also the final
+    state [B, H, hd, hd] (f32).  Per step:
+    y_t = r_t @ (S + u k_t v_t^T), S <- exp(w_t)[:, None] S + k_t v_t^T."""
+    b, t, h, hd = r.shape
+    r, k, v, w = (a.float() for a in (r, k, v, w))
+    uu = u.float()[None, :, :, None]
+    s = torch.zeros((b, h, hd, hd), device=r.device) if s0 is None \
+        else s0.float()
+    ys = []
+    for i in range(t):
+        kv = k[:, i, :, :, None] * v[:, i, :, None, :]       # [B,H,hd,hd]
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, i], s + uu * kv))
+        s = torch.exp(w[:, i])[..., None] * s + kv
+    y = torch.stack(ys, dim=1) if ys else r.new_zeros((b, 0, h, hd))
+    return (y, s) if return_state else y
+
+
+def ref_ssd(x, dt, a_log, b, c, d_skip, h0=None, return_state: bool = False):
+    """Naive Mamba2/SSD recurrence.  x: [B,T,H,P]; dt: [B,T,H] (pre-softplus);
+    a_log: [H]; b,c: [B,T,N]; d_skip: [H]; h0: [B,H,P,N] initial state
+    (zeros when None).  Returns y [B,T,H,P] (f32), and with
+    ``return_state`` also the final state [B,H,P,N] (f32)."""
+    bsz, t, h, p = x.shape
+    n = b.shape[-1]
+    a = -torch.exp(a_log.float())
+    dtp = F.softplus(dt.float())
+    x, b, c = x.float(), b.float(), c.float()
+    s = torch.zeros((bsz, h, p, n), device=x.device) if h0 is None \
+        else h0.float()
+    ys = []
+    for i in range(t):
+        dec = torch.exp(dtp[:, i] * a[None])                  # [B,H]
+        upd = torch.einsum("bhp,bn->bhpn", x[:, i] * dtp[:, i, :, None],
+                           b[:, i])
+        s = s * dec[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", s, c[:, i]))
+    y = torch.stack(ys, dim=1) if ys else x.new_zeros((bsz, 0, h, p))
+    y = y + x * d_skip.float()[None, None, :, None]
+    return (y, s) if return_state else y

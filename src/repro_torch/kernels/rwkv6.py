@@ -1,0 +1,69 @@
+"""The RWKV6 WKV recurrence: the wrapper of ``csrc/rwkv6.cu``.
+
+``rwkv6_wkv(r, k, v, w, u, s0=None, return_state=False)``:
+r/k/v/w [B, T, H, hd] (w the log decay), u [H, hd], s0 [B, H, hd, hd]
+(zeros when None) -> y [B, T, H, hd] float32, and with ``return_state``
+also the final state [B, H, hd, hd] float32.  Without ``s0`` it is the
+reference's Pallas kernel (``src/repro/kernels/rwkv6.py``); with it, the
+same recurrence continued from a cached state (one decode step is T = 1).
+The kernel stages min(64, T) steps at a time.
+
+On the card: r, k and v bf16; w float32 (the model forms the log decay in
+float32, and a bf16 w would compound over T); u and s0 float32 (u is cast
+here); hd 64; every tensor contiguous; no gradient (the reference's kernel
+has no VJP either).  A CPU tensor takes the plain version in
+``kernels.ref``; a CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels._build import (BF16, LaunchCounter, check, lib,
+                                        on_cpu, ptr, require, stream)
+
+RWKV6_WKV = LaunchCounter("rwkv6_wkv")
+
+HEAD_DIM = 64       # the kernel's one instance: a thread per column of S
+
+
+def rwkv6_wkv(r, k, v, w, u, *, s0=None, return_state: bool = False):
+    """r/k/v/w: [B, T, H, hd]; u: [H, hd]; s0: [B, H, hd, hd] or None ->
+    y [B, T, H, hd] float32 (, final state [B, H, hd, hd] float32)."""
+    if r.dim() != 4:
+        raise ValueError(f"rwkv6_wkv takes [B, T, H, hd] r, got "
+                         f"{tuple(r.shape)}")
+    b, t, h, hd = r.shape
+    for name, a in (("k", k), ("v", v), ("w", w)):
+        if tuple(a.shape) != tuple(r.shape):
+            raise ValueError(f"rwkv6_wkv: {name} {tuple(a.shape)} does not "
+                             f"match r {tuple(r.shape)}")
+    if tuple(u.shape) != (h, hd):
+        raise ValueError(f"rwkv6_wkv: u {tuple(u.shape)}, expected {(h, hd)}")
+    if s0 is not None and tuple(s0.shape) != (b, h, hd, hd):
+        raise ValueError(f"rwkv6_wkv: s0 {tuple(s0.shape)}, expected "
+                         f"{(b, h, hd, hd)}")
+    if on_cpu(r, k, v, w, u, s0):
+        return ref.ref_rwkv6(r, k, v, w, u, s0=s0, return_state=return_state)
+    if torch.is_grad_enabled() and any(
+            a is not None and a.requires_grad for a in (r, k, v, w, u, s0)):
+        raise RuntimeError("rwkv6_wkv has no backward kernel: call it under "
+                           "torch.no_grad() / inference_mode")
+    for name, a in (("r", r), ("k", k), ("v", v)):
+        require(a, name, BF16, 4)
+    require(w, "w", (torch.float32,), 4)
+    if s0 is not None:
+        require(s0, "s0", (torch.float32,), 4)
+    if hd != HEAD_DIM:
+        raise ValueError(f"rwkv6_wkv kernel takes head_dim {HEAD_DIM}, got "
+                         f"{hd}")
+    uf = u.float().contiguous()
+    y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    s_t = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device) \
+        if return_state else None
+    status = lib("rwkv6").rwkv6_wkv(
+        ptr(r), ptr(k), ptr(v), ptr(w), ptr(uf), ptr(s0), ptr(y), ptr(s_t),
+        b, t, h, hd, stream(r))
+    check(status, "rwkv6_wkv")
+    RWKV6_WKV.inc()
+    return (y, s_t) if return_state else y

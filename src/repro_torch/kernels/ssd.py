@@ -1,0 +1,94 @@
+"""The Mamba2 SSD chunk scan: the wrapper of ``csrc/ssd.cu``.
+
+``ssd_scan(x, dt, a_log, b, c, d_skip, h0=None, return_state=False)``:
+x [B, T, H, P], dt [B, T, H] (before softplus), a_log / d_skip [H], b / c
+[B, T, N] (shared by every head), h0 [B, H, P, N] (zeros when None) ->
+y [B, T, H, P] float32, and with ``return_state`` also the final state
+[B, H, P, N] float32.  Without ``h0`` it is the reference's Pallas kernel
+(``src/repro/kernels/ssd.py``).  The kernel's chunk is 128 steps and a
+ragged T is masked in the last chunk; the result does not depend on the
+chunking.
+
+On the card: x, dt, b and c bf16, read in place through their batch and
+time strides (the model passes slices of one projection; each row's last
+dims must be contiguous); a_log and d_skip cast to float32 here; h0
+float32 contiguous; P = N = 64; no gradient.  A CPU tensor takes the plain
+version in ``kernels.ref``; a CUDA tensor launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels._build import (BF16, LaunchCounter, check, lib,
+                                        on_cpu, ptr, require, stream)
+
+SSD_SCAN = LaunchCounter("ssd_scan")
+
+HEAD_DIM = 64       # P
+STATE_DIM = 64      # N
+CHUNK = 128         # Q, fixed in the kernel
+
+
+def _rows(a, name: str, inner: tuple) -> None:
+    """Raise unless ``a`` is bf16 with its dims after time laid out
+    contiguously (strides ``inner``); batch and time strides are free."""
+    if a.dtype not in BF16:
+        raise TypeError(f"ssd_scan {name}: dtype {a.dtype} not in "
+                        f"{list(BF16)}")
+    if tuple(a.stride()[2:]) != inner:
+        raise ValueError(f"ssd_scan {name}: the dims after time must be "
+                         f"contiguous, got strides {tuple(a.stride())}")
+
+
+def ssd_scan(x, dt, a_log, b, c, d_skip, *, h0=None,
+             return_state: bool = False):
+    """x: [B, T, H, P]; dt: [B, T, H]; a_log, d_skip: [H]; b, c: [B, T, N];
+    h0: [B, H, P, N] or None -> y [B, T, H, P] float32 (, final state)."""
+    if x.dim() != 4:
+        raise ValueError(f"ssd_scan takes [B, T, H, P] x, got "
+                         f"{tuple(x.shape)}")
+    bsz, t, h, p = x.shape
+    n = b.shape[-1]
+    if tuple(dt.shape) != (bsz, t, h):
+        raise ValueError(f"ssd_scan: dt {tuple(dt.shape)}, expected "
+                         f"{(bsz, t, h)}")
+    if tuple(b.shape) != (bsz, t, n) or tuple(c.shape) != (bsz, t, n):
+        raise ValueError(f"ssd_scan: b {tuple(b.shape)} / c {tuple(c.shape)}"
+                         f", expected {(bsz, t, n)}")
+    if tuple(a_log.shape) != (h,) or tuple(d_skip.shape) != (h,):
+        raise ValueError(f"ssd_scan: a_log {tuple(a_log.shape)} / d_skip "
+                         f"{tuple(d_skip.shape)}, expected {(h,)}")
+    if h0 is not None and tuple(h0.shape) != (bsz, h, p, n):
+        raise ValueError(f"ssd_scan: h0 {tuple(h0.shape)}, expected "
+                         f"{(bsz, h, p, n)}")
+    if on_cpu(x, dt, a_log, b, c, d_skip, h0):
+        return ref.ref_ssd(x, dt, a_log, b, c, d_skip, h0=h0,
+                           return_state=return_state)
+    if torch.is_grad_enabled() and any(
+            a is not None and a.requires_grad
+            for a in (x, dt, a_log, b, c, d_skip, h0)):
+        raise RuntimeError("ssd_scan has no backward kernel: call it under "
+                           "torch.no_grad() / inference_mode")
+    if p != HEAD_DIM or n != STATE_DIM:
+        raise ValueError(f"ssd_scan kernel takes P = {HEAD_DIM} and N = "
+                         f"{STATE_DIM}, got P = {p}, N = {n}")
+    _rows(x, "x", (p, 1))
+    _rows(dt, "dt", (1,))
+    _rows(b, "b", (1,))
+    _rows(c, "c", (1,))
+    if h0 is not None:
+        require(h0, "h0", (torch.float32,), 4)
+    a32 = a_log.float().contiguous()
+    d32 = d_skip.float().contiguous()
+    y = torch.empty((bsz, t, h, p), dtype=torch.float32, device=x.device)
+    h_t = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device) \
+        if return_state else None
+    status = lib("ssd").ssd_scan(
+        ptr(x), ptr(dt), ptr(a32), ptr(b), ptr(c), ptr(d32), ptr(h0), ptr(y),
+        ptr(h_t), bsz, t, h, p, n, x.stride(0), x.stride(1), dt.stride(0),
+        dt.stride(1), b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+        stream(x))
+    check(status, "ssd_scan")
+    SSD_SCAN.inc()
+    return (y, h_t) if return_state else y

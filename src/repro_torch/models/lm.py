@@ -1,12 +1,23 @@
-"""The MoE transformer LM (the ``"moe"`` family: the paper's §7.1 models),
-in PyTorch.
+"""The LM stack of the port's families, in PyTorch: the MoE transformer
+(the ``"moe"`` family: the paper's §7.1 models and mixtral-8x22b), the
+hybrid Mamba2 + shared-attention stack (zamba2) and the attention-free RWKV6
+stack.
 
 Parameters are NamedTuples of tensors in the reference's layout: every
-leaf of ``LMParams.stack`` carries a leading layer-group dim G (one group =
-``moe.every`` transformer blocks; ``attn``/``ln*`` add an ``every`` dim).
-``forward_train`` is the training forward (loss plus per-layer top-1
-expert choices, differentiable in the params) that the train step and the
-profiling stage run; serving runs layer by layer in ``runtime.server``.
+leaf of a transformer ``LMParams.stack`` carries a leading layer-group dim G
+(one group = ``moe.every`` transformer blocks; ``attn``/``ln*`` add an
+``every`` dim); the hybrid and RWKV stacks carry a leading layer dim L.
+``forward_train`` is the transformer family's training forward (loss plus
+per-layer top-1 expert choices, differentiable in the params) that the
+train step and the profiling stage run; the transformer family is served
+layer by layer in ``runtime.server``.  The hybrid and RWKV families are
+served here, through the reference's model entry points
+``forward_prefill`` (last-position logits), ``init_cache`` and
+``decode_step``; their recurrences run the WKV and SSD kernels and the
+shared block's prefill attention the flash kernel on the kernel route
+(``cfg.moe.compute_backend`` "auto"/"pallas"), the plain versions on the
+"xla" route.  Training them needs backward kernels for WKV and SSD
+(ROADMAP queue 1 item 6), so ``forward_train`` refuses them.
 """
 from __future__ import annotations
 
@@ -17,7 +28,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.moe import MoEParams, moe_layer
 from repro_torch.devices import resolve_device
-from repro_torch.models.attention import AttnParams, KVCache, attention
+from repro_torch.kernels.ops import kernel_route
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.attention import (AttnParams, KVCache, attention,
+                                          decode_attention)
 from repro_torch.models.layers import dense_init, ffn_branch, rms_norm
 from repro_torch.tree import tree_map
 
@@ -43,17 +58,35 @@ class GroupParams(NamedTuple):
     shared: Optional[FFNParams]         # [G, ...] shared expert or None
 
 
+class HybridParams(NamedTuple):
+    mamba: ssm_mod.MambaParams          # stacked [L, ...]
+    ln_m: torch.Tensor                  # [L, d]
+    shared_attn: AttnParams             # single shared block
+    shared_ffn: FFNParams
+    ln_s1: torch.Tensor                 # [d]
+    ln_s2: torch.Tensor                 # [d]
+
+
+class RWKVStack(NamedTuple):
+    blocks: rwkv_mod.RWKVParams         # stacked [L, ...]
+    ln1: torch.Tensor                   # [L, d]
+    ln2: torch.Tensor                   # [L, d]
+
+
 class LMParams(NamedTuple):
     embed: torch.Tensor                 # [V, d]
-    stack: GroupParams
+    stack: object                       # GroupParams, HybridParams or
+    #                                     RWKVStack
     final_norm: torch.Tensor            # [d]
     lm_head: Optional[torch.Tensor]     # [d, V] or None (tied)
 
 
 class LMCache(NamedTuple):
-    """Decode state of the transformer family (the reference's LMCache
-    without the mamba / rwkv states of the other families)."""
-    kv: KVCache                         # [G, every, B, S_max, KV, hd]
+    """Decode state, with the reference's fields."""
+    kv: Optional[KVCache]               # [G, every, B, S_max, KV, hd] or
+    #                                     [n_taps, B, S_max, KV, hd]
+    mamba: Optional[ssm_mod.MambaState]      # stacked [L, ...]
+    rwkv: Optional[rwkv_mod.RWKVState]       # stacked [L, ...]
     pos: torch.Tensor                   # [B] next position
 
 
@@ -61,16 +94,33 @@ class ModelOutput(NamedTuple):
     loss: Optional[torch.Tensor]
     aux_loss: torch.Tensor
     expert_choices: Optional[torch.Tensor]   # [n_moe_layers, T] top-1
+    logits: Optional[torch.Tensor] = None    # [B, V] last position (prefill)
 
 
 def tree_idx(tree, i):
     return tree_map(lambda a: a[i], tree)
 
 
-def _check_family(cfg) -> None:
-    if cfg.layer_pattern or cfg.attention_free or cfg.frontend != "none":
+def _check_family(cfg, serve: bool = False) -> None:
+    """The transformer family runs in every entry point here; the hybrid
+    and RWKV families in ``init_params`` and the serving entry points
+    (``serve``) only."""
+    if cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: only the transformer family is ported")
+            f"{cfg.name}: the {cfg.frontend} frontend is not ported")
+    if (cfg.layer_pattern or cfg.attention_free) and not serve:
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family needs backward "
+            f"kernels for WKV and SSD (ROADMAP queue 1 item 6); it is "
+            f"served through forward_prefill / init_cache / decode_step")
+
+
+def _check_served_here(cfg) -> None:
+    _check_family(cfg, serve=True)
+    if not (cfg.layer_pattern or cfg.attention_free):
+        raise NotImplementedError(
+            f"{cfg.name}: the transformer family is served by "
+            f"runtime.server.MoEServer")
 
 
 # ---------------------------------------------------------------------------
@@ -83,15 +133,11 @@ def init_params(cfg, gen: torch.Generator, device="cuda") -> LMParams:
     ``device`` (the card by default; raises without one).  ``gen`` is a
     generator on that device.  The numbers are not JAX's; tests convert
     the reference's with ``repro_torch.convert.from_reference``."""
-    _check_family(cfg)
+    _check_family(cfg, serve=True)
     device = resolve_device(device)
     dtype = DTYPES[cfg.param_dtype]
     d = cfg.d_model
     hd = cfg.resolved_head_dim
-    every = cfg.moe.every if cfg.moe.enabled else 1
-    g = cfg.n_layers // every
-    n_dense = (every - 1) if cfg.moe.enabled else every
-    f_moe = cfg.moe.d_ff or cfg.d_ff
 
     def dense(shape, scale_axis=-2):
         # stacked leaves: the fan-in is the second-to-last dim
@@ -109,8 +155,33 @@ def init_params(cfg, gen: torch.Generator, device="cuda") -> LMParams:
                          if cfg.ffn_type == "swiglu" else None,
                          dense((*lead, f, d)))
 
+    def lm_params(stack):
+        # the unembedding is drawn after the stack
+        lm_head = None if cfg.tie_embeddings else dense((d, cfg.vocab_size))
+        return LMParams(embed, stack, ones(d), lm_head)
+
     embed = dense((cfg.vocab_size, d), scale_axis=-1)
     hq, hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    n_l = cfg.n_layers
+    if cfg.layer_pattern:                                  # hybrid (zamba2)
+        stack = HybridParams(
+            mamba=ssm_mod.init_mamba_params(gen, cfg, (n_l,), dtype, device),
+            ln_m=ones(n_l, d),
+            shared_attn=AttnParams(dense((d, hq)), dense((d, hkv)),
+                                   dense((d, hkv)), dense((hq, d)),
+                                   None, None, None, None, None),
+            shared_ffn=ffn((), cfg.d_ff), ln_s1=ones(d), ln_s2=ones(d))
+        return lm_params(stack)
+    if cfg.attention_free:                                 # rwkv6
+        stack = RWKVStack(
+            blocks=rwkv_mod.init_rwkv_params(gen, cfg, (n_l,), dtype, device),
+            ln1=ones(n_l, d), ln2=ones(n_l, d))
+        return lm_params(stack)
+
+    every = cfg.moe.every if cfg.moe.enabled else 1
+    g = cfg.n_layers // every
+    n_dense = (every - 1) if cfg.moe.enabled else every
+    f_moe = cfg.moe.d_ff or cfg.d_ff
     attn = AttnParams(
         dense((g, every, d, hq)), dense((g, every, d, hkv)),
         dense((g, every, d, hkv)), dense((g, every, hq, d)),
@@ -131,8 +202,7 @@ def init_params(cfg, gen: torch.Generator, device="cuda") -> LMParams:
     stack = GroupParams(attn, ones(g, every, d), ones(g, every, d),
                         ffn((g, n_dense), cfg.d_ff) if n_dense else None,
                         moe, shared)
-    lm_head = None if cfg.tie_embeddings else dense((d, cfg.vocab_size))
-    return LMParams(embed, stack, ones(d), lm_head)
+    return lm_params(stack)
 
 
 def cast_for_compute(cfg, params: LMParams) -> LMParams:
@@ -247,3 +317,155 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
                            remat=cfg.remat)
     experts = torch.stack(top1s) if top1s else None
     return ModelOutput(loss + aux, aux, experts)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid (zamba2) and RWKV6 families: prefill and decode
+# ---------------------------------------------------------------------------
+
+def _taps(cfg) -> list:
+    """Layers after which the shared attention block runs ("A" or "*")."""
+    return [ch in "A*" for ch in cfg.layer_pattern]
+
+
+def _shared_block(cfg, hp: HybridParams, x, use_kernel: bool):
+    h = rms_norm(x, hp.ln_s1, cfg.norm_eps)
+    y, _ = attention(hp.shared_attn, h, cfg, use_kernel=use_kernel)
+    x = x + y
+    h = rms_norm(x, hp.ln_s2, cfg.norm_eps)
+    return x + _ffn_apply(hp.shared_ffn, h, cfg.ffn_type)
+
+
+def _run_hybrid(cfg, hp: HybridParams, x):
+    """Mamba2 layers, the shared block after each tap.  x: [B, S, d]."""
+    use_kernel = kernel_route(cfg)
+    for li, tap in enumerate(_taps(cfg)):
+        h = rms_norm(x, hp.ln_m[li], cfg.norm_eps)
+        y, _ = ssm_mod.mamba_block(tree_idx(hp.mamba, li), cfg, h)
+        x = x + y
+        if tap:
+            x = _shared_block(cfg, hp, x, use_kernel)
+    return x
+
+
+def _run_rwkv(cfg, st: RWKVStack, x):
+    """RWKV6 layers: time-mix then channel-mix.  x: [B, S, d]."""
+    for li in range(cfg.n_layers):
+        bp = tree_idx(st.blocks, li)
+        h = rms_norm(x, st.ln1[li], cfg.norm_eps)
+        y, _, _ = rwkv_mod.time_mix(bp, cfg, h)
+        x = x + y
+        h = rms_norm(x, st.ln2[li], cfg.norm_eps)
+        y, _ = rwkv_mod.channel_mix(bp, h)
+        x = x + y
+    return x
+
+
+def forward_prefill(cfg, params: LMParams, batch: dict) -> ModelOutput:
+    """Serving prefill of the hybrid and RWKV families: last-position
+    logits [B, V] in ``cfg.dtype`` (``ModelOutput.logits``).  ``batch``
+    holds ``tokens`` [B, S] on the params' device.  Builds no cache, as
+    the reference's (decode starts from ``init_cache``).  The WKV / SSD
+    and flash kernels have no backward: call it under
+    ``torch.inference_mode`` when the params require grad."""
+    _check_served_here(cfg)
+    p = cast_for_compute(cfg, params)
+    x = p.embed[batch["tokens"].long()].to(DTYPES[cfg.dtype])
+    if isinstance(p.stack, HybridParams):
+        x = _run_hybrid(cfg, p.stack, x)
+    else:
+        x = _run_rwkv(cfg, p.stack, x)
+    x = rms_norm(x, p.final_norm, cfg.norm_eps)
+    logits = x[:, -1] @ unembed_weight(p)
+    return ModelOutput(None, torch.zeros((), device=x.device), None, logits)
+
+
+def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
+               device="cuda") -> LMCache:
+    """Empty decode state of the hybrid or RWKV family on ``device`` (the
+    card by default; raises without one): the shared block's KV cache
+    [n_taps, B, S_max, KV, hd] in ``dtype`` and the Mamba2 states, or the
+    RWKV states; recurrent states in float32, as the reference keeps
+    them."""
+    _check_served_here(cfg)
+    device = resolve_device(device)
+    pos = torch.zeros((batch,), dtype=torch.int32, device=device)
+
+    def per_layer(state):
+        return tree_map(lambda a: a.expand(cfg.n_layers, *a.shape)
+                        .contiguous(), state)
+    if cfg.layer_pattern:
+        s = min(seq_len, cfg.sliding_window) if cfg.sliding_window \
+            else seq_len
+        shape = (sum(_taps(cfg)), batch, s, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        kv = KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                     torch.zeros(shape, dtype=dtype, device=device))
+        ms = per_layer(ssm_mod.init_mamba_state(cfg, batch, device=device))
+        return LMCache(kv=kv, mamba=ms, rwkv=None, pos=pos)
+    rs = per_layer(rwkv_mod.init_rwkv_state(cfg, batch, device=device))
+    return LMCache(kv=None, mamba=None, rwkv=rs, pos=pos)
+
+
+def decode_step(cfg, params: LMParams, cache: LMCache, token) -> tuple:
+    """One decode step of the hybrid or RWKV family.  token: [B] on the
+    params' device.  Returns (logits [B, V], cache, None): no expert
+    choices, as the reference returns for non-MoE stacks.  Mamba2 layers
+    run ``mamba_decode`` (plain), the shared block the plain
+    ``decode_attention``; each RWKV6 layer runs the WKV op at T = 1 from
+    its cached state (the kernel on the kernel route)."""
+    _check_served_here(cfg)
+    p = cast_for_compute(cfg, params)
+    x = p.embed[token.long()][:, None].to(DTYPES[cfg.dtype])     # [B,1,d]
+    pos = cache.pos
+    eps = cfg.norm_eps
+    if isinstance(p.stack, HybridParams):
+        hp = p.stack
+        states, ks, vs = [], [], []
+        for li, tap in enumerate(_taps(cfg)):
+            h = rms_norm(x, hp.ln_m[li], eps)
+            y, ms_new = ssm_mod.mamba_decode(tree_idx(hp.mamba, li), cfg, h,
+                                             tree_idx(cache.mamba, li))
+            states.append(ms_new)
+            x = x + y
+            if tap:
+                h = rms_norm(x, hp.ln_s1, eps)
+                y, kv_new = decode_attention(
+                    hp.shared_attn, h, tree_idx(cache.kv, len(ks)), pos, cfg)
+                ks.append(kv_new.k)
+                vs.append(kv_new.v)
+                x = x + y
+                h2 = rms_norm(x, hp.ln_s2, eps)
+                x = x + _ffn_apply(hp.shared_ffn, h2, cfg.ffn_type)
+        new_cache = LMCache(
+            kv=KVCache(torch.stack(ks), torch.stack(vs)),
+            mamba=tree_map(lambda *a: torch.stack(a), *states), rwkv=None,
+            pos=pos + 1)
+    else:
+        st = p.stack
+        use_kernel = kernel_route(cfg)
+        hh, hd = rwkv_mod._heads(cfg)
+        states = []
+        for li in range(cfg.n_layers):
+            bp = tree_idx(st.blocks, li)
+            rs = tree_idx(cache.rwkv, li)
+            h = rms_norm(x, st.ln1[li], eps)
+            # single-token time-mix through the sequence op (T = 1); the
+            # states are stored float32 and cast at use
+            x_prev = rs.x_tm[:, None].to(h.dtype)
+            lw, k, v, r, g = rwkv_mod._tm_projections(bp, cfg, h, x_prev)
+            y, s_t = rwkv_mod.wkv_chunked(r, k, v, lw, bp.u, hh, hd, 1, rs.s,
+                                          use_kernel=use_kernel)
+            y = rms_norm(y.to(x.dtype) * g.to(x.dtype), bp.ln_x, eps)
+            x = x + y @ bp.wo
+            h2 = rms_norm(x, st.ln2[li], eps)
+            y2, last_cm = rwkv_mod.channel_mix(bp, h2, rs.x_cm.to(h2.dtype))
+            x = x + y2
+            states.append(rwkv_mod.RWKVState(s_t, h[:, -1].float(),
+                                             last_cm.float()))
+        new_cache = LMCache(
+            kv=None, mamba=None,
+            rwkv=tree_map(lambda *a: torch.stack(a), *states), pos=pos + 1)
+    x = rms_norm(x, p.final_norm, eps)
+    logits = x[:, 0] @ unembed_weight(p)
+    return logits, new_cache, None

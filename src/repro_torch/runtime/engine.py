@@ -488,7 +488,8 @@ class ServingEngine:
             pos = np.zeros((b,), np.int32)
             for i, s in enumerate(slots):
                 pos[i] = s.pos
-            cache = LMCache(kv, torch.as_tensor(pos, device=kv.k.device))
+            cache = LMCache(kv=kv, mamba=None, rwkv=None,
+                            pos=torch.as_tensor(pos, device=kv.k.device))
         tokens = np.zeros((b,), np.int64)
         path = np.zeros((b,), np.int64)
         valid = np.zeros((b,), bool)

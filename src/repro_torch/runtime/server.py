@@ -41,6 +41,7 @@ from repro_torch.core.serving import (PlanArrays, mask_dead_route_weights,
                                       replica_token_counts, serve_moe_layer,
                                       slot_capacity)
 from repro_torch.devices import resolve_device
+from repro_torch.kernels.ops import kernel_route
 from repro_torch.kernels.ref import first_max_topk
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.attention import KVCache, attention, decode_attention
@@ -250,11 +251,12 @@ class MoEServer:
     # --- layer pieces -------------------------------------------------------
     def _attn(self, gp, j, x):
         """Full-sequence attention block; also returns this layer's K/V.
-        The kernel route (``compute_backend`` other than "xla") runs the
-        flash-attention kernel, the plain route the plain attention."""
+        The kernel route (``kernel_route``: ``compute_backend`` "auto" or
+        "pallas") runs the flash-attention kernel, the plain route ("xla")
+        the plain attention."""
         h = rms_norm(x, gp.ln1[j], self.cfg.norm_eps)
         y, kv = attention(tree_idx(gp.attn, j), h, self.cfg,
-                          use_kernel=self.cfg.moe.compute_backend != "xla")
+                          use_kernel=kernel_route(self.cfg))
         return x + y, kv.k, kv.v
 
     def _attn_dec(self, gp, j, x, k, v, pos):
@@ -582,7 +584,8 @@ class MoEServer:
         cache = None
         if cache_len:
             kv = KVCache(torch.stack(ks), torch.stack(vs))
-            cache = LMCache(kv, torch.as_tensor(lengths, dtype=torch.int32,
+            cache = LMCache(kv=kv, mamba=None, rwkv=None,
+                            pos=torch.as_tensor(lengths, dtype=torch.int32,
                                                 device=self.device))
         return logits, stats, path_ids.reshape(b, s), cache
 
@@ -615,8 +618,8 @@ class MoEServer:
             has_state=True, shape=(b, 1))
         x = rms_norm(x, self._cparams.final_norm, cfg.norm_eps)
         logits = _host(x[:, 0] @ self._w_unembed)
-        new_cache = LMCache(KVCache(torch.stack(ks), torch.stack(vs)),
-                            pos + 1)
+        new_cache = LMCache(kv=KVCache(torch.stack(ks), torch.stack(vs)),
+                            mamba=None, rwkv=None, pos=pos + 1)
         return DecodeResult(logits, stats, path_ids, new_cache)
 
 
