@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phase 0  prints the card (``nvidia-smi`` name and power limit) and builds
-         the six CUDA kernel sources of ``src/repro_torch/kernels/csrc``
+         the seven CUDA kernel sources of ``src/repro_torch/kernels/csrc``
          (one ``nvcc`` each, started together; timed).
 Phase 1  holds each of the six serve-path kernels against its plain PyTorch
          version on the card, at the serve path's shapes (gpt2-moe: D=768,
@@ -45,7 +45,10 @@ top-2, E=16, C=1288): gating at k=2, ``dispatch_rows`` with a per-row scale
 (combine's backward), ``combine_rows`` with unit weights (dispatch's
 backward), ``grouped_ffn`` at [16, 1288, 768], and ``grouped_matmul`` (the
 FFN backward's GEMM) at the five backward GEMM shapes (D=768, F=3072),
-timed beside ``torch.bmm``.
+timed beside ``torch.bmm``, each repeated bitwise; then at all 16 dtype x
+layout mixes on ragged shapes (E = 3, M and K 1288-1289, N 200-201; and
+E = 1, M < 64), K = 0 (zeros) and an operand that breaks the TMA's 16-byte
+rule (refused).
 Phase 4  serves mixtral-8x22b at full width (d 6144, 48 / 8 heads, hd 128,
          8 swiglu experts of 16384, window 4096) and depth 2 through the
          port's ``MoEServer`` and ``ServingEngine`` (defaults, kernel route):
@@ -126,7 +129,7 @@ SOURCE = {
     "combine_rows": "src/repro_torch/kernels/csrc/dispatch.cu",
     "weighted_route": "src/repro_torch/kernels/csrc/dispatch.cu",
     "grouped_ffn": "src/repro_torch/kernels/csrc/moe_ffn.cu",
-    "grouped_matmul": "src/repro_torch/kernels/csrc/moe_ffn.cu",
+    "grouped_matmul": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "rwkv6_wkv": "src/repro_torch/kernels/csrc/rwkv6.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd.cu",
@@ -446,20 +449,64 @@ def phase1(dev, hw) -> dict:
 MM_REL = {"bf16": 1e-5, "tf32": 2e-3}
 
 
+def mm_case_shape(a_t: bool, b_t: bool, small: bool = False) -> tuple:
+    """(E, M, N, K) of one layout mix: each dimension that is some operand's
+    contiguous one takes a multiple of 8 values (16 bytes of bf16 or fp32)
+    that no tile divides, every other dimension an odd ragged size;
+    ``small`` gives M < 64 and E = 1."""
+    m = (40 if a_t else 37) if small else (1288 if a_t else 1289)
+    k_contig = not a_t or b_t
+    k = (200 if k_contig else 201) if small else (1288 if k_contig else 1289)
+    n = 201 if b_t else 200
+    return (1, m, n, k) if small else (3, m, n, k)
+
+
+def mm_operands(e, m, n, k, a_bf16, b_bf16, a_t, b_t, gen, dev):
+    """Random operands of one mix, a transposed operand as the transpose
+    view of its row-major array."""
+    import torch
+    bf = torch.bfloat16
+
+    def rnd(shape, is_bf, t):
+        x = torch.randn(*shape, generator=gen, device=dev).to(
+            bf if is_bf else torch.float32)
+        return x.transpose(1, 2).contiguous().transpose(1, 2) if t else x
+    return rnd((e, m, k), a_bf16, a_t), rnd((e, k, n), b_bf16, b_t)
+
+
 def phase1_grouped_matmul(dev, hw, gen) -> dict:
     """grouped_matmul at the five GEMMs of one gpt2-moe layer's FFN
     backward (ops._GroupedFFN.backward): h = x @ wi (recompute), da = dy @
     wo.T, dwo = act.T @ dy, dx = dh @ wi.T, dwi = x.T @ dh, transposes read
-    in place.  Returns the summary row: times, bounds and library times
-    summed over the five (one layer's backward), the worst error."""
+    in place; each repeated and held bitwise equal to its first result.
+    A depth sweep of h and da (K = 768 and 3072) splits their time into
+    the mainloop's steady rate and a fixed cost of the tiles.  Then every
+    dtype x layout mix (16) at a ragged shape and at M < 64 with
+    E = 1, K = 0 (zeros), and one operand that breaks the TMA's 16-byte
+    rule (must raise).  Returns the summary row: times, bounds and library
+    times summed over the five (one layer's backward), the worst error."""
+    import itertools
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.moe_ffn import grouped_matmul
+    from repro_torch.kernels.moe_ffn import grouped_matmul, mm_plan
     bf = torch.bfloat16
 
     def rnd(*shape, dt=torch.float32, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev)
                 * scale).to(dt)
+
+    def held(name, a, b):
+        """kernel vs plain version: (result, max abs err, rel err, kind)."""
+        got = grouped_matmul(a, b)
+        want = ref.ref_grouped_matmul(a, b)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        rel = err / max(want.abs().max().item(), 1e-30)
+        kind = "bf16" if a.dtype == b.dtype == bf else "tf32"
+        if not rel <= MM_REL[kind]:
+            raise AssertionError(f"grouped_matmul {name}: max rel err {rel} "
+                                 f"> {MM_REL[kind]}")
+        return got, err, rel, kind
 
     x = rnd(E, C_TRAIN, D, dt=bf)
     wi = rnd(E, D, F, dt=bf, scale=D ** -0.5)
@@ -474,15 +521,11 @@ def phase1_grouped_matmul(dev, hw, gen) -> dict:
                bound_ms=0.0, max_abs_err=0.0)
     bys = {"bytes": 0.0, "operations": 0.0}   # bound ms by limiting side
     for name, a, b in cases:
-        got = grouped_matmul(a, b)
-        want = ref.ref_grouped_matmul(a, b)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        rel = err / want.abs().max().item()
-        kind = "bf16" if a.dtype == b.dtype == bf else "tf32"
-        if not rel <= MM_REL[kind]:
-            raise AssertionError(f"grouped_matmul {name}: max rel err {rel} "
-                                 f"> {MM_REL[kind]}")
+        got, err, rel, kind = held(name, a, b)
+        again = grouped_matmul(a, b)
+        if not torch.equal(got, again):
+            raise AssertionError(f"grouped_matmul {name}: a repeat is not "
+                                 f"bitwise equal")
         e, m, k = a.shape
         n = b.shape[2]
         ms = time_ms(lambda: grouped_matmul(a, b), 20)
@@ -500,20 +543,78 @@ def phase1_grouped_matmul(dev, hw, gen) -> dict:
                            peak=None if kind == "bf16" else TF32_FLOPS)
         bys[by] += bnd
         print(f"  grouped_matmul     {name:4s} [{e},{m},{k}]x[{e},{k},{n}] "
-              f"{kind}: rel err {rel:.3e} (limit {MM_REL[kind]})  kernel "
-              f"{ms:.4f} ms (device {dms:.4f}, "
-              f"{2 * e * m * n * k / dms / 1e9:.1f} TFLOP/s)  plain "
-              f"{plain:.4f} ms  torch.bmm {lib:.4f} ms  bound {bnd:.4f} ms "
-              f"({by})", flush=True)
+              f"{kind}: rel err {rel:.3e} (limit {MM_REL[kind]}), repeat "
+              f"bitwise equal  kernel {ms:.4f} ms (device {dms:.4f}, "
+              f"{2 * e * m * n * k / dms / 1e9:.1f} TFLOP/s, "
+              f"{100 * bnd / dms:.1f}% of bound)  plain {plain:.4f} ms  "
+              f"torch.bmm {lib:.4f} ms  bound {bnd:.4f} ms ({by})",
+              flush=True)
         for key, v in (("ms", ms), ("device_ms", dms), ("plain_ms", plain),
                        ("library_ms", lib), ("bound_ms", bnd)):
             tot[key] += v
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
-        del got, want, a2, b2
+        del got, again, a2, b2
     print(f"  grouped_matmul, one layer's backward (5 GEMMs): kernel "
           f"{tot['ms']:.4f} ms (device {tot['device_ms']:.4f})  plain "
           f"{tot['plain_ms']:.4f} ms  torch.bmm {tot['library_ms']:.4f} ms  "
           f"bound {tot['bound_ms']:.4f} ms", flush=True)
+    del x, wi, wo, dy, act, dh, cases
+
+    # depth sweep of h and da at K = 768 and 3072: the slope between the two
+    # is the mainloop's steady rate, what is left at K = 768 the fixed cost
+    # of the tiles (pipeline fill, epilogue)
+    for name, a_bf16 in (("h", True), ("da", False)):
+        t = {}
+        for k in (D, 4 * D):
+            a = rnd(E, C_TRAIN, k, dt=bf if a_bf16 else torch.float32)
+            b = rnd(E, k, F, dt=bf) if a_bf16 else \
+                rnd(E, F, k, dt=bf).transpose(1, 2)
+            t[k] = device_ms(lambda: grouped_matmul(a, b), 10)
+            del a, b
+        slope = (t[4 * D] - t[D]) / (3 * D)
+        print(f"  grouped_matmul depth sweep {name}: device {t[D]:.4f} ms at "
+              f"K {D}, {t[4 * D]:.4f} ms at K {4 * D}: steady "
+              f"{2 * E * C_TRAIN * F / slope / 1e9:.1f} TFLOP/s, fixed "
+              f"{t[D] - slope * D:.4f} ms", flush=True)
+
+    # every dtype x layout mix at a ragged shape, and at M < 64 with E = 1
+    worst = {"bf16": 0.0, "tf32": 0.0}
+    for a_bf16, b_bf16, a_t, b_t in itertools.product((True, False),
+                                                      repeat=4):
+        plan = mm_plan(a_bf16, b_bf16, a_t, b_t)
+        for small in (False, True):
+            e, m, n, k = mm_case_shape(a_t, b_t, small)
+            a, b = mm_operands(e, m, n, k, a_bf16, b_bf16, a_t, b_t, gen,
+                               dev)
+            tag = (f"{'bf16' if a_bf16 else 'fp32'}{'ᵀ' if a_t else ''} . "
+                   f"{'bf16' if b_bf16 else 'fp32'}{'ᵀ' if b_t else ''} "
+                   f"[{e},{m},{k}]x[{e},{k},{n}]")
+            _, err, rel, kind = held(tag, a, b)
+            worst[kind] = max(worst[kind], rel)
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        print(f"  grouped_matmul mix {tag.split(' [')[0]:15s} ({plan.kernel} "
+              f"kernel, kinds {plan.a_kind}/{plan.b_kind}): held at "
+              f"{mm_case_shape(a_t, b_t)} and "
+              f"{mm_case_shape(a_t, b_t, True)}", flush=True)
+    print(f"  grouped_matmul, 16 mixes x 2 shapes: worst rel err bf16 "
+          f"{worst['bf16']:.3e} (limit {MM_REL['bf16']}), tf32 "
+          f"{worst['tf32']:.3e} (limit {MM_REL['tf32']})", flush=True)
+
+    # K = 0 writes zeros; an operand whose rows are not a multiple of 16
+    # bytes (K = 12 bf16 values, 24 bytes) is refused
+    z = grouped_matmul(torch.ones(2, 5, 0, device=dev),
+                       torch.ones(2, 0, 8, device=dev))
+    torch.cuda.synchronize()
+    if tuple(z.shape) != (2, 5, 8) or bool(z.any()):
+        raise AssertionError("grouped_matmul K = 0 did not write zeros")
+    try:
+        grouped_matmul(torch.ones(2, 5, 12, device=dev, dtype=bf),
+                       torch.ones(2, 12, 8, device=dev, dtype=bf))
+    except ValueError as err:
+        print(f"  grouped_matmul K = 0: zeros; 24-byte rows refused: {err}",
+              flush=True)
+    else:
+        raise AssertionError("grouped_matmul took rows of 24 bytes")
     return dict(tot, case="layer backward (5 GEMMs)",
                 bound_by=max(bys, key=lambda b: bys[b]))
 
@@ -1711,6 +1812,12 @@ def phase3_train(dev) -> dict:
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
                   f"x{e.count:<5d} {e.key[:90]}", flush=True)
+        # grouped_matmul's kernels (csrc/grouped_matmul.cu), wherever they rank
+        for e in kern:
+            if "gmm_" in e.key:
+                print(f"  phase 3 grouped_matmul kernel: "
+                      f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} "
+                      f"{e.key[:90]}", flush=True)
         return launches
     finally:
         shutil.rmtree(ck, ignore_errors=True)

@@ -17,16 +17,12 @@
 // is used for 2*T operations, far below the ~295 operations per byte where
 // the tensor cores become the limit; the G*D*F*2*2 B of wi and wo dominate.
 // BM = 32 reads every weight tile once for T <= 32.
-//
-// grouped_matmul (second half of the file) replaces
-// src/repro/kernels/moe_ffn.py::grouped_matmul (_mm_kernel): the dgrad /
-// wgrad GEMMs of the FFN backward, c[g] = a[g] @ b[g] in fp32.
+// (The backward's grouped GEMM is csrc/grouped_matmul.cu.)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <math.h>
 #include <stdint.h>
-#include <type_traits>
 
 namespace {
 
@@ -174,209 +170,4 @@ extern "C" int grouped_ffn(const void* x, const void* wi, const void* wu,
   launch<kNone>((const bf16*)h, (const bf16*)wo, nullptr, (bf16*)out, g, t, d,
                 f, s);
   return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// grouped_matmul: c[g] = a[g] @ b[g], a [G,M,K], b [G,K,N], c [G,M,N] fp32.
-//
-// The FFN backward (src/repro/kernels/ops.py::_grouped_ffn_bwd) multiplies
-// bf16 activations and weights with fp32 cotangents, by the transposes of
-// x, act, wi and wo, at M, N, K of D = 768, F = 3072 and the capacity C
-// (1288 at gpt2-moe training: not a multiple of any tile).  So:
-//   * each operand is bf16 or fp32 (template TA / TB);
-//   * each operand is either row-major or the transpose view of a row-major
-//     array (template AT: a is M-contiguous, BT: b is K-contiguous), read
-//     in place through the transpose flag, never copied;
-//   * every edge is masked: out-of-range loads read 0, stores are skipped.
-// Bound on the card: operations.  At the training shapes each GEMM does
-// 2*16*1288*768*3072 = 97 GFLOP on 0.1-0.4 GB of operands, far above the
-// ~295 operations per byte where the tensor cores become the limit.
-// Design: 128 x 128 output tile per block, 8 warps (4 row bands x 2 column
-// halves, each warp 32 x 64 = 2 x 4 fragments), K in steps of 32 staged in
-// shared memory in the operand's own layout (coalesced global reads; the
-// WMMA fragment layout, row_major or col_major, absorbs the transpose), the
-// next K step prefetched into registers while the current one multiplies.
-// Both operands bf16: bf16 m16n16k16 (exact products, fp32 sums).
-// Otherwise: TF32 m16n16k8 on fp32 staging (bf16 -> fp32 -> tf32 is exact;
-// an fp32 operand is rounded to tf32's 10-bit mantissa), fp32 sums.  The TPU
-// kernel multiplies fp32 operands at the MXU's default bf16-pass precision,
-// so TF32 is not below the reference's own precision.
-namespace {
-
-constexpr int GM = 128, GN = 128, GK = 32;
-constexpr int kGThreads = 256;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-template <typename S, typename T>
-__device__ __forceinline__ S to_smem(T v) {
-  if constexpr (std::is_same<S, float>::value) return to_f32(v);
-  else return v;  // bf16 staging only when the operand is bf16
-}
-
-template <typename TA, typename TB, bool AT, bool BT>
-__global__ void __launch_bounds__(kGThreads)
-grouped_matmul_kernel(const TA* __restrict__ a, const TB* __restrict__ b,
-                      float* __restrict__ c, int m, int n, int k) {
-  constexpr bool kBf = std::is_same<TA, bf16>::value &&
-                       std::is_same<TB, bf16>::value;
-  using S = typename std::conditional<kBf, bf16, float>::type;
-  constexpr int kPad = kBf ? 8 : 4;
-  constexpr int KS = kBf ? 16 : 8;           // WMMA depth
-  // shared tiles in the operand's global layout
-  constexpr int kAr = AT ? GK : GM, kAc = (AT ? GM : GK) + kPad;
-  constexpr int kBr = BT ? GN : GK, kBc = (BT ? GK : GN) + kPad;
-  __shared__ __align__(128) S as[kAr][kAc];
-  __shared__ __align__(128) S bs[kBr][kBc];
-
-  using FragIn = typename std::conditional<kBf, bf16,
-                                           wmma::precision::tf32>::type;
-  using LA = typename std::conditional<AT, wmma::col_major,
-                                       wmma::row_major>::type;
-  using LB = typename std::conditional<BT, wmma::col_major,
-                                       wmma::row_major>::type;
-
-  const int g = blockIdx.z, m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
-  a += (size_t)g * m * k;
-  b += (size_t)g * k * n;
-  c += (size_t)g * m * n;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr = (warp >> 1) * 32;   // 4 row bands of 32
-  const int wc = (warp & 1) * 64;    // 2 column halves of 64
-
-  wmma::fragment<wmma::accumulator, 16, 16, KS, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  constexpr int kPer = GM * GK / kGThreads;  // 16 elements of each tile
-  TA ra[kPer];
-  TB rb[kPer];
-  // element e of a tile: (row, col) of the shared array, whose columns are
-  // the operand's contiguous dimension
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + i * kGThreads;
-      const int r = e / (kAc - kPad), cc = e % (kAc - kPad);
-      const int gm = AT ? m0 + cc : m0 + r, gk = AT ? k0 + r : k0 + cc;
-      ra[i] = (gm < m && gk < k)
-                  ? a[AT ? (size_t)gk * m + gm : (size_t)gm * k + gk]
-                  : TA(0.f);
-      const int r2 = e / (kBc - kPad), c2 = e % (kBc - kPad);
-      const int gn = BT ? n0 + r2 : n0 + c2, gk2 = BT ? k0 + c2 : k0 + r2;
-      rb[i] = (gn < n && gk2 < k)
-                  ? b[BT ? (size_t)gn * k + gk2 : (size_t)gk2 * n + gn]
-                  : TB(0.f);
-    }
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int e = tid + i * kGThreads;
-      as[e / (kAc - kPad)][e % (kAc - kPad)] = to_smem<S>(ra[i]);
-      bs[e / (kBc - kPad)][e % (kBc - kPad)] = to_smem<S>(rb[i]);
-    }
-  };
-
-  load(0);
-  for (int k0 = 0; k0 < k; k0 += GK) {
-    stage();
-    __syncthreads();
-    if (k0 + GK < k) load(k0 + GK);
-#pragma unroll
-    for (int kk = 0; kk < GK; kk += KS) {
-      wmma::fragment<wmma::matrix_a, 16, 16, KS, FragIn, LA> fa[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if constexpr (AT) wmma::load_matrix_sync(fa[i], &as[kk][wr + 16 * i], kAc);
-        else wmma::load_matrix_sync(fa[i], &as[wr + 16 * i][kk], kAc);
-        if constexpr (!kBf) {
-#pragma unroll
-          for (int t = 0; t < fa[i].num_elements; ++t)
-            fa[i].x[t] = wmma::__float_to_tf32(fa[i].x[t]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, KS, FragIn, LB> fb;
-        if constexpr (BT) wmma::load_matrix_sync(fb, &bs[wc + 16 * j][kk], kBc);
-        else wmma::load_matrix_sync(fb, &bs[kk][wc + 16 * j], kBc);
-        if constexpr (!kBf) {
-#pragma unroll
-          for (int t = 0; t < fb.num_elements; ++t)
-            fb.x[t] = wmma::__float_to_tf32(fb.x[t]);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // epilogue: each warp stages one 16 x 16 fragment at a time in its own
-  // 1 KB of the (now idle) A tile and writes the in-range part
-  static_assert(sizeof(as) >= 8 * 256 * sizeof(float), "staging room");
-  float* st = reinterpret_cast<float*>(&as[0][0]) + warp * 256;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gm = m0 + wr + 16 * i + e / 16;
-        const int gn = n0 + wc + 16 * j + e % 16;
-        if (gm < m && gn < n) c[(size_t)gm * n + gn] = st[e];
-      }
-      __syncwarp();
-    }
-}
-
-template <typename TA, typename TB, bool AT, bool BT>
-cudaError_t launch_mm(const void* a, const void* b, float* c, int g, int m,
-                      int n, int k, cudaStream_t s) {
-  const dim3 grid((n + GN - 1) / GN, (m + GM - 1) / GM, g);
-  grouped_matmul_kernel<TA, TB, AT, BT><<<grid, kGThreads, 0, s>>>(
-      (const TA*)a, (const TB*)b, c, m, n, k);
-  return cudaGetLastError();
-}
-
-template <typename TA, typename TB>
-cudaError_t launch_mm_t(const void* a, const void* b, float* c, int g, int m,
-                        int n, int k, int a_t, int b_t, cudaStream_t s) {
-  if (a_t && b_t) return launch_mm<TA, TB, true, true>(a, b, c, g, m, n, k, s);
-  if (a_t) return launch_mm<TA, TB, true, false>(a, b, c, g, m, n, k, s);
-  if (b_t) return launch_mm<TA, TB, false, true>(a, b, c, g, m, n, k, s);
-  return launch_mm<TA, TB, false, false>(a, b, c, g, m, n, k, s);
-}
-
-}  // namespace
-
-// c [G,M,N] fp32 = a [G,M,K] @ b [G,K,N].  a_bf16 / b_bf16: the operand is
-// bf16 (else fp32).  a_t: a is stored as a row-major [G,K,M] array (the
-// product reads its transpose); b_t: b is stored as a row-major [G,N,K]
-// array.  Any M, N, K >= 0; K == 0 writes zeros.
-extern "C" int grouped_matmul(const void* a, const void* b, void* c, int g,
-                              int m, int n, int k, int a_bf16, int b_bf16,
-                              int a_t, int b_t, void* stream) {
-  if (g < 0 || m < 0 || n < 0 || k < 0 || g > 65535 ||
-      (m + GM - 1) / GM > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (g == 0 || m == 0 || n == 0) return (int)cudaGetLastError();
-  cudaStream_t s = (cudaStream_t)stream;
-  float* out = (float*)c;
-  cudaError_t err;
-  if (a_bf16 && b_bf16)
-    err = launch_mm_t<bf16, bf16>(a, b, out, g, m, n, k, a_t, b_t, s);
-  else if (a_bf16)
-    err = launch_mm_t<bf16, float>(a, b, out, g, m, n, k, a_t, b_t, s);
-  else if (b_bf16)
-    err = launch_mm_t<float, bf16>(a, b, out, g, m, n, k, a_t, b_t, s);
-  else
-    err = launch_mm_t<float, float>(a, b, out, g, m, n, k, a_t, b_t, s);
-  return (int)err;
 }

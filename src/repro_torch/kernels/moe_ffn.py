@@ -1,4 +1,5 @@
-"""Grouped expert FFN and grouped GEMM: the wrappers of ``csrc/moe_ffn.cu``.
+"""Grouped expert FFN and grouped GEMM: the wrappers of ``csrc/moe_ffn.cu``
+and ``csrc/grouped_matmul.cu``.
 
 ``grouped_ffn``: per group g, act(x[g] @ wi[g]) @ wo[g] with gelu (tanh
 form), or silu(x[g] @ wi[g]) * (x[g] @ wu[g]) for swiglu; fp32 sums, h
@@ -8,12 +9,18 @@ rounded to x's type before the second product.  bf16 only on the card.
 wgrad GEMM of the FFN backward; each operand bf16 or fp32, row-major or the
 transpose view of a row-major array (read in place), any M, N, K.  Two bf16
 operands multiply exactly on bf16 tensor cores; any fp32 operand makes the
-product TF32 (10-bit mantissa operands, fp32 sums).
+product TF32 (fp32 operands rounded to nearest to a 10-bit mantissa, bf16
+ones exact, fp32 sums).  On the card the kernel loads tiles with TMA, which
+narrows the contract: each operand's contiguous dimension times its element
+size is a multiple of 16 bytes (8 bf16 or 4 fp32 values) and its base is
+16-byte aligned (``tma_operand_rule``); ``mm_plan`` picks the kernel.
 
 A CPU tensor takes the plain version in ``kernels.ref``; a CUDA tensor
 launches the kernel or raises.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -62,6 +69,41 @@ def grouped_ffn(x, wi, wu, wo, *, ffn_type: str = "swiglu"):
 
 
 MM_TYPES = (torch.bfloat16, torch.float32)
+# operand kinds of csrc/grouped_matmul.cu: bit 0 bf16 (else fp32), bit 1 the
+# operand is stored M- or N-major (its M or N index contiguous), else K-major
+KIND_BF16, KIND_MN_MAJOR = 1, 2
+
+
+class MMPlan(NamedTuple):
+    kernel: str   # "bf16": bf16 wgmma on the tiles as they land; "tf32":
+    a_kind: int   # tf32 wgmma behind the transform to K-major fp32
+    b_kind: int
+
+
+def mm_plan(a_bf16: bool, b_bf16: bool, a_t: bool, b_t: bool) -> MMPlan:
+    """The kernel and the operand kinds for one dtype x layout mix.  ``a_t``:
+    a is the transpose view of a row-major [E, K, M] array (M-major), else
+    row-major [E, M, K] (K-major); ``b_t``: b is the transpose view of a
+    row-major [E, N, K] array (K-major), else row-major [E, K, N]
+    (N-major)."""
+    a_kind = int(a_bf16) | (KIND_MN_MAJOR if a_t else 0)
+    b_kind = int(b_bf16) | (0 if b_t else KIND_MN_MAJOR)
+    return MMPlan("bf16" if a_bf16 and b_bf16 else "tf32", a_kind, b_kind)
+
+
+def tma_operand_rule(name: str, shape, transposed: bool, itemsize: int,
+                     data_ptr: int = 0) -> None:
+    """Raise ValueError unless the TMA can load the operand: a [E, R, C]
+    operand stored row-major (or, ``transposed``, as [E, C, R]) needs its
+    contiguous dimension times ``itemsize`` to be a multiple of 16 bytes
+    (every global stride but the innermost) and its base 16-byte aligned."""
+    inner = shape[1] if transposed else shape[2]
+    if (inner * itemsize) % 16 or data_ptr % 16:
+        raise ValueError(
+            f"grouped_matmul {name}: the TMA needs the contiguous dimension "
+            f"({inner} values of {itemsize} bytes) to be a multiple of 16 "
+            f"bytes and the base address (offset {data_ptr % 16}) 16-byte "
+            f"aligned")
 
 
 def _layout(t):
@@ -93,10 +135,16 @@ def grouped_matmul(a, b):
     n = b.shape[2]
     a, a_t = _layout(a)
     b, b_t = _layout(b)
+    for name, t, tr in (("a", a, a_t), ("b", b, b_t)):
+        tma_operand_rule(name, t.shape, tr, t.element_size(), t.data_ptr())
     out = torch.empty((e, m, n), dtype=torch.float32, device=a.device)
-    status = lib("moe_ffn").grouped_matmul(
-        ptr(a), ptr(b), ptr(out), e, m, n, k, int(a.dtype == torch.bfloat16),
-        int(b.dtype == torch.bfloat16), a_t, b_t, stream(a))
+    if out.numel() == 0:
+        return out
+    plan = mm_plan(a.dtype == torch.bfloat16, b.dtype == torch.bfloat16,
+                   bool(a_t), bool(b_t))
+    status = lib("grouped_matmul").grouped_matmul(
+        ptr(a), ptr(b), ptr(out), e, m, n, k, plan.a_kind, plan.b_kind,
+        stream(a))
     check(status, "grouped_matmul")
     GROUPED_MATMUL.inc()
     return out

@@ -1,8 +1,9 @@
 """The port's differentiable MoE ops on the CPU against the JAX reference.
 
 * ``grouped_matmul``'s plain version against the reference's Pallas kernel
-  (interpret mode), on ragged M / N / K with every bf16 / fp32 operand mix,
-  also through the wrapper with transposed operands;
+  (interpret mode), on ragged M / N / K (K up to 1289, deeper than ten of
+  the kernel's 128-deep blocks) with every bf16 / fp32 operand mix, also
+  through the wrapper with each operand row-major or stored transposed;
 * the gradients of each ``torch.autograd.Function`` in
   ``repro_torch.kernels.ops`` (run on the CPU, so their backward formulas
   call the kernels' plain versions) against ``jax.grad`` of the reference
@@ -67,10 +68,14 @@ class CallCount:
 # grouped_matmul
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("a_t,b_t", [(False, False), (True, False),
+                                     (False, True), (True, True)])
 @pytest.mark.parametrize("a_bf16,b_bf16", [(False, False), (True, False),
                                            (False, True), (True, True)])
-@pytest.mark.parametrize("e,m,n,k", [(2, 13, 37, 29), (3, 1, 5, 130)])
-def test_grouped_matmul_matches_reference_kernel(e, m, n, k, a_bf16, b_bf16):
+@pytest.mark.parametrize("e,m,n,k", [(2, 13, 37, 29), (3, 1, 5, 130),
+                                     (2, 8, 16, 1289)])
+def test_grouped_matmul_matches_reference_kernel(e, m, n, k, a_bf16, b_bf16,
+                                                 a_t, b_t):
     rng = np.random.RandomState(m + n + k)
     a = rng.randn(e, m, k).astype(np.float32)
     b = rng.randn(e, k, n).astype(np.float32)
@@ -85,9 +90,10 @@ def test_grouped_matmul_matches_reference_kernel(e, m, n, k, a_bf16, b_bf16):
     got = ref.ref_grouped_matmul(ta, tb)
     assert got.dtype == torch.float32 and got.shape == (e, m, n)
     close(got, want)
-    # the wrapper with operands stored transposed (read in place on the card)
-    at = ta.transpose(1, 2).contiguous().transpose(1, 2)
-    bt = tb.transpose(1, 2).contiguous().transpose(1, 2)
+    # the wrapper with each operand row-major or stored transposed (the
+    # transpose view of a row-major array, read in place on the card)
+    at = ta.transpose(1, 2).contiguous().transpose(1, 2) if a_t else ta
+    bt = tb.transpose(1, 2).contiguous().transpose(1, 2) if b_t else tb
     close(grouped_matmul(at, bt), want)
 
 
