@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` into ``kernels/build/lib<name>.<hash>.so`` (the hash
-covers the source and the flags, so an edited source is rebuilt), loaded
+covers the source, every ``csrc/*.cuh`` header and the flags, so an edited
+source or header is rebuilt), loaded
 with ``ctypes``.  All sources build at the first kernel call, one ``nvcc``
 process each, started together.  Nothing is built or loaded at import: the
 CPU tests import every module.
@@ -106,6 +107,9 @@ def nvcc_path() -> str:
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # included by any source
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}.{h.hexdigest()[:12]}.so"
 

@@ -75,11 +75,10 @@
 // work of h, da and dx; a 64-row tile would halve the reuse of b in the
 // other ten bands, so the waste stays.  No split-K, no atomics: every
 // output is one fixed-order sum, bitwise the same from run to run.
-#include <cuda.h>
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <stdint.h>
 #include <string.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -110,109 +109,8 @@ constexpr int kTfSmem = (kTfStages + kTfBufs) * kTfStage +
 static_assert(kTfSmem <= kSmemMax, "tf32 ring exceeds shared memory");
 
 // ---------------------------------------------------------------------------
-// PTX: mbarriers, TMA, wgmma
+// wgmma instructions of this kernel (hopper.cuh has the rest of the PTX)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// wait until the phase of parity `parity` has completed; a wait that never
-// ends (a broken pipeline) traps, failing the launch, instead of hanging
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  for (uint32_t tries = 0;; ++tries) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
-    if (tries == (1u << 28)) __trap();
-  }
-}
-
-// box at (c0 innermost, c1, c2) of a 3-D tensor map into shared memory,
-// completion counted in bytes on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor with the 128-byte swizzle: start
-// address, leading and stride byte offsets (in 16-byte units), layout 1.
-// K-major: rows of 128 bytes along K, 8-row groups `sbo` apart (lbo unused).
-// M/N-major: rows of 128 bytes (64 bf16) along M or N, 8-row groups along K
-// `sbo` apart, 64-wide blocks along M or N `lbo` apart.  The hardware XORs
-// address bits [4, 7) with [7, 10), so tiles sit on 1024-byte boundaries
-// and a K step inside a 128-byte row just moves the start address.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
-}
-
-// keep the compiler from moving accumulator accesses across the async MMAs
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define R8(i)                                                          \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define REGS64 \
-  "%0, %1, %2, %3, %4, %5, %6, %7, " \
-  "%8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, " \
-  "%24, %25, %26, %27, %28, %29, %30, %31, " \
-  "%32, %33, %34, %35, %36, %37, %38, %39, " \
-  "%40, %41, %42, %43, %44, %45, %46, %47, " \
-  "%48, %49, %50, %51, %52, %53, %54, %55, " \
-  "%56, %57, %58, %59, %60, %61, %62, %63"
-#define REGS128 REGS64 ", " \
-  "%64, %65, %66, %67, %68, %69, %70, %71, " \
-  "%72, %73, %74, %75, %76, %77, %78, %79, " \
-  "%80, %81, %82, %83, %84, %85, %86, %87, " \
-  "%88, %89, %90, %91, %92, %93, %94, %95, " \
-  "%96, %97, %98, %99, %100, %101, %102, %103, " \
-  "%104, %105, %106, %107, %108, %109, %110, %111, " \
-  "%112, %113, %114, %115, %116, %117, %118, %119, " \
-  "%120, %121, %122, %123, %124, %125, %126, %127"
 
 // d[64 x 256] += a[64 x 8] . b[8 x 256], tf32, both K-major in shared memory
 __device__ __forceinline__ void wgmma_tf32_n256(float (&d)[128], uint64_t da,
@@ -576,32 +474,6 @@ gmm_tf32_kernel(const __grid_constant__ CUtensorMap ta,
 // host: tensor maps and launch
 // ---------------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API call; this library links only the
-// runtime, which hands out the driver's entry point
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // 3-D map over a row-major [g, outer, inner] array, box {box0, box1, 1}
 bool encode(CUtensorMap* map, const void* ptr, bool is_bf16, int inner,
             int outer, int g, int box0, int box1, bool swizzle) {
@@ -631,13 +503,7 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
 
 // one block an SM (each takes all of its shared memory), at most one a tile
 int persistent_grid(long long tiles) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 1;
-  }
+  const int sms = sm_count();
   return (int)(tiles < sms ? tiles : sms);
 }
 

@@ -18,6 +18,7 @@ import itertools
 import numpy as np
 import pytest
 import torch
+from _tma_model import read_kmajor, read_mnmajor, sw128
 
 from repro_torch.configs import get_config
 from repro_torch.core.gating import capacity
@@ -134,12 +135,6 @@ BF_N, BF_K = 256, 64          # bf16 kernel tile and stage depth
 TF_N, TF_K = 256, 32          # tf32 kernel tile and stage depth
 
 
-def sw128(addr):
-    """The 128-byte swizzle on a byte address (TMA and wgmma alike): bits
-    [4, 7) XOR bits [7, 10)."""
-    return addr ^ (((addr >> 7) & 7) << 4)
-
-
 def tma_box(smem, es, dst, glob, c0, c1, box0, box1, swizzle):
     """TMA load of a {box0 (inner), box1} box at (c0, c1) of the 2-D array
     ``glob`` [outer, inner] into the byte-addressed ``smem`` (an element
@@ -154,25 +149,6 @@ def tma_box(smem, es, dst, glob, c0, c1, box0, box1, swizzle):
         assert box0 * es == 128 and dst % 1024 == 0
         off = sw128(off)
     smem[(dst + off) // es] = vals
-
-
-def read_kmajor(smem, es, start, rows, kw, sbo=1024):
-    """What wgmma reads through a K-major 128-byte-swizzle descriptor:
-    [rows, kw]; row r at 128 (r % 8) + sbo (r // 8), k at es * k."""
-    r, k = np.meshgrid(np.arange(rows), np.arange(kw), indexing="ij")
-    addr = start + (r % 8) * 128 + (r // 8) * sbo + k * es
-    return smem[sw128(addr) // es]
-
-
-def read_mnmajor(smem, es, start, mn, kw, lbo, sbo=1024):
-    """What wgmma reads through an M/N-major 128-byte-swizzle descriptor:
-    [mn, kw]; 128-byte rows along M/N, 64-wide blocks ``lbo`` apart, k
-    rows 128 bytes apart in 8-row groups ``sbo`` apart."""
-    w = 128 // es
-    x, k = np.meshgrid(np.arange(mn), np.arange(kw), indexing="ij")
-    addr = start + (x % w) * es + (x // w) * lbo + (k % 8) * 128 \
-        + (k // 8) * sbo
-    return smem[sw128(addr) // es]
 
 
 def bf16_tile(a_stored, b_stored, am, bn, m0, n0, k):

@@ -2,8 +2,9 @@
 every ``pl.pallas_call`` site under ``src/repro/kernels/`` (found by parsing
 the files with ``ast``, without importing them) has an entry in
 ``chip_smoke.py``'s ``REPLACES`` at its exact ``file:line``, every entry
-names a real site, every ``SOURCE`` file exists and is built, and every
-kernel of the table has a launch counter."""
+names a real site, every ``SOURCE`` file exists and is built, every
+kernel of the table has a launch counter, and a shared header's edit
+changes every library's build key."""
 import ast
 from pathlib import Path
 
@@ -51,3 +52,19 @@ def test_every_source_exists_and_is_built():
 def test_every_kernel_of_the_table_has_a_launch_counter():
     from repro_torch.kernels import COUNTERS
     assert sorted(COUNTERS) == sorted(smoke_table("REPLACES"))
+
+
+def test_a_header_edit_changes_every_build_key(tmp_path, monkeypatch):
+    """Each library's build key hashes its source and every csrc/*.cuh, so
+    an edit to a shared header rebuilds every library."""
+    from repro_torch.kernels import _build
+    for name in ("one", "two"):
+        (tmp_path / f"{name}.cu").write_text(f'#include "h.cuh"  // {name}')
+    (tmp_path / "h.cuh").write_text("// v1")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build._lib_path(n) for n in ("one", "two")}
+    assert before["one"] != before["two"]
+    (tmp_path / "h.cuh").write_text("// v2")
+    after = {n: _build._lib_path(n) for n in ("one", "two")}
+    assert all(after[n] != before[n] for n in before)
+    assert after == {n: _build._lib_path(n) for n in ("one", "two")}
