@@ -12,7 +12,16 @@ Phase 1  holds each of the six serve-path kernels against its plain PyTorch
          slot_cap 8, profiling k=2 and G=16 x 48 rows), and times the
          kernel and its plain version per call with CUDA events and the
          kernel alone with torch.profiler.  No single PyTorch call computes
-         any of the six functions, so ``library_ms`` is null.  It holds
+         any of the six functions, so ``library_ms`` is null, except that
+         ``grouped_ffn`` is timed beside the bf16 einsum-act-einsum
+         composition (several calls, a yardstick).  ``grouped_ffn`` also
+         runs with the serve path's slot -> expert index (weights read in
+         place) and each slot's routed rows (the rest skipped): gpt2-moe's
+         serve prefill and decode (16 experts in 64 slots), mixtral-8x22b's
+         prefill (2048 tokens top-2 into 32 slots of 640 rows, ~128 a slot)
+         and decode (4 x 2), swiglu at d 6144 / F 16384, and slots of -1 and
+         of 0 rows; each case within 2e-2 of max |plain|, repeated bitwise,
+         zeros past each count.  It holds
          ``flash_attention`` against ``ref_attention`` at seven shapes
          (a, b: gpt2-moe's prefill 4 x 64 and 8 x 1024, 12 heads, hd 64,
          causal; c, d: mixtral-8x22b's 1 x 2048 and 1 x 6144, 48 / 8 heads,
@@ -215,24 +224,30 @@ def bound_ms(n_bytes: float, n_ops: float, hw, peak=None) -> tuple:
 # ---------------------------------------------------------------------------
 
 def _route_inputs(t: int, k: int, cap: int, slot_cap: int, gen, dev,
-                  short: bool = False):
+                  short: bool = False, n_exp: int = E,
+                  n_slots: int = N_SLOTS, replicas: int = 0):
     """Realistic serve metadata: gate ids of t tokens, their priority
-    positions, a plan of 64 slots with 1..4 replicas per expert and integer
-    replica weights that cover each expert's kept tokens, or, with
+    positions, a plan of ``n_slots`` slots with 1..4 replicas per expert
+    (``replicas`` each, if not 0; the slots no expert takes stay empty) and
+    integer replica weights that cover each expert's kept tokens, or, with
     ``short``, fall one token short per replica, so the route drops the
     positions past each expert's total."""
     import torch
     from repro_torch.kernels import ref
-    idx = torch.randint(0, E, (t, k), generator=gen, device=dev,
+    idx = torch.randint(0, n_exp, (t, k), generator=gen, device=dev,
                         dtype=torch.int32)
-    pos = ref.ref_topk_positions(idx, E)
+    pos = ref.ref_topk_positions(idx, n_exp)
     kept = torch.where(pos < cap, idx, torch.full_like(idx, -1))
-    counts = torch.bincount(kept[kept >= 0].long(), minlength=E)
-    perm = torch.randperm(N_SLOTS, generator=gen, device=dev)
-    n_rep = torch.randint(1, MAX_PACK + 1, (E,), generator=gen, device=dev)
-    slot_of = torch.full((E, MAX_PACK), -1, dtype=torch.int32, device=dev)
-    w_int = torch.zeros((E, MAX_PACK), dtype=torch.int32, device=dev)
-    for e in range(E):
+    counts = torch.bincount(kept[kept >= 0].long(), minlength=n_exp)
+    perm = torch.randperm(n_slots, generator=gen, device=dev)
+    n_rep = torch.randint(1, MAX_PACK + 1, (n_exp,), generator=gen,
+                          device=dev)
+    if replicas:
+        n_rep.fill_(replicas)
+    slot_of = torch.full((n_exp, MAX_PACK), -1, dtype=torch.int32,
+                         device=dev)
+    w_int = torch.zeros((n_exp, MAX_PACK), dtype=torch.int32, device=dev)
+    for e in range(n_exp):
         r = int(n_rep[e])
         slot_of[e, :r] = perm[e * MAX_PACK:e * MAX_PACK + r].int()
         share = -(-int(counts[e]) // r)
@@ -254,19 +269,22 @@ def phase1(dev, hw) -> dict:
     bf = torch.bfloat16
     rows = {}
 
-    def record(name, case, err, kernel, plain_fn, nbytes, nops, iters=50):
+    def record(name, case, err, kernel, plain_fn, nbytes, nops, iters=50,
+               library_fn=None):
         ms = time_ms(kernel, iters)
         plain = time_ms(plain_fn, iters)
+        lib = time_ms(library_fn, iters) if library_fn else None
         dms = device_ms(kernel)
         b, by = bound_ms(nbytes, nops, hw)
         print(f"  {name:18s} {case:8s} err {err:.3e}  kernel {ms:.4f} ms "
-              f"(device {dms:.4f})  plain {plain:.4f} ms  bound {b:.6f} ms "
-              f"({by})", flush=True)
+              f"(device {dms:.4f})  plain {plain:.4f} ms  "
+              + (f"library {lib:.4f} ms  " if lib is not None else "")
+              + f"bound {b:.6f} ms ({by})", flush=True)
         cur = rows.get(name)
         if cur is None or case == "prefill":
             # the prefill shape stands for the kernel in the summary line
             rows[name] = dict(case=case, ms=ms, device_ms=dms, plain_ms=plain,
-                              library_ms=None, bound_ms=b, bound_by=by,
+                              library_ms=lib, bound_ms=b, bound_by=by,
                               max_abs_err=max(err, cur["max_abs_err"])
                               if cur else err)
         else:
@@ -406,42 +424,169 @@ def phase1(dev, hw) -> dict:
            n_kept * D * 2 + t * k * 8 + t * D * 2, 2 * n_kept * D)
     del buf, y_buf, y, yr, dy
 
-    # -- grouped FFN: serve prefill / decode, profiling (gelu, the path's
-    # activation), training (C = 1288, a ragged edge of the 32-row tile)
-    # and a small swiglu case (the kernel's other epilogue) ---------------
-    for case, g, t, act in (("prefill", N_SLOTS, 24, "gelu"),
-                            ("decode", N_SLOTS, 8, "gelu"),
-                            ("profile", E, 48, "gelu"),
-                            ("train", E, C_TRAIN, "gelu"),
-                            ("swiglu", 4, 16, "swiglu")):
-        x = torch.randn(g, t, D, generator=gen, device=dev).to(bf)
-        wi, wu = ((torch.randn(g, D, F, generator=gen, device=dev)
-                   * D ** -0.5).to(bf) for _ in range(2))
-        wu = wu if act == "swiglu" else None
-        wo = (torch.randn(g, F, D, generator=gen, device=dev)
-              * F ** -0.5).to(bf)
-        got = grouped_ffn(x, wi, wu, wo, ffn_type=act)
-        want = ref.ref_grouped_ffn(
-            x.float(), wi.float(), None if wu is None else wu.float(),
-            wo.float(), act)
-        torch.cuda.synchronize()
-        err = (got.float() - want).abs().max().item()
-        rel = err / want.abs().max().item()
-        if not rel <= 2e-2:
-            raise AssertionError(f"grouped_ffn {case}: max rel err {rel}")
-        print(f"  grouped_ffn {case}: max rel err {rel:.3e}", flush=True)
-        n_w = 3 if wu is not None else 2
-        record("grouped_ffn", case, err,
-               lambda: grouped_ffn(x, wi, wu, wo, ffn_type=act),
-               lambda: ref.ref_grouped_ffn(x, wi, wu, wo, act),
-               (2 * g * t * D + n_w * g * D * F) * 2,
-               2 * n_w * g * t * D * F, iters=20)
-        del wi, wu, wo
-
+    phase1_grouped_ffn(dev, hw, gen, record)
     rows["grouped_matmul"] = phase1_grouped_matmul(dev, hw, gen)
     rows["flash_attention"] = phase1_flash(dev, hw, gen)
     rows.update(phase1_recurrences(dev, hw, gen))
     return rows
+
+
+# grouped_ffn at the paths' shapes: (case, groups, rows a group, D, F,
+# activation, route, timed iterations).  route None: no index, group g is
+# expert g, every row counts; (experts, tokens, top-k, replicas): the serve
+# path's in-place hosted weights, slots filled by the weighted route
+# (replicas 0: 1..4 an expert at random, the other slots empty); "empty":
+# slots of -1 and of 0 rows.  The first five as before: gpt2-moe's serve
+# prefill and decode, profiling and training (C = 1288) and a small swiglu
+# case; then gpt2-moe's serve prefill and decode with 16 experts in 64
+# slots, mixtral-8x22b's (8 swiglu experts of 16384 at d 6144 in 32 slots
+# of 640 rows: a 2048-token prefill top-2, ~128 rows a slot, and a decode
+# of 4 x 2), and the empty slots
+MIX_D, MIX_F, MIX_E, MIX_SLOTS = 6144, 16384, 8, 32
+FFN_CASES = (("prefill", N_SLOTS, 24, D, F, "gelu", None, 20),
+             ("decode", N_SLOTS, 8, D, F, "gelu", None, 20),
+             ("profile", E, 48, D, F, "gelu", None, 20),
+             ("train", E, C_TRAIN, D, F, "gelu", None, 20),
+             ("swiglu", 4, 16, D, F, "swiglu", None, 20),
+             ("serve prefill", N_SLOTS, 24, D, F, "gelu", (E, 256, 1, 0),
+              20),
+             ("serve decode", N_SLOTS, 8, D, F, "gelu", (E, 8, 1, 0), 20),
+             ("mixtral prefill", MIX_SLOTS, 640, MIX_D, MIX_F, "swiglu",
+              (MIX_E, 2048, 2, MAX_PACK), 10),
+             ("mixtral decode", MIX_SLOTS, 8, MIX_D, MIX_F, "swiglu",
+              (MIX_E, 4, 2, MAX_PACK), 10),
+             ("empty slot", 4, 200, 512, 1024, "swiglu", "empty", 20))
+
+
+def ffn_fp32(x, wi, wu, wo, act, group_expert=None, group_rows=None):
+    """The plain grouped FFN in fp32 from the bf16 inputs, one group at a
+    time (no fp32 copy of every hosted expert's weights)."""
+    import torch
+    from repro_torch.kernels import ref
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for g in range(x.shape[0]):
+        e = g if group_expert is None else int(group_expert[g])
+        n = x.shape[1] if group_rows is None else int(group_rows[g])
+        if e < 0 or n <= 0:
+            continue
+        xg = x[g, :n].float()
+        h = xg @ wi[e].float()
+        h = torch.nn.functional.silu(h) * (xg @ wu[e].float()) \
+            if act == "swiglu" else ref.gelu(h)
+        out[g, :n] = h @ wo[e].float()
+    return out
+
+
+def ffn_case(g, t, d, f, act, route, gen, dev, weights):
+    """Inputs of one grouped_ffn case: (x, wi, wu, wo, group_expert,
+    group_rows), x zero past each group's rows as the dispatch leaves it.
+    ``weights`` keeps the last case's weights for the next of that shape."""
+    import torch
+    from repro_torch.core.gating import capacity
+    from repro_torch.core.serving import slot_rows
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dispatch import invert_slots, weighted_route
+    bf = torch.bfloat16
+    n_w = route[0] if isinstance(route, tuple) else 3 if route else g
+    key = (n_w, d, f, act)
+    if key not in weights:
+        weights.clear()
+        torch.cuda.empty_cache()
+
+        def w(rows, cols):
+            return torch.cat([(torch.randn(1, rows, cols, generator=gen,
+                                           device=dev) * rows ** -0.5).to(bf)
+                              for _ in range(n_w)])
+        weights[key] = (w(d, f), w(d, f) if act == "swiglu" else None,
+                        w(f, d))
+    wi, wu, wo = weights[key]
+    if route is None:
+        return (torch.randn(g, t, d, generator=gen, device=dev).to(bf), wi,
+                wu, wo, None, None)
+    if route == "empty":   # slots: expert 2, empty (-1), 0 rows, 77 rows
+        ge = torch.tensor([2, -1, 0, 1], dtype=torch.int32, device=dev)
+        gr = torch.tensor([t, 150, 0, 77], dtype=torch.int32, device=dev)
+    else:
+        n_exp, n_tok, k, reps = route
+        kept, pos, cum, slot_of = _route_inputs(
+            n_tok, k, capacity(n_tok, n_exp, k, 1.25), t, gen, dev,
+            n_exp=n_exp, n_slots=g, replicas=reps)
+        rows_ = weighted_route(kept, pos, cum, slot_of, t)
+        src, _ = invert_slots(rows_, g * t)
+        tok = torch.randn(n_tok, d, generator=gen, device=dev).to(bf)
+        ge = torch.full((g,), -1, dtype=torch.int32, device=dev)
+        for e in range(n_exp):
+            ge[slot_of[e][slot_of[e] >= 0].long()] = e
+        return (ref.ref_dispatch_rows(tok, src).reshape(g, t, d), wi, wu, wo,
+                ge, slot_rows(rows_, g, t))
+    x = torch.randn(g, t, d, generator=gen, device=dev).to(bf)
+    x = torch.where(torch.arange(t, device=dev)[None, :, None]
+                    < gr[:, None, None], x, torch.zeros_like(x))
+    return x, wi, wu, wo, ge, gr
+
+
+def phase1_grouped_ffn(dev, hw, gen, record) -> None:
+    """grouped_ffn at FFN_CASES against its fp32 plain version (max abs
+    error over max |plain| within FFN_REL), each call repeated bitwise, the
+    rows past each count and the empty slots exact zeros; timed beside the
+    plain version (gather, bf16 einsum-act-einsum, mask) and the bf16
+    einsum-act-einsum composition on weights gathered beforehand, the
+    yardstick (no single PyTorch call computes the FFN).  Bound: the bytes
+    of x's counted rows, the output and each hosted expert's weights once,
+    and the counted rows' operations; the bound with each slot's weights
+    read once (what the gather moved) is printed beside it."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.moe_ffn import grouped_ffn
+    weights = {}
+    for case, g, t, d, f, act, route, iters in FFN_CASES:
+        x, wi, wu, wo, ge, gr = ffn_case(g, t, d, f, act, route, gen, dev,
+                                         weights)
+        kw = dict(ffn_type=act, group_expert=ge, group_rows=gr)
+        got = grouped_ffn(x, wi, wu, wo, **kw)
+        again = grouped_ffn(x, wi, wu, wo, **kw)
+        want = ffn_fp32(x, wi, wu, wo, act, ge, gr)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        keep = torch.ones((g, t), dtype=torch.bool, device=dev)
+        if gr is not None:
+            keep &= torch.arange(t, device=dev)[None, :] < gr[:, None]
+        if ge is not None:
+            keep &= (ge >= 0)[:, None]
+        n_rows = int(keep.sum())
+        if not rel <= FFN_REL:
+            raise AssertionError(f"grouped_ffn {case}: max rel err {rel}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"grouped_ffn {case}: a repeat differs")
+        if bool(got[~keep].any()):
+            raise AssertionError(f"grouped_ffn {case}: rows past the count "
+                                 f"or of an empty slot are not zero")
+        n_w = 3 if act == "swiglu" else 2
+        hosted = g if ge is None else int(torch.unique(ge[ge >= 0]).numel())
+        slots = g if ge is None else int((ge >= 0).sum())
+        w_bytes = n_w * d * f * 2
+        io_bytes = (n_rows * d + g * t * d) * 2
+        n_ops = 2 * n_w * n_rows * d * f
+        b_slot, by_slot = bound_ms(io_bytes + slots * w_bytes, n_ops, hw)
+        print(f"  grouped_ffn {case}: [{g}, {t}, {d}] x F {f} {act}, "
+              f"{n_rows} counted rows, {hosted} experts in {slots} slots; "
+              f"max rel err {rel:.3e}, repeat bitwise; weights "
+              f"{hosted * w_bytes / 1e6:.1f} MB once an expert, "
+              f"{slots * w_bytes / 1e6:.1f} MB once a slot (bound "
+              f"{b_slot:.4f} ms, {by_slot})", flush=True)
+        sel = torch.clamp(ge, min=0).long() if ge is not None else None
+        wg = [None if a is None or sel is None else a[sel]
+              for a in (wi, wu, wo)]
+        record("grouped_ffn", case, err,
+               lambda: grouped_ffn(x, wi, wu, wo, **kw),
+               lambda: ref.ref_grouped_ffn(x, wi, wu, wo, act, ge, gr),
+               io_bytes + hosted * w_bytes, n_ops, iters=iters,
+               library_fn=lambda: ref.ref_grouped_ffn(
+                   x, *(wi, wu, wo) if sel is None else wg, act))
+        del x, got, again, want, wg
+    weights.clear()
+    torch.cuda.empty_cache()
 
 
 # tolerances of grouped_matmul against its fp32 plain version (allow_tf32

@@ -33,6 +33,15 @@ def capacity(n_tokens: int, n_experts: int, top_k: int,
     return max(8, -(-c // 8) * 8)
 
 
+def kept_counts(g: "GatingResult", n_experts: int) -> torch.Tensor:
+    """[E] int32: the (token, choice) pairs each expert kept.  GShard
+    priority positions fill an expert's buffer rows 0 .. count - 1."""
+    kept = (~g.dropped).to(torch.int32)
+    return torch.zeros((n_experts,), dtype=torch.int32,
+                       device=kept.device).index_add_(
+        0, g.expert_idx.reshape(-1).long(), kept.reshape(-1))
+
+
 def gating_from_topk(expert_idx, gate_w, probs, cap: int,
                      aux_loss_weight: float = 0.01,
                      position=None) -> GatingResult:

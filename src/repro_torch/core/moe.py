@@ -18,7 +18,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import dispatch as D
-from repro_torch.core.gating import capacity, router_top_k_gating
+from repro_torch.core.gating import (capacity, kept_counts,
+                                     router_top_k_gating)
 from repro_torch.kernels.ops import grouped_ffn_op, resolve_backend
 from repro_torch.kernels.ref import gelu
 
@@ -38,12 +39,18 @@ class MoEOutput(NamedTuple):
 
 
 def expert_ffn(wi, wu, wo, x, ffn_type: str = "swiglu",
-               compute_backend: str = "xla"):
+               compute_backend: str = "xla", *, group_expert=None,
+               group_rows=None):
     """x: [E_rows, n, d] with per-row expert weights [E_rows, d, f].
     ``"pallas"`` runs the grouped-FFN kernel route; ``"xla"`` the einsum
-    formulation it is held against."""
+    formulation it is held against.  The kernel route also takes
+    ``group_expert`` (weights [E, d, f] read in place, row g using expert
+    group_expert[g]) and ``group_rows`` (rows past each count are zeros);
+    the plain route takes neither."""
     if compute_backend == "pallas":
-        return grouped_ffn_op(x, wi, wu, wo, ffn_type)
+        return grouped_ffn_op(x, wi, wu, wo, ffn_type,
+                              group_expert=group_expert,
+                              group_rows=group_rows)
     h = torch.einsum("end,edf->enf", x, wi)
     if ffn_type == "swiglu":
         h = F.silu(h) * torch.einsum("end,edf->enf", x, wu)
@@ -66,8 +73,10 @@ def moe_layer(x, params: MoEParams, cfg: MoEConfig, *,
                             compute_backend=backend)
     disp, comb = D.get_backend(dispatch_backend)
     buf = disp(x2, g, e, cap)                                   # [E, C, d]
+    # the kernel skips each expert's buffer rows past its kept count
+    rows = kept_counts(g, e) if backend == "pallas" else None
     out_buf = expert_ffn(params.wi, params.wu, params.wo, buf, ffn_type,
-                         backend)
+                         backend, group_rows=rows)
     y = comb(out_buf, g, e, cap)
     return MoEOutput(y.reshape(b, s, d_model), g.aux_loss, g.expert_idx,
                      g.router_probs)

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.core.gating import capacity, router_top_k_gating
+from repro_torch.core.gating import (capacity, kept_counts,
+                                     router_top_k_gating)
 from repro_torch.core.moe import MoEParams, expert_ffn
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref
@@ -223,6 +224,19 @@ def slot_capacity(cap: int, min_replicas: int) -> int:
     return max(8, -(-cap // max(1, min_replicas)))
 
 
+def slot_rows(rows, n_slots: int, slot_cap: int):
+    """[n_slots] int32: one past the highest buffer row routed into each
+    slot (0 for a slot that received nothing), from the [T, k] flat rows
+    (-1 dropped).  The weighted route fills a slot's rows from 0, so this
+    is its count; the round-robin recount may leave holes below it."""
+    used = rows >= 0
+    slot = torch.where(used, rows // slot_cap, n_slots).reshape(-1).long()
+    top = torch.where(used, rows % slot_cap + 1, 0).reshape(-1).int()
+    return torch.zeros((n_slots + 1,), dtype=torch.int32,
+                       device=rows.device).scatter_reduce_(
+        0, slot, top, "amax")[:n_slots]
+
+
 def serve_moe_layer(x, params: MoEParams, cfg: MoEConfig, plan: PlanArrays,
                     *, ffn_type: str = "swiglu", top_k: int | None = None,
                     min_replicas: int = 1, cap_override: int = 0,
@@ -254,9 +268,7 @@ def serve_moe_layer(x, params: MoEParams, cfg: MoEConfig, plan: PlanArrays,
     if route_mode == "weighted":
         # kept positions of expert e are exactly 0..counts_e-1, so
         # position < sum(w_int) IS the capacity rule
-        kept = (~g.dropped).to(torch.int32)
-        counts = torch.zeros((e,), dtype=torch.int32, device=x.device) \
-            .index_add_(0, g.expert_idx.reshape(-1).long(), kept.reshape(-1))
+        counts = kept_counts(g, e)
         fracs = balanced_route_fractions(counts, plan.route_weight,
                                          plan.replica_of, plan.n_replicas,
                                          n_dev, s_pack)
@@ -296,17 +308,23 @@ def serve_moe_layer(x, params: MoEParams, cfg: MoEConfig, plan: PlanArrays,
         src = x[:, None, :].expand(*rows.shape, d_model).reshape(-1, d_model)
         buf = buf.index_copy(0, flat_idx.reshape(-1).long(), src)[:-1]
 
-    # --- hosted-expert weights (the §6.2 weight swap as a gather) ---------
-    hosted = plan.slot_expert.reshape(n_slots).long()
-    safe = torch.clamp(hosted, min=0)
-    wi_h = params.wi[safe]
-    wo_h = params.wo[safe]
-    wu_h = params.wu[safe] if params.wu is not None else None
-
     # --- compute packed experts (§6.2) -------------------------------------
     toks = buf.reshape(n_slots, slot_cap, d_model)
-    out = expert_ffn(wi_h, wu_h, wo_h, toks, ffn_type, backend)  # [S, n, d]
-    out = out * (hosted >= 0).to(out.dtype)[:, None, None]
+    hosted = plan.slot_expert.reshape(n_slots)
+    if backend == "pallas":
+        # the kernel reads each slot's hosted expert in place (-1: an empty
+        # slot, zeros) and skips the slot rows past the last one routed
+        out = expert_ffn(params.wi, params.wu, params.wo, toks, ffn_type,
+                         backend, group_expert=hosted.int(),
+                         group_rows=slot_rows(rows, n_slots, slot_cap))
+    else:
+        # the §6.2 weight swap as a gather of the hosted experts' weights
+        hosted = hosted.long()
+        safe = torch.clamp(hosted, min=0)
+        wu_h = params.wu[safe] if params.wu is not None else None
+        out = expert_ffn(params.wi[safe], wu_h, params.wo[safe], toks,
+                         ffn_type, backend)                    # [S, n, d]
+        out = out * (hosted >= 0).to(out.dtype)[:, None, None]
     flat = out.reshape(n_slots * slot_cap, d_model)
 
     # --- combine ------------------------------------------------------------

@@ -50,7 +50,7 @@ SIGNATURES = {
         "weighted_route": (P, P, P, P, I, I, I, I, P, P),
     },
     "moe_ffn": {
-        "grouped_ffn": (P, P, P, P, P, P, I, I, I, I, I, P),
+        "grouped_ffn": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, P),
     },
     "grouped_matmul": {
         "grouped_matmul": (P, P, P, I, I, I, I, I, I, P),

@@ -225,12 +225,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// two floats -> two bf16 (round to nearest even), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // row: this thread's first row (the second is row + 8); col: its first key
 __device__ __forceinline__ void mask_tile(float (&sc)[64], int row, int col,
                                           const Params& p) {
@@ -288,10 +282,6 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[BN / 16][4],
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       pa[c][j] = pack_bf16(sc[8 * c + 2 * j], sc[8 * c + 2 * j + 1]);
-}
-
-__device__ __forceinline__ void consumer_bar(int wg) {
-  asm volatile("bar.sync %0, 128;" :: "r"(1 + wg) : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -36,7 +36,8 @@
 // swizzle in the layout wgmma reads; m64n256k16 bf16 with both operands in
 // shared memory, the transpose bits taking an M-major a or an N-major b as
 // it lands (4 instances: the bits are immediates).  Products are exact,
-// sums fp32.
+// sums fp32.  The ring and its consumer loop are hopper.cuh's (shared with
+// moe_ffn.cu's two GEMMs); this file keeps the loads and the walk.
 //
 // Any fp32 operand: wgmma .tf32 (m64n256k8) reads K-major operands only (the
 // transpose bits exist for 16-bit types alone) and no instruction mixes
@@ -93,10 +94,12 @@ constexpr int kSmemMax = 232448;                  // a block's dynamic limit
 // operand is stored M- or N-major (else K-major)
 constexpr int kBf16 = 1, kMnMajor = 2;
 
-// -- bf16 x bf16: 128 x 256 x 64 stages straight from TMA -----------------
-constexpr int kBfK = 64, kBfStages = 4;
-constexpr int kBfA = BM * kBfK * 2, kBfB = BN * kBfK * 2;  // 16 KB, 32 KB
-constexpr int kBfStage = kBfA + kBfB;
+// -- bf16 x bf16: 128 x 256 x 64 stages straight from TMA (hopper.cuh's
+// ring) -------------------------------------------------------------------
+constexpr int kBfK = kRingK, kBfStages = 4;
+constexpr int kBfA = kRingA, kBfB = kRingB;  // 16 KB, 32 KB
+constexpr int kBfStage = kRingStage;
+static_assert(kBfA == BM * kBfK * 2 && kBfB == BN * kBfK * 2, "ring tile");
 constexpr int kBfSmem = kBfStages * kBfStage + 2 * kBfStages * 8 + 1024;
 static_assert(kBfSmem <= kSmemMax, "bf16 ring exceeds shared memory");
 
@@ -122,20 +125,6 @@ __device__ __forceinline__ void wgmma_tf32_n256(float (&d)[128], uint64_t da,
       : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56),
         R8(64), R8(72), R8(80), R8(88), R8(96), R8(104), R8(112), R8(120)
       : "l"(da), "l"(db), "r"(1));
-}
-
-// d[64 x 256] += a[64 x 16] . b[16 x 256], bf16; TA / TB: a M-major, b
-// N-major (the transpose bits)
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t da,
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" REGS128
-      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
-      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56),
-        R8(64), R8(72), R8(80), R8(88), R8(96), R8(104), R8(112), R8(120)
-      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 // Epilogue: one warpgroup's m64nN accumulators into c (row stride n),
@@ -214,12 +203,10 @@ gmm_bf16_kernel(const __grid_constant__ CUtensorMap ta,
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const Tile tl = tile_at(t, tiles_n, tiles_m);
         for (int kb = 0; kb < nk; ++kb, ++i) {
-          const int s = i % kBfStages;
-          if (i >= kBfStages) mbar_wait(&empty[s], ((i / kBfStages) - 1) & 1);
+          const int s = ring_acquire<kBfStages>(full, empty, i);
           uint8_t* a = smem + s * kBfStage;
           uint8_t* b = a + kBfA;
           const int k0 = kb * kBfK;
-          mbar_expect_tx(&full[s], kBfStage);
           if (A_MN) {   // two 64 (m) x 64 (k) blocks, 8 KB each
             tma_load(a, &ta, &full[s], tl.m0, k0, tl.g);
             tma_load(a + kBfA / 2, &ta, &full[s], tl.m0 + 64, k0, tl.g);
@@ -248,32 +235,8 @@ gmm_bf16_kernel(const __grid_constant__ CUtensorMap ta,
 #pragma unroll
       for (int j = 0; j < 128; ++j) d[j] = 0.f;
       fence_regs(d);
-      for (int kb = 0; kb < nk; ++kb, ++i) {
-        const int s = i % kBfStages;
-        mbar_wait(&full[s], (i / kBfStages) & 1);
-        // this warpgroup's 64 rows of a: the second half of the K-major
-        // tile, or the second 64-wide M block
-        const uint32_t a = smem_u32(smem + s * kBfStage) + wg * (kBfA / 2);
-        const uint32_t b = smem_u32(smem + s * kBfStage + kBfA);
-        wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < kBfK / 16; ++kk) {
-          // 16 k: 32 bytes along a K-major row, or 16 rows of an M/N-major
-          // one
-          const uint64_t da = A_MN ? sw128_desc(a + kk * 2048, kBfA / 2, 1024)
-                                   : sw128_desc(a + kk * 32, 16, 1024);
-          const uint64_t db = B_MN ? sw128_desc(b + kk * 2048, kBfB / 4, 1024)
-                                   : sw128_desc(b + kk * 32, 16, 1024);
-          wgmma_bf16_n256<A_MN, B_MN>(d, da, db);
-        }
-        wgmma_commit();
-        wgmma_wait<1>();   // the previous step's products are done
-        fence_regs(d);
-        if (kb > 0 && leader) mbar_arrive(&empty[(i - 1) % kBfStages]);
-      }
-      wgmma_wait<0>();
-      fence_regs(d);
-      if (nk > 0 && leader) mbar_arrive(&empty[(i - 1) % kBfStages]);
+      ring_consume<A_MN, B_MN, kBfStages>(d, smem, full, empty, i, nk, wg,
+                                          leader);
       store_tile(d, c + (size_t)tl.g * m * n, m, n, tl.m0 + 64 * wg, tl.n0);
     }
   }
@@ -474,39 +437,6 @@ gmm_tf32_kernel(const __grid_constant__ CUtensorMap ta,
 // host: tensor maps and launch
 // ---------------------------------------------------------------------------
 
-// 3-D map over a row-major [g, outer, inner] array, box {box0, box1, 1}
-bool encode(CUtensorMap* map, const void* ptr, bool is_bf16, int inner,
-            int outer, int g, int box0, int box1, bool swizzle) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t es = is_bf16 ? 2 : 4;
-  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)outer,
-                              (cuuint64_t)g};
-  const cuuint64_t strides[2] = {inner * es, (cuuint64_t)inner * outer * es};
-  const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  return fn(map, is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-            3, const_cast<void*>(ptr), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
-// one block an SM (each takes all of its shared memory), at most one a tile
-int persistent_grid(long long tiles) {
-  const int sms = sm_count();
-  return (int)(tiles < sms ? tiles : sms);
-}
-
 template <bool A_MN, bool B_MN>
 cudaError_t launch_bf16(const CUtensorMap& ta, const CUtensorMap& tb,
                         float* c, int grid, int g, int m, int n, int k,
@@ -549,15 +479,15 @@ extern "C" int grouped_matmul(const void* a, const void* b, void* c, int g,
   if (k > 0) {
     bool ok;
     if (both_bf)
-      ok = (am ? encode(&ta, a, true, m, k, g, 64, 64, true)
-               : encode(&ta, a, true, k, m, g, kBfK, BM, true)) &&
-           (bn ? encode(&tb, b, true, n, k, g, 64, 64, true)
-               : encode(&tb, b, true, k, n, g, kBfK, BN, true));
+      ok = (am ? encode_3d(&ta, a, true, m, k, g, 64, 64, true)
+               : encode_3d(&ta, a, true, k, m, g, kBfK, BM, true)) &&
+           (bn ? encode_3d(&tb, b, true, n, k, g, 64, 64, true)
+               : encode_3d(&tb, b, true, k, n, g, kBfK, BN, true));
     else
-      ok = (am ? encode(&ta, a, a_bf, m, k, g, BM, kTfK, false)
-               : encode(&ta, a, a_bf, k, m, g, kTfK, BM, false)) &&
-           (bn ? encode(&tb, b, b_bf, n, k, g, BN, kTfK, false)
-               : encode(&tb, b, b_bf, k, n, g, kTfK, BN, false));
+      ok = (am ? encode_3d(&ta, a, a_bf, m, k, g, BM, kTfK, false)
+               : encode_3d(&ta, a, a_bf, k, m, g, kTfK, BM, false)) &&
+           (bn ? encode_3d(&tb, b, b_bf, n, k, g, BN, kTfK, false)
+               : encode_3d(&tb, b, b_bf, k, n, g, kTfK, BN, false));
     if (!ok) return (int)cudaErrorInvalidValue;
   }
   if (both_bf) {

@@ -4,6 +4,10 @@ and ``csrc/grouped_matmul.cu``.
 ``grouped_ffn``: per group g, act(x[g] @ wi[g]) @ wo[g] with gelu (tanh
 form), or silu(x[g] @ wi[g]) * (x[g] @ wu[g]) for swiglu; fp32 sums, h
 rounded to x's type before the second product.  bf16 only on the card.
+Two options: ``group_expert`` makes group g read expert group_expert[g] of
+unexpanded [E, ...] weights in place (-1: an empty group, zeros), and
+``group_rows`` zeroes every row r >= group_rows[g] (the kernel skips the
+tiles wholly past it).
 
 ``grouped_matmul``: a [E, M, K] @ b [E, K, N] -> [E, M, N] fp32, the dgrad /
 wgrad GEMM of the FFN backward; each operand bf16 or fp32, row-major or the
@@ -35,34 +39,57 @@ TILE = 64   # D and F must be multiples of the kernel's column tile
 ACT = {"gelu": 1, "swiglu": 2}
 
 
-def grouped_ffn(x, wi, wu, wo, *, ffn_type: str = "swiglu"):
+def grouped_ffn(x, wi, wu, wo, *, ffn_type: str = "swiglu",
+                group_expert=None, group_rows=None):
     """x: [G, T, D]; wi/wu: [G, D, F]; wo: [G, F, D] -> [G, T, D] x.dtype.
-    ``wu`` may be None for gelu FFNs."""
+    ``wu`` may be None for gelu FFNs.
+
+    ``group_expert`` (int32 [G], values in [-1, E)): the weights are the
+    unexpanded [E, D, F] / [E, F, D] parameters and group g reads expert
+    group_expert[g] in place; a group of -1 gives zeros.  ``group_rows``
+    (int32 [G]): out[g, r] = 0 for r >= group_rows[g].  Both live on x's
+    device and are read there (no host sync)."""
     if ffn_type == "swiglu" and wu is None:
         raise ValueError("swiglu FFN requires the up projection wu")
-    if on_cpu(x, wi, wu, wo):
-        return ref.ref_grouped_ffn(x, wi, wu, wo, ffn_type)
+    if on_cpu(x, wi, wu, wo, group_expert, group_rows):
+        return ref.ref_grouped_ffn(x, wi, wu, wo, ffn_type, group_expert,
+                                   group_rows)
     if ffn_type not in ACT:
         raise ValueError(f"unknown ffn_type {ffn_type!r}")
     require(x, "x", BF16, 3)
     g, t, d = x.shape
-    f = wi.shape[-1]
-    for name, a, shape in (("wi", wi, (g, d, f)), ("wo", wo, (g, f, d)),
-                           ("wu", wu, (g, d, f))):
+    e, f = wi.shape[0], wi.shape[-1]
+    if group_expert is None and e != g:
+        raise ValueError(f"grouped_ffn: {e} weight groups for {g} groups of "
+                         f"x (pass group_expert to index them)")
+    for name, a, shape in (("wi", wi, (e, d, f)), ("wo", wo, (e, f, d)),
+                           ("wu", wu, (e, d, f))):
         if a is None:
             continue
         require(a, name, BF16, 3)
         if tuple(a.shape) != shape:
             raise ValueError(f"{name}: expected {shape}, got "
                              f"{tuple(a.shape)}")
+    for name, a in (("group_expert", group_expert),
+                    ("group_rows", group_rows)):
+        if a is not None:
+            require(a, name, (torch.int32,), 1)
+            if a.shape[0] != g:
+                raise ValueError(f"{name}: expected [{g}], got "
+                                 f"{tuple(a.shape)}")
     if d % TILE or f % TILE:
         raise ValueError(f"grouped_ffn kernel takes D and F in multiples of "
                          f"{TILE}, got D={d}, F={f}")
+    for name, a in (("x", x), ("wi", wi), ("wu", wu), ("wo", wo)):
+        if a is not None:
+            tma_operand_rule(f"grouped_ffn {name}", a.shape, False,
+                             a.element_size(), a.data_ptr())
     h = torch.empty((g, t, f), dtype=x.dtype, device=x.device)
     out = torch.empty((g, t, d), dtype=x.dtype, device=x.device)
     status = lib("moe_ffn").grouped_ffn(
         ptr(x), ptr(wi), ptr(wu if ffn_type == "swiglu" else None), ptr(wo),
-        ptr(h), ptr(out), g, t, d, f, ACT[ffn_type], stream(x))
+        ptr(group_expert), ptr(group_rows), ptr(h), ptr(out), g, t, d, f, e,
+        ACT[ffn_type], stream(x))
     check(status, "grouped_ffn")
     GROUPED_FFN.inc()
     return out
@@ -100,7 +127,7 @@ def tma_operand_rule(name: str, shape, transposed: bool, itemsize: int,
     inner = shape[1] if transposed else shape[2]
     if (inner * itemsize) % 16 or data_ptr % 16:
         raise ValueError(
-            f"grouped_matmul {name}: the TMA needs the contiguous dimension "
+            f"{name}: the TMA needs the contiguous dimension "
             f"({inner} values of {itemsize} bytes) to be a multiple of 16 "
             f"bytes and the base address (offset {data_ptr % 16}) 16-byte "
             f"aligned")
@@ -136,7 +163,8 @@ def grouped_matmul(a, b):
     a, a_t = _layout(a)
     b, b_t = _layout(b)
     for name, t, tr in (("a", a, a_t), ("b", b, b_t)):
-        tma_operand_rule(name, t.shape, tr, t.element_size(), t.data_ptr())
+        tma_operand_rule(f"grouped_matmul {name}", t.shape, tr,
+                         t.element_size(), t.data_ptr())
     out = torch.empty((e, m, n), dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out

@@ -21,8 +21,10 @@ follows the reference's custom VJPs (``src/repro/kernels/ops.py``) and
 launches the same kernels:
 
   * ``grouped_ffn_op``  — the FFN kernel forward; the backward recomputes
-    h (and u) and forms every dgrad / wgrad with ``grouped_matmul``
-    (5 launches for gelu, 8 for swiglu);
+    h (and u) on the full buffers and forms every dgrad / wgrad with
+    ``grouped_matmul`` (5 launches for gelu, 8 for swiglu).  With
+    ``group_expert`` (the serve path's in-place hosted weights) it has no
+    backward and raises where a gradient is wanted;
   * ``topk_gating_op``  — the gating kernel forward; the backward
     differentiates the plain ``x @ router`` + softmax + top-k (idx gets no
     gradient);
@@ -86,10 +88,11 @@ def _vjp(fn, primals, cotangent):
 
 class _GroupedFFN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, wi, wu, wo, ffn_type):
+    def forward(ctx, x, wi, wu, wo, group_rows, ffn_type):
         ctx.ffn_type = ffn_type
         ctx.save_for_backward(x, wi, wu, wo)
-        return grouped_ffn(x, wi, wu, wo, ffn_type=ffn_type)
+        return grouped_ffn(x, wi, wu, wo, ffn_type=ffn_type,
+                           group_rows=group_rows)
 
     @staticmethod
     def backward(ctx, dy):
@@ -116,13 +119,30 @@ class _GroupedFFN(torch.autograd.Function):
             dwu = None
         dwi = grouped_matmul(xt, dh)
         return (dx.to(x.dtype), dwi.to(wi.dtype), dwu, dwo.to(wo.dtype),
-                None)
+                None, None)
 
 
-def grouped_ffn_op(x, wi, wu, wo, ffn_type: str = "swiglu"):
+def grouped_ffn_op(x, wi, wu, wo, ffn_type: str = "swiglu", *,
+                   group_expert=None, group_rows=None):
+    """The grouped FFN (``moe_ffn.grouped_ffn``), differentiable in x and
+    the weights.  ``group_rows`` [G]: rows past each group's count are
+    zeros, which the callers' buffers already are there, so the backward
+    (on the full buffers) is unchanged.  ``group_expert`` [G]: the weights
+    read in place through the group -> expert index; forward only."""
     wu = wu.contiguous() if wu is not None else None
+    rows = None if group_rows is None else group_rows.int().contiguous()
+    if group_expert is not None:
+        if torch.is_grad_enabled() and any(
+                a is not None and a.requires_grad for a in (x, wi, wu, wo)):
+            raise NotImplementedError(
+                "grouped_ffn_op: group_expert has no backward (the serve "
+                "path runs without gradients)")
+        return grouped_ffn(x.contiguous(), wi.contiguous(), wu,
+                           wo.contiguous(), ffn_type=ffn_type,
+                           group_expert=group_expert.int().contiguous(),
+                           group_rows=rows)
     return _GroupedFFN.apply(x.contiguous(), wi.contiguous(), wu,
-                             wo.contiguous(), ffn_type)
+                             wo.contiguous(), rows, ffn_type)
 
 
 # ---------------------------------------------------------------------------

@@ -32,14 +32,31 @@ def first_max_topk(p, k: int):
     return torch.cat(vals, -1), torch.cat(ids, -1).to(torch.int32)
 
 
-def ref_grouped_ffn(x, wi, wu, wo, ffn_type: str = "swiglu"):
-    """Grouped expert FFN.  x: [E, T, D]; wi/wu: [E, D, F]; wo: [E, F, D]."""
+def ref_grouped_ffn(x, wi, wu, wo, ffn_type: str = "swiglu",
+                    group_expert=None, group_rows=None):
+    """Grouped expert FFN.  x: [G, T, D]; wi/wu: [G, D, F]; wo: [G, F, D].
+    With ``group_expert`` [G] the weights are [E, ...] and group g uses
+    expert group_expert[g] (-1: zeros); with ``group_rows`` [G], rows r >=
+    group_rows[g] are zeros."""
+    if group_expert is not None:
+        safe = torch.clamp(group_expert, min=0).long()
+        wi, wo = wi[safe], wo[safe]
+        wu = wu[safe] if wu is not None else None
     h = torch.einsum("etd,edf->etf", x, wi)
     if ffn_type == "swiglu":
         h = F.silu(h) * torch.einsum("etd,edf->etf", x, wu)
     else:
         h = gelu(h)
-    return torch.einsum("etf,efd->etd", h, wo).to(x.dtype)
+    out = torch.einsum("etf,efd->etd", h, wo).to(x.dtype)
+    if group_expert is None and group_rows is None:
+        return out
+    keep = torch.ones(out.shape[:2], dtype=torch.bool, device=out.device)
+    if group_rows is not None:
+        keep &= torch.arange(out.shape[1], device=out.device)[None, :] \
+            < group_rows[:, None]
+    if group_expert is not None:
+        keep &= (group_expert >= 0)[:, None]
+    return torch.where(keep[..., None], out, torch.zeros_like(out))
 
 
 def ref_grouped_matmul(a, b):

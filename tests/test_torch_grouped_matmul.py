@@ -18,7 +18,7 @@ import itertools
 import numpy as np
 import pytest
 import torch
-from _tma_model import read_kmajor, read_mnmajor, sw128
+from _tma_model import read_kmajor, read_mnmajor, tma_box
 
 from repro_torch.configs import get_config
 from repro_torch.core.gating import capacity
@@ -133,22 +133,6 @@ def test_plan_covers_the_five_training_gemms():
 BM = 128
 BF_N, BF_K = 256, 64          # bf16 kernel tile and stage depth
 TF_N, TF_K = 256, 32          # tf32 kernel tile and stage depth
-
-
-def tma_box(smem, es, dst, glob, c0, c1, box0, box1, swizzle):
-    """TMA load of a {box0 (inner), box1} box at (c0, c1) of the 2-D array
-    ``glob`` [outer, inner] into the byte-addressed ``smem`` (an element
-    array indexed by address // es) at ``dst``; out of bounds reads 0."""
-    j, i = np.meshgrid(np.arange(box1), np.arange(box0), indexing="ij")
-    gi, gj = c0 + i, c1 + j
-    inb = (gi < glob.shape[1]) & (gj < glob.shape[0])
-    vals = np.where(inb, glob[np.minimum(gj, glob.shape[0] - 1),
-                              np.minimum(gi, glob.shape[1] - 1)], 0.0)
-    off = (j * box0 + i) * es
-    if swizzle:
-        assert box0 * es == 128 and dst % 1024 == 0
-        off = sw128(off)
-    smem[(dst + off) // es] = vals
 
 
 def bf16_tile(a_stored, b_stored, am, bn, m0, n0, k):

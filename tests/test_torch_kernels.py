@@ -157,6 +157,47 @@ def test_grouped_ffn_matches_reference(ffn_type):
                         interpret=True))
 
 
+# (group_expert, group_rows) over 5 groups of 16 rows and 3 experts: a
+# slot of -1, a slot with 0 rows, counts that end mid-tile (the Pallas
+# kernel's 8-row tile and the Hopper kernel's 128-row one alike)
+GROUP_CASES = {
+    "index+rows": ([2, 0, -1, 2, 1], [16, 0, 9, 5, 13]),
+    "index": ([1, 1, 0, -1, 2], None),
+    "rows": (None, [3, 16, 0, 11, 8]),
+}
+
+
+@pytest.mark.parametrize("ffn_type", ["gelu", "swiglu"])
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_grouped_ffn_groups_match_reference(ffn_type, case):
+    """group_expert reads [E, ...] weights in place, group_rows zeroes the
+    rows past each count: held against the interpret-mode Pallas kernel
+    fed the gathered weights, with those rows zeroed."""
+    ge, gr = GROUP_CASES[case]
+    rng = np.random.RandomState(len(case))
+    g, t, d, f = 5, 16, 32, 64
+    e = 3 if ge is not None else g
+    x = (rng.randn(g, t, d) * 0.5).astype(np.float32)
+    wi = (rng.randn(e, d, f) / np.sqrt(d)).astype(np.float32)
+    wu = (rng.randn(e, d, f) / np.sqrt(d)).astype(np.float32)
+    wo = (rng.randn(e, f, d) / np.sqrt(f)).astype(np.float32)
+    tge = None if ge is None else torch.tensor(ge, dtype=torch.int32)
+    tgr = None if gr is None else torch.tensor(gr, dtype=torch.int32)
+    got = grouped_ffn(*(torch.from_numpy(a) for a in (x, wi, wu, wo)),
+                      ffn_type=ffn_type, group_expert=tge, group_rows=tgr)
+    sel = np.maximum(ge, 0) if ge is not None else np.arange(g)
+    j = [jnp.asarray(a) for a in (x, wi[sel], wu[sel], wo[sel])]
+    keep = np.ones((g, t), bool)
+    if gr is not None:
+        keep &= np.arange(t)[None, :] < np.asarray(gr)[:, None]
+    if ge is not None:
+        keep &= (np.asarray(ge) >= 0)[:, None]
+    want = np.where(keep[..., None], np.asarray(j_grouped_ffn(
+        *j, ffn_type=ffn_type, block_t=8, block_f=32, interpret=True)), 0.0)
+    close(got, want)
+    assert not np.asarray(got)[~keep].any()      # exact zeros there
+
+
 def test_plain_versions_count_no_launches_and_reset_zeroes():
     reset_counters()
     assert sorted(COUNTERS) == sorted([

@@ -12,7 +12,8 @@
   the kernels the reference's VJP calls, as many times;
 * ``moe_layer`` gradients against the reference ``moe_layer(None, ...)``
   on both routes, and the ``einsum`` dispatch backend against its
-  reference.
+  reference; on the kernel route the FFN skips each expert's buffer rows
+  past its kept count, with forward and gradients unchanged.
 
 Tolerances at float32: atol = rtol = 1e-4 (XLA and PyTorch sum in other
 orders; bf16 operands are exact in fp32), integer outputs exact.
@@ -34,6 +35,7 @@ from repro.kernels.moe_ffn import grouped_matmul as j_grouped_matmul
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import dispatch as D
 from repro_torch.core import gating as G
+from repro_torch.core import moe as M
 from repro_torch.core.moe import MoEParams, moe_layer
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.dispatch import invert_slots
@@ -295,3 +297,47 @@ def test_einsum_dispatch_backend_matches_reference():
               jD.dispatch_einsum(jnp.asarray(x), jg, e, cap))
         close(comb(torch.from_numpy(buf), g, e, cap),
               jD.combine_einsum(jnp.asarray(buf), jg, e, cap))
+
+
+@pytest.mark.parametrize("ffn_type", ["gelu", "swiglu"])
+def test_moe_layer_group_rows_leave_forward_and_grads_unchanged(
+        monkeypatch, ffn_type):
+    """The kernel route passes the FFN each expert's kept count, min(count,
+    cap), as group_rows; forward and gradients equal the layer without it
+    (rows past the count are zeros in the buffer, and FFN(0) = 0)."""
+    # seed 12: one expert over its capacity of 16 (drops), three under it
+    x, p, ct = _moe_inputs(12, ffn_type)
+    cfg = MoEConfig(n_experts=4, top_k=2, capacity_factor=0.75,
+                    compute_backend="pallas")
+    seen = []
+    real_ffn = M.grouped_ffn_op
+
+    def spy(*a, **kw):
+        seen.append(kw.get("group_rows"))
+        return real_ffn(*a, **kw)
+    monkeypatch.setattr(M, "grouped_ffn_op", spy)
+
+    def run():
+        tx = t(x, True)
+        tp = [None if a is None else t(a, True) for a in p]
+        out = moe_layer(tx, MoEParams(*tp), cfg, ffn_type=ffn_type,
+                        dispatch_backend="pallas")
+        leaves = [tx] + [a for a in tp if a is not None]
+        grads = torch.autograd.grad((out.y * t(ct)).sum() + out.aux_loss,
+                                    leaves)
+        return out, grads
+
+    out, grads = run()
+    rows = seen[-1]
+    e = cfg.n_experts
+    cap = G.capacity(x.shape[0] * x.shape[1], e, 2, cfg.capacity_factor)
+    idx = out.expert_idx.numpy()
+    want = np.minimum(np.bincount(idx.reshape(-1), minlength=e), cap)
+    np.testing.assert_array_equal(rows.numpy(), want)
+    assert (want < cap).any() and (want == cap).any()   # both regimes
+    monkeypatch.setattr(M, "kept_counts", lambda g, n: None)
+    base, base_grads = run()
+    assert seen[-1] is None
+    torch.testing.assert_close(out.y, base.y, rtol=0, atol=0)
+    for a, b in zip(grads, base_grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
