@@ -78,9 +78,12 @@ Phase 1 also holds the two recurrences at the serve shapes of phases 5 and
 32 heads of 64 with a random non-zero bonus u, at the decode shape (T = 1)
 from a random state, and split in two calls that carry the state;
 ``ssd_scan`` against ``ref_ssd`` at 4 x 2048, 64 heads, P = N = 64 (x, B
-and C strided slices of one projection), at a ragged T = 2000 and split in
-two calls.  Neither function has a PyTorch call that computes it, so their
-``library_ms`` is null.
+and C strided slices of one projection), at a ragged T = 2000, as a single
+1 x 2048 request, from a random h0 (the final state held too), under a
+strong decay (softplus(dt) ~ 6.25: dt a ~ -100 a step), and split in two
+calls, each call repeated bitwise; its bound at the bf16 tensor-core peak,
+the fp32 one printed beside it.  Neither function has a PyTorch call that
+computes it, so their ``library_ms`` is null.
 Phase 5  serves rwkv6-1.6b (24 RWKV6 layers, d 2048) at full width and
          depth, random weights from a seed, through ``models.lm``'s
          ``forward_prefill`` (4 x 2048 tokens), ``init_cache`` and
@@ -882,15 +885,24 @@ def phase1_flash(dev, hw, gen) -> dict:
 
 
 # fp32 arithmetic outside the tensor cores (NVIDIA's H100 SXM data sheet):
-# the rate the WKV and SSD kernels compute at
+# the rate the WKV kernel computes at
 FP32_FLOPS = 67e12
 # norm-wise ||kernel - plain|| / ||plain|| of the two recurrences: both
-# compute in fp32 from the same bf16 inputs, summing in other orders (and
-# the SSD kernel in its chunked form)
+# compute in fp32 sums from the same bf16 inputs, in other orders (and the
+# SSD kernel in its chunked form, its M, h and cw B as bf16 hi / lo pairs)
 REC_REL = 1e-4
 # the rwkv6-1.6b / zamba2-1.2b serve shapes: B, T, H, hd; B, T, H, P, N
 WKV_SHAPE = (4, 2048, 32, 64)
 SSD_SHAPE = (4, 2048, 64, 64, 64)
+# ssd_scan's phase-1 cases at zamba2-1.2b's 64 heads: (case, B, T, dt
+# scale, dt shift, random h0 and the final state).  "strong decay":
+# softplus(dt) ~ 6.25, so dt a reaches ~ -100 a step at a = -16 and exp(L_t
+# - L_s) overflows above the diagonal
+SSD_CASES = (("prefill", 4, 2048, 1.0, 0.0, False),
+             ("ragged", 4, 2000, 1.0, 0.0, False),
+             ("single", 1, 2048, 1.0, 0.0, False),
+             ("h0", 4, 2048, 1.0, 0.0, True),
+             ("strong decay", 4, 2000, 0.2, 6.25, True))
 
 
 def rel_err(got, want) -> float:
@@ -936,8 +948,10 @@ def phase1_recurrences(dev, hw, gen) -> dict:
     the serve shapes of rwkv6-1.6b and zamba2-1.2b: WKV at the prefill shape
     with a random non-zero bonus u (the models start it at zero), at the
     decode shape (T = 1) from a random state, and split in two calls that
-    carry the state; SSD at the prefill shape with x, B and C sliced in
-    place from one projection, at a ragged T and split in two calls.
+    carry the state; SSD (SSD_CASES) with x, B and C sliced in place from
+    one projection at the prefill shape, at a ragged T, as one 1 x 2048
+    request, from a random h0 (the final state held too), under a strong
+    decay, and split in two calls, each SSD call repeated bitwise.
     Returns each kernel's summary row (the prefill case)."""
     import torch
     from repro_torch.kernels import ref
@@ -950,7 +964,10 @@ def phase1_recurrences(dev, hw, gen) -> dict:
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
     def report(name, case, errs, kernel, plain, nbytes, nops, iters=20,
-               tf32=False):
+               peak=FP32_FLOPS):
+        """Hold the case to REC_REL, time it and print it; the bound at
+        ``peak`` (the rate of the kernel's arithmetic), and at fp32 beside
+        it where that differs."""
         err = max(v for k, v in errs.items() if k != "max_abs")
         if not err <= REC_REL:
             raise AssertionError(f"{name} {case}: norm-wise rel err {errs} > "
@@ -958,17 +975,18 @@ def phase1_recurrences(dev, hw, gen) -> dict:
         ms = time_ms(kernel, iters, 3)
         dms = device_ms(kernel, min(iters, 10))
         pms = time_ms(plain, 2, 1)
-        bnd, by = bound_ms(nbytes, nops, hw, peak=FP32_FLOPS)
-        extra = ""
-        if tf32:
-            b32, by32 = bound_ms(nbytes, nops, hw, peak=TF32_FLOPS)
-            extra = f"; at TF32 {b32:.4f} ms ({by32})"
+        bnd, by = bound_ms(nbytes, nops, hw, peak=peak)
+        rate, extra = "fp32", ""
+        if peak != FP32_FLOPS:
+            b32, by32 = bound_ms(nbytes, nops, hw, peak=FP32_FLOPS)
+            rate, extra = "bf16", f"; at fp32 {b32:.4f} ms ({by32})"
         print(f"  {name:18s} {case:8s} norm-wise rel err "
               + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
               + f" (limit {REC_REL})  kernel {ms:.4f} ms (device {dms:.4f}, "
-              f"{nops / dms / 1e9:.2f} TFLOP/s)  plain {pms:.4f} ms  bound "
-              f"{bnd:.4f} ms ({by}, fp32 peak{extra}; {nbytes} bytes, "
-              f"{nops} operations)", flush=True)
+              f"{nops / dms / 1e9:.2f} TFLOP/s, {nbytes / dms / 1e9:.2f} "
+              f"TB/s, {bnd / dms:.1%} of the bound)  plain {pms:.4f} ms  "
+              f"bound {bnd:.4f} ms ({by}, {rate} peak{extra}; {nbytes} "
+              f"bytes, {nops} operations)", flush=True)
         row = dict(case=case, ms=ms, device_ms=dms, plain_ms=pms,
                    library_ms=None, bound_ms=bnd, bound_by=by,
                    max_abs_err=errs["max_abs"])
@@ -1034,27 +1052,48 @@ def phase1_recurrences(dev, hw, gen) -> dict:
                *wkv_cost(b, 1, h, hd, True, True), iters=50)
 
         # -- ssd_scan: x, B and C sliced from one [B, T, H*P + 2N] tensor as
-        # the model's convolved projection; zamba2's a_log, unit D
-        b, t, h, p, n = SSD_SHAPE
+        # the model's convolved projection; zamba2's a_log, unit D.  Each
+        # case is run twice and must repeat bitwise; the bound is at the
+        # bf16 tensor-core peak (the kernel's products; ssd_cost counts the
+        # function's operations once, not the hi / lo pairs)
+        _, _, h, p, n = SSD_SHAPE
         a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
         d_skip = torch.ones(h, device=dev)
-        for case, tt in (("prefill", t), ("ragged", 2000)):
-            xbc = rnd(b, tt, h * p + 2 * n).to(bf)
-            x = xbc[..., :h * p].reshape(b, tt, h, p)
+        inputs = {}
+        for case, b, t, scale, shift, with_h0 in SSD_CASES:
+            xbc = rnd(b, t, h * p + 2 * n).to(bf)
+            x = xbc[..., :h * p].reshape(b, t, h, p)
             bb, cc = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
-            dt = rnd(b, tt, h).to(bf)
-            y = ssd_scan(x, dt, a_log, bb, cc, d_skip)
-            want = ref.ref_ssd(x, dt, a_log, bb, cc, d_skip)
-            if not torch.isfinite(y).all():
+            dt = (rnd(b, t, h, scale=scale) + shift).to(bf)
+            h0 = rnd(b, h, p, n) if with_h0 else None
+            inputs[case] = (x, dt, bb, cc)
+
+            def run(fn, x=x, dt=dt, bb=bb, cc=cc, h0=h0, with_h0=with_h0):
+                return fn(x, dt, a_log, bb, cc, d_skip, h0=h0,
+                          return_state=with_h0)
+
+            got = run(ssd_scan)
+            again = run(ssd_scan)
+            want = run(ref.ref_ssd)
+            if not with_h0:
+                got, again, want = (got,), (again,), (want,)
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"ssd_scan {case}: a repeat differs")
+            if not all(torch.isfinite(g).all() for g in got):
                 raise AssertionError(f"ssd_scan {case}: non-finite output")
-            errs = {"y": rel_err(y, want),
-                    "max_abs": (y - want).abs().max().item()}
-            report("ssd_scan", case, errs,
-                   lambda: ssd_scan(x, dt, a_log, bb, cc, d_skip),
-                   lambda: ref.ref_ssd(x, dt, a_log, bb, cc, d_skip),
-                   *ssd_cost(b, tt, h, p, n), tf32=True)
+            errs = {k: rel_err(g, w) for k, g, w in zip(("y", "state"), got,
+                                                        want)}
+            errs["max_abs"] = max((g - w).abs().max().item()
+                                  for g, w in zip(got, want))
+            report("ssd_scan", case, errs, lambda run=run: run(ssd_scan),
+                   lambda run=run: run(ref.ref_ssd),
+                   *ssd_cost(b, t, h, p, n, with_h0, with_h0),
+                   peak=hw.peak_flops)
+            del got, again, want
         # the split (at T = 2000, mid-chunk): two calls carrying the state,
         # the strided slices passed as they are
+        x, dt, bb, cc = inputs["ragged"]
+        b, t = x.shape[:2]
         cut = 1000
 
         def ssd_split(fn):
@@ -1065,8 +1104,11 @@ def phase1_recurrences(dev, hw, gen) -> dict:
             return torch.cat([y1, y2], dim=1), h2
 
         split, h2 = ssd_split(ssd_scan)
-        _, h_ref = ref.ref_ssd(x, dt, a_log, bb, cc, d_skip,
-                               return_state=True)
+        split2, h22 = ssd_split(ssd_scan)
+        if not (torch.equal(split, split2) and torch.equal(h2, h22)):
+            raise AssertionError(f"ssd_scan split@{cut}: a repeat differs")
+        want, h_ref = ref.ref_ssd(x, dt, a_log, bb, cc, d_skip,
+                                  return_state=True)
         errs = {"y vs plain": rel_err(split, want),
                 "state vs plain": rel_err(h2, h_ref),
                 "max_abs": max((split - want).abs().max().item(),
@@ -1074,8 +1116,8 @@ def phase1_recurrences(dev, hw, gen) -> dict:
         report("ssd_scan", f"split@{cut}", errs,
                lambda: ssd_split(ssd_scan), lambda: ssd_split(ref.ref_ssd),
                *add_costs(ssd_cost(b, cut, h, p, n, s_out=True),
-                          ssd_cost(b, 2000 - cut, h, p, n, True, True)),
-               iters=5, tf32=True)
+                          ssd_cost(b, t - cut, h, p, n, True, True)),
+               iters=5, peak=hw.peak_flops)
     return rows
 
 

@@ -157,49 +157,18 @@ __device__ __forceinline__ bool tile_needs_mask(int r0, int k0,
 // the two products
 // ---------------------------------------------------------------------------
 
-// d[64 x 128] (+)= q[64 x 16] . k[128 x 16]^T, both K-major in shared memory;
-// accumulate 0 overwrites d
-__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x hd] += p[64 x 16] (registers) . v[16 x hd] (N-major in shared
-// memory: the transpose bit)
-__device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REGS32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : R8(0), R8(8), R8(16), R8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // S = Q K^T of this warpgroup's 64 rows against one staged K tile
 template <int HD>
 __device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q,
                                          uint32_t k) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk)
-    wgmma_qk(sc, sw128_desc(q + (kk / 4) * (BM * 128) + (kk % 4) * 32, 16,
-                            1024),
-             sw128_desc(k + (kk / 4) * (BN * 128) + (kk % 4) * 32, 16, 1024),
-             kk > 0);
+    wgmma_ss<0, 0>(sc,
+                   sw128_desc(q + (kk / 4) * (BM * 128) + (kk % 4) * 32, 16,
+                              1024),
+                   sw128_desc(k + (kk / 4) * (BN * 128) + (kk % 4) * 32, 16,
+                              1024),
+                   kk > 0);
 }
 
 // O += P V over the BN keys of one staged V tile: k16 step c reads V rows
@@ -210,7 +179,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
                                          uint32_t v) {
 #pragma unroll
   for (int c = 0; c < BN / 16; ++c)
-    wgmma_pv(o, pa[c], sw128_desc(v + c * 2048, BN * 128, 1024));
+    wgmma_rs(o, pa[c], sw128_desc(v + c * 2048, BN * 128, 1024));
 }
 
 // ---------------------------------------------------------------------------
@@ -218,12 +187,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
 // lane l) of a warpgroup holds row 16 w + l / 4 + 8 ((i / 2) % 2), key
 // 8 (i / 4) + 2 (l % 4) + i % 2
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // row: this thread's first row (the second is row + 8); col: its first key
 __device__ __forceinline__ void mask_tile(float (&sc)[64], int row, int col,

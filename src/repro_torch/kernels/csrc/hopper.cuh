@@ -1,6 +1,6 @@
 // PTX helpers for Hopper (sm_90a) shared by the kernels that load tiles with
 // TMA into mbarrier rings and multiply them with wgmma
-// (grouped_matmul.cu, flash_attention.cu, moe_ffn.cu), and the bf16 ring
+// (grouped_matmul.cu, flash_attention.cu, moe_ffn.cu, ssd.cu), and the bf16 ring
 // mainloop that grouped_matmul.cu's bf16 path and moe_ffn.cu's two GEMMs
 // share.  Each kernel source includes this header and builds into its own
 // library; kernels/_build.py hashes every csrc/*.cuh into each library's
@@ -198,6 +198,59 @@ __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
   "%104, %105, %106, %107, %108, %109, %110, %111, " \
   "%112, %113, %114, %115, %116, %117, %118, %119, " \
   "%120, %121, %122, %123, %124, %125, %126, %127"
+
+// d[64 x 128] (+)= a[64 x 16] . b[16 x 128], bf16, both in shared memory; TA
+// / TB: a M-major, b N-major (the transpose bits); accumulate 0 overwrites d
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+// the same at n64: d[64 x 64]
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REGS32
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// d[64 x 128] += a[64 x 16] (registers: the A fragment) . b[16 x 128]
+// (N-major in shared memory: the transpose bit)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" REGS64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24), R8(32), R8(40), R8(48), R8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+// the same at n64: d[64 x 64]
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" REGS32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x on the special function unit (flushes subnormals to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // d[64 x 256] += a[64 x 16] . b[16 x 256], bf16, both in shared memory; TA /
 // TB: a M-major, b N-major (the transpose bits)

@@ -12,7 +12,10 @@ chunking.
 On the card: x, dt, b and c bf16, read in place through their batch and
 time strides (the model passes slices of one projection; each row's last
 dims must be contiguous); a_log and d_skip cast to float32 here; h0
-float32 contiguous; P = N = 64; no gradient.  A CPU tensor takes the plain
+float32 contiguous; P = N = 64; no gradient.  x, b and c are loaded by
+TMA, which needs each base address and each batch and time stride to be
+a multiple of 16 bytes (``tma_stride_rule``; the stride of a dim of size 1
+is never stepped and is not held to it).  A CPU tensor takes the plain
 version in ``kernels.ref``; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
@@ -39,6 +42,29 @@ def _rows(a, name: str, inner: tuple) -> None:
     if tuple(a.stride()[2:]) != inner:
         raise ValueError(f"ssd_scan {name}: the dims after time must be "
                          f"contiguous, got strides {tuple(a.stride())}")
+
+
+def tma_strides(name: str, shape, strides, itemsize: int,
+                data_ptr: int) -> tuple:
+    """The batch and time strides (elements) that the kernel's TMA map of
+    an operand [B, T, ...] steps by.  Raise ValueError, naming the
+    operand, unless its base address and each of those strides is a
+    multiple of 16 bytes; a dim of size 1 is never stepped, and its stride
+    is replaced by the next dim's extent (a multiple of 16 bytes too)."""
+    if data_ptr % 16:
+        raise ValueError(f"ssd_scan {name}: the TMA needs a 16-byte aligned "
+                         f"base address, got offset {data_ptr % 16}")
+    inner = 1
+    for d in shape[2:]:
+        inner *= d
+    row = strides[1] if shape[1] > 1 else inner
+    out = (strides[0] if shape[0] > 1 else row * shape[1], row)
+    for dim, st in zip(("batch", "time"), out):
+        if (st * itemsize) % 16:
+            raise ValueError(f"ssd_scan {name}: the TMA needs the {dim} "
+                             f"stride ({st} values of {itemsize} bytes) to "
+                             f"be a multiple of 16 bytes")
+    return out
 
 
 def ssd_scan(x, dt, a_log, b, c, d_skip, *, h0=None,
@@ -77,6 +103,9 @@ def ssd_scan(x, dt, a_log, b, c, d_skip, *, h0=None,
     _rows(dt, "dt", (1,))
     _rows(b, "b", (1,))
     _rows(c, "c", (1,))
+    xs, bs, cs = (tma_strides(name, a.shape, a.stride(), a.element_size(),
+                              a.data_ptr())
+                  for name, a in (("x", x), ("b", b), ("c", c)))
     if h0 is not None:
         require(h0, "h0", (torch.float32,), 4)
     a32 = a_log.float().contiguous()
@@ -86,9 +115,8 @@ def ssd_scan(x, dt, a_log, b, c, d_skip, *, h0=None,
         if return_state else None
     status = lib("ssd").ssd_scan(
         ptr(x), ptr(dt), ptr(a32), ptr(b), ptr(c), ptr(d32), ptr(h0), ptr(y),
-        ptr(h_t), bsz, t, h, p, n, x.stride(0), x.stride(1), dt.stride(0),
-        dt.stride(1), b.stride(0), b.stride(1), c.stride(0), c.stride(1),
-        stream(x))
+        ptr(h_t), bsz, t, h, p, n, *xs, dt.stride(0), dt.stride(1), *bs,
+        *cs, stream(x))
     check(status, "ssd_scan")
     SSD_SCAN.inc()
     return (y, h_t) if return_state else y

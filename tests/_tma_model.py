@@ -1,8 +1,10 @@
 """Numpy models of Hopper's 128-byte swizzle and of what ``wgmma`` reads
 through a shared-memory descriptor, shared by the layout tests of the
 TMA + ``wgmma`` kernels (``test_torch_grouped_matmul.py``,
-``test_torch_flash_layout.py``, ``test_torch_ffn_layout.py``).  Shared memory is an element array indexed
-by byte address // element size."""
+``test_torch_flash_layout.py``, ``test_torch_ffn_layout.py``,
+``test_torch_ssd_layout.py``), and of where a warpgroup's registers sit in
+an m64nN accumulator and in the A fragment of an m64k16 step.  Shared
+memory is an element array indexed by byte address // element size."""
 import numpy as np
 
 
@@ -57,3 +59,19 @@ def tma_store_box(glob, smem, es, src, c0, c1, box0, box1):
     inb = (gi < glob.shape[1]) & (gj < glob.shape[0])
     vals = smem[(src + sw128((j * box0 + i) * es)) // es]
     glob[gj[inb], gi[inb]] = vals[inb]
+
+
+def acc_pos(t, i):
+    """Register i of thread t (of 128) of an m64nN fp32 accumulator: (row,
+    column)."""
+    w, lane = t >> 5, t & 31
+    return (16 * w + (lane >> 2) + 8 * ((i >> 1) & 1),
+            8 * (i >> 2) + 2 * (lane & 3) + (i & 1))
+
+
+def a_frag_pos(t, j, half):
+    """Half ``half`` of register j of thread t of wgmma's bf16 A fragment of
+    one m64k16 step: (row, k)."""
+    w, lane = t >> 5, t & 31
+    return (16 * w + (lane >> 2) + 8 * (j & 1),
+            2 * (lane & 3) + 8 * (j >> 1) + half)

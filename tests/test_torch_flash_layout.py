@@ -20,7 +20,8 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-from _tma_model import read_kmajor, read_mnmajor, sw128
+from _tma_model import (a_frag_pos, acc_pos, read_kmajor, read_mnmajor,
+                        sw128)
 
 SOURCE = (Path(__file__).resolve().parents[1]
           / "src/repro_torch/kernels/csrc/flash_attention.cu").read_text()
@@ -237,22 +238,6 @@ def test_tma_boxes_pick_rows_and_the_gqa_head(hd, heads, kvh, s):
     tma_store_4d(out, smem, 0, 0, 1, s - 10, 0)
     assert np.count_nonzero(out[0, :, 1, :64]) == 10 * 64
     assert not out[0, :s - 10].any()
-
-
-def acc_pos(t, i):
-    """Register i of thread t (of 128) of an m64nN fp32 accumulator: (row,
-    column)."""
-    w, lane = t >> 5, t & 31
-    return (16 * w + (lane >> 2) + 8 * ((i >> 1) & 1),
-            8 * (i >> 2) + 2 * (lane & 3) + (i & 1))
-
-
-def a_frag_pos(t, j, half):
-    """Half ``half`` of register j of thread t of wgmma's bf16 A fragment of
-    one m64k16 step: (row, k)."""
-    w, lane = t >> 5, t & 31
-    return (16 * w + (lane >> 2) + 8 * (j & 1),
-            2 * (lane & 3) + 8 * (j >> 1) + half)
 
 
 def pack_p():
