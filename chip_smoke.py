@@ -2,6 +2,13 @@
 """On-card smoke test of the PyTorch port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases 1r,5 [--src DIR]
+
+With no arguments every phase runs, as below.  ``--phases`` runs phase 0
+and a subset (``1r``: phase 1's two recurrences alone; no kernels line
+unless every phase runs); ``--src`` drives the port under another tree's
+``src`` (e.g. a parent commit unpacked under the git-ignored ``build/``)
+so that two versions can be timed on the same card.
 
 Phase 0  prints the card (``nvidia-smi`` name and power limit) and builds
          the seven CUDA kernel sources of ``src/repro_torch/kernels/csrc``
@@ -74,9 +81,13 @@ Phase 4  serves mixtral-8x22b at full width (d 6144, 48 / 8 heads, hd 128,
          against the query-blocked plain attention).
 
 Phase 1 also holds the two recurrences at the serve shapes of phases 5 and
-6, norm-wise within 1e-4: ``rwkv6_wkv`` against ``ref_rwkv6`` at 4 x 2048,
-32 heads of 64 with a random non-zero bonus u, at the decode shape (T = 1)
-from a random state, and split in two calls that carry the state;
+6, norm-wise within 1e-4: ``rwkv6_wkv`` against ``ref_rwkv6`` (WKV_CASES)
+at 4 x 2048, 32 heads of 64 with a random non-zero bonus u, at a ragged
+T = 2000, as a single 1 x 2048 request, from a random s0 (the final state
+held too), under a strong (-5 to -20 a step) and a weak (~ -1e-4) decay,
+split in two calls that carry the state, and at the decode shape (T = 1)
+from a random state, each call repeated bitwise, its bound at the bf16
+tensor-core peak (the step loop's at fp32);
 ``ssd_scan`` against ``ref_ssd`` at 4 x 2048, 64 heads, P = N = 64 (x, B
 and C strided slices of one projection), at a ragged T = 2000, as a single
 1 x 2048 request, from a random h0 (the final state held too), under a
@@ -92,7 +103,7 @@ Phase 5  serves rwkv6-1.6b (24 RWKV6 layers, d 2048) at full width and
          ``rwkv6_wkv`` must launch 24 times per prefill and per decode step.
          It prints prefill wall time, decode step p50 / p95, generated
          tokens/s, peak memory and the card's busy share of a prefill and
-         of a decode step.  It replays one prefill and one decode step
+         of a decode step, with the WKV kernels' device time in each.  It replays one prefill and one decode step
          layer by layer: every ``rwkv6_wkv`` call is run again through
          ``ref_rwkv6`` on the very tensors the model passed it (y and the
          final state norm-wise within 1e-4).  Then the plain route in
@@ -885,15 +896,27 @@ def phase1_flash(dev, hw, gen) -> dict:
 
 
 # fp32 arithmetic outside the tensor cores (NVIDIA's H100 SXM data sheet):
-# the rate the WKV kernel computes at
+# the rate of the WKV step loop (T < 64), and the recurrences' second bound
 FP32_FLOPS = 67e12
 # norm-wise ||kernel - plain|| / ||plain|| of the two recurrences: both
-# compute in fp32 sums from the same bf16 inputs, in other orders (and the
-# SSD kernel in its chunked form, its M, h and cw B as bf16 hi / lo pairs)
+# compute in fp32 sums from the same bf16 inputs, in other orders, in their
+# chunked forms, with the operands that are not bf16 (SSD: M, h, cw B; WKV:
+# the scaled r and k, the scores, S) as bf16 hi / lo pairs
 REC_REL = 1e-4
 # the rwkv6-1.6b / zamba2-1.2b serve shapes: B, T, H, hd; B, T, H, P, N
 WKV_SHAPE = (4, 2048, 32, 64)
 SSD_SHAPE = (4, 2048, 64, 64, 64)
+# rwkv6_wkv's phase-1 cases at rwkv6-1.6b's 32 heads: (case, B, T, decay,
+# random s0 and the final state).  Decays (wkv_decay): "model" the seeded
+# model's -exp(-2 + N(0, 0.5^2)) ~ -0.135 a step; "strong" -5 to -20 a step
+# (a trained RWKV6 reaches several units; e^(+cumsum w) of a chunk
+# overflows); "weak" ~ -1e-4 a step (S grows over the sequence)
+WKV_CASES = (("prefill", 4, 2048, "model", False),
+             ("ragged", 4, 2000, "model", False),
+             ("single", 1, 2048, "model", False),
+             ("s0", 4, 2048, "model", True),
+             ("strong decay", 4, 2000, "strong", True),
+             ("weak decay", 4, 2048, "weak", True))
 # ssd_scan's phase-1 cases at zamba2-1.2b's 64 heads: (case, B, T, dt
 # scale, dt shift, random h0 and the final state).  "strong decay":
 # softplus(dt) ~ 6.25, so dt a reaches ~ -100 a step at a = -16 and exp(L_t
@@ -903,6 +926,16 @@ SSD_CASES = (("prefill", 4, 2048, 1.0, 0.0, False),
              ("single", 1, 2048, 1.0, 0.0, False),
              ("h0", 4, 2048, 1.0, 0.0, True),
              ("strong decay", 4, 2000, 0.2, 6.25, True))
+
+
+def wkv_decay(kind: str, z):
+    """A log decay from the standard normal ``z`` (WKV_CASES)."""
+    import torch
+    if kind == "model":
+        return -torch.exp(z * 0.5 - 2.0)
+    if kind == "strong":
+        return -(12.5 + 7.5 * torch.tanh(z))
+    return -1e-4 * (1.0 + 0.5 * torch.tanh(z))
 
 
 def rel_err(got, want) -> float:
@@ -945,13 +978,15 @@ def add_costs(*costs) -> tuple:
 
 def phase1_recurrences(dev, hw, gen) -> dict:
     """rwkv6_wkv and ssd_scan against ref_rwkv6 / ref_ssd on the card, at
-    the serve shapes of rwkv6-1.6b and zamba2-1.2b: WKV at the prefill shape
-    with a random non-zero bonus u (the models start it at zero), at the
-    decode shape (T = 1) from a random state, and split in two calls that
-    carry the state; SSD (SSD_CASES) with x, B and C sliced in place from
+    the serve shapes of rwkv6-1.6b and zamba2-1.2b: WKV (WKV_CASES) with a
+    random non-zero bonus u (the models start it at zero) at the prefill
+    shape, at a ragged T, as one 1 x 2048 request, from a random s0 (the
+    final state held too), under a strong and a weak decay, split in two
+    calls that carry the state, and at the decode shape (T = 1) from a
+    random state; SSD (SSD_CASES) with x, B and C sliced in place from
     one projection at the prefill shape, at a ragged T, as one 1 x 2048
     request, from a random h0 (the final state held too), under a strong
-    decay, and split in two calls, each SSD call repeated bitwise.
+    decay, and split in two calls; every call repeated bitwise.
     Returns each kernel's summary row (the prefill case)."""
     import torch
     from repro_torch.kernels import ref
@@ -997,21 +1032,51 @@ def phase1_recurrences(dev, hw, gen) -> dict:
             cur["max_abs_err"] = max(cur["max_abs_err"], errs["max_abs"])
 
     with torch.inference_mode():
-        # -- rwkv6_wkv: the model's value ranges (unit r, k, v; decays near
-        # exp(-exp(-2)) = 0.87), a random bonus u
-        b, t, h, hd = WKV_SHAPE
-        r, k, v = (rnd(b, t, h, hd).to(bf) for _ in range(3))
-        w = -torch.exp(rnd(b, t, h, hd, scale=0.5) - 2.0)
+        # -- rwkv6_wkv (WKV_CASES): the model's value ranges (unit r, k, v;
+        # decays near exp(-exp(-2)) = 0.87), a random bonus u; each call run
+        # twice and held bitwise.  From T = 64 the kernel's products run on
+        # the bf16 tensor cores: their bound at the bf16 peak (wkv_cost
+        # counts the function's operations once), the fp32 one beside it
+        _, _, h, hd = WKV_SHAPE
         u = rnd(h, hd, scale=0.5)
-        y = rwkv6_wkv(r, k, v, w, u)
-        want = ref.ref_rwkv6(r, k, v, w, u)
-        errs = {"y": rel_err(y, want),
-                "max_abs": (y - want).abs().max().item()}
-        report("rwkv6_wkv", "prefill", errs,
-               lambda: rwkv6_wkv(r, k, v, w, u),
-               lambda: ref.ref_rwkv6(r, k, v, w, u),
-               *wkv_cost(b, t, h, hd))
+
+        def wkv_twice(case, *args, **kw):
+            got = rwkv6_wkv(*args, **kw)
+            again = rwkv6_wkv(*args, **kw)
+            got, again = ((g,) if not isinstance(g, tuple) else g
+                          for g in (got, again))
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"rwkv6_wkv {case}: a repeat differs")
+            if not all(torch.isfinite(g).all() for g in got):
+                raise AssertionError(f"rwkv6_wkv {case}: non-finite output")
+            return got
+
+        for case, b, t, decay, with_s0 in WKV_CASES:
+            r, k, v = (rnd(b, t, h, hd).to(bf) for _ in range(3))
+            w = wkv_decay(decay, rnd(b, t, h, hd))
+            s0 = rnd(b, h, hd, hd, scale=2.0) if with_s0 else None
+            if case == "prefill":
+                whole = (r, k, v, w)
+
+            def run(fn, r=r, k=k, v=v, w=w, s0=s0, with_s0=with_s0):
+                return fn(r, k, v, w, u, s0=s0, return_state=with_s0)
+
+            got = wkv_twice(case, r, k, v, w, u, s0=s0,
+                            return_state=with_s0)
+            want = run(ref.ref_rwkv6)
+            want = want if with_s0 else (want,)
+            errs = {k_: rel_err(g, w_) for k_, g, w_ in zip(("y", "state"),
+                                                             got, want)}
+            errs["max_abs"] = max((g - w_).abs().max().item()
+                                  for g, w_ in zip(got, want))
+            report("rwkv6_wkv", case, errs, lambda run=run: run(rwkv6_wkv),
+                   lambda run=run: run(ref.ref_rwkv6),
+                   *wkv_cost(b, t, h, hd, with_s0, with_s0),
+                   peak=hw.peak_flops)
+            del got, want
         # the split: two calls carrying the state against one call
+        r, k, v, w = whole
+        b, t = r.shape[:2]
         cut = 1000
         halves = [tuple(a[:, sl].contiguous() for a in (r, k, v, w))
                   for sl in (slice(0, cut), slice(cut, t))]
@@ -1022,8 +1087,11 @@ def phase1_recurrences(dev, hw, gen) -> dict:
             return torch.cat([y1, y2], dim=1), s2
 
         split, s2 = split_run(rwkv6_wkv)
-        y_all, s_all = rwkv6_wkv(r, k, v, w, u, return_state=True)
-        _, s_ref = ref.ref_rwkv6(r, k, v, w, u, return_state=True)
+        split2, s22 = split_run(rwkv6_wkv)
+        if not (torch.equal(split, split2) and torch.equal(s2, s22)):
+            raise AssertionError(f"rwkv6_wkv split@{cut}: a repeat differs")
+        y_all, s_all = wkv_twice("prefill", r, k, v, w, u, return_state=True)
+        want, s_ref = ref.ref_rwkv6(r, k, v, w, u, return_state=True)
         errs = {"y vs one call": rel_err(split, y_all),
                 "state vs one call": rel_err(s2, s_all),
                 "y vs plain": rel_err(split, want),
@@ -1033,13 +1101,15 @@ def phase1_recurrences(dev, hw, gen) -> dict:
         report("rwkv6_wkv", f"split@{cut}", errs,
                lambda: split_run(rwkv6_wkv), lambda: split_run(ref.ref_rwkv6),
                *add_costs(wkv_cost(b, cut, h, hd, s_out=True),
-                          wkv_cost(b, t - cut, h, hd, True, True)), iters=5)
-        del r, k, v, w, y, want, halves, split, y_all
-        # decode: one step from a random state
+                          wkv_cost(b, t - cut, h, hd, True, True)), iters=5,
+               peak=hw.peak_flops)
+        del whole, r, k, v, w, halves, split, split2, y_all, want
+        # decode: one step from a random state (the step loop, fp32)
         r1, k1, v1 = (rnd(b, 1, h, hd).to(bf) for _ in range(3))
-        w1 = -torch.exp(rnd(b, 1, h, hd, scale=0.5) - 2.0)
+        w1 = wkv_decay("model", rnd(b, 1, h, hd))
         s0 = rnd(b, h, hd, hd, scale=2.0)
-        y, st = rwkv6_wkv(r1, k1, v1, w1, u, s0=s0, return_state=True)
+        y, st = wkv_twice("decode", r1, k1, v1, w1, u, s0=s0,
+                          return_state=True)
         wy, ws = ref.ref_rwkv6(r1, k1, v1, w1, u, s0=s0, return_state=True)
         errs = {"y": rel_err(y, wy), "state": rel_err(st, ws),
                 "max_abs": max((y - wy).abs().max().item(),
@@ -1125,10 +1195,12 @@ def phase1_recurrences(dev, hw, gen) -> dict:
 # phase 2: the serve path end to end
 # ---------------------------------------------------------------------------
 
-def profile_busy(step, what: str) -> float:
+def profile_busy(step, what: str, watch: str = "") -> float:
     """Run ``step`` once more (after one unprofiled run) under
     torch.profiler; print its host wall time, the card's busy time (kernel
-    time summed) and share, and the top kernels.  Returns the busy share."""
+    time summed) and share, the top kernels and, with ``watch``, the time
+    and launches of the kernels whose name holds it.  Returns the busy
+    share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -1150,6 +1222,12 @@ def profile_busy(step, what: str) -> float:
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<5d} {e.key[:90]}", flush=True)
+    if watch:
+        hits = [e for e in kern if watch in e.key]
+        us = sum(e.self_device_time_total for e in hits)
+        print(f"    {watch} kernels: {us / 1e3:.3f} ms device over "
+              f"{sum(e.count for e in hits)} launches "
+              f"({100 * us / max(dev_us, 1e-9):.1f}% of busy)", flush=True)
     return dev_us / 1e6 / wall
 
 
@@ -1611,6 +1689,9 @@ RECURRENT_PATHS = {
     "rwkv6-1.6b": ({"rwkv6_wkv": 24}, {"rwkv6_wkv": 24}),
     "zamba2-1.2b": ({"ssd_scan": 38, "flash_attention": 6}, {}),
 }
+# the recurrence kernels' names in a profile (csrc/rwkv6.cu's chunked and
+# step-loop kernels; csrc/ssd.cu's)
+RECURRENT_KERNELS = {"rwkv6-1.6b": "wkv_", "zamba2-1.2b": "ssd_kernel"}
 
 
 def replay_hooks(arch: str) -> list:
@@ -1785,9 +1866,11 @@ def phase_recurrent(dev, arch: str, tag: str) -> dict:
               f"memory {peak:.2f} GiB", flush=True)
 
         profile_busy(lambda: prefill(cfg, toks),
-                     f"{tag} prefill {b} x {s} under the profiler")
+                     f"{tag} prefill {b} x {s} under the profiler",
+                     RECURRENT_KERNELS[arch])
         profile_busy(lambda: lm.decode_step(cfg, cparams, cache, tok),
-                     f"{tag} decode step under the profiler")
+                     f"{tag} decode step under the profiler",
+                     RECURRENT_KERNELS[arch])
 
         # every kernel call of one prefill and one decode step (from the
         # state after the decode run) against its plain version, layer by
@@ -2084,7 +2167,26 @@ def phase3_resume(dev) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def main() -> int:
+PHASES = ("1", "2", "3", "4", "5", "6")
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="On-card smoke test of the "
+                                 "PyTorch port; with no arguments every "
+                                 "phase, as the module docstring says.")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of the phases to run after phase 0 "
+                    "(1-6; 1r: phase 1's two recurrences alone); the "
+                    "kernels line is printed only when all run")
+    ap.add_argument("--src", default=str(SRC),
+                    help="the directory whose repro_torch is driven (another"
+                    " tree's src, to time it on the same card)")
+    args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES) | {"1r"}:
+        ap.error(f"--phases: {args.phases}")
+    src = Path(args.src).resolve()
     try:
         import torch
     except ImportError:
@@ -2093,11 +2195,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print("chip_smoke: the port (src/repro_torch) is missing",
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: the port ({src / 'repro_torch'}) is missing",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     # deterministic cuBLAS for phase 3's bitwise resume check (read when
     # cuBLAS starts, so set before any work on the card: phases 1 and 2 run
     # under it too)
@@ -2111,7 +2213,7 @@ def main() -> int:
     smi = smi_line()
     print(f"phase 0: {smi}", flush=True)
     print(f"phase 0: torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}", flush=True)
+          f"python {sys.version.split()[0]}; the port from {src}", flush=True)
     dt = _build.build_all()
     print(f"phase 0: built {len(_build.SOURCES)} kernel sources in "
           f"{dt:.2f} s", flush=True)
@@ -2121,32 +2223,47 @@ def main() -> int:
                                        "Performance Loss")):
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
-    print("phase 1: kernels against their plain versions", flush=True)
-    rows = phase1(dev, H100)
-    serve = phase2(dev)
-    phase3_layer(dev)
-    train_launches = phase3_train(dev)
-    phase3_resume(dev)
-    mixtral = phase4(dev)
-    rwkv = phase_recurrent(dev, "rwkv6-1.6b", "phase 5")
-    zamba = phase_recurrent(dev, "zamba2-1.2b", "phase 6")
+    rows = {}
+    if "1" in phases:
+        print("phase 1: kernels against their plain versions", flush=True)
+        rows = phase1(dev, H100)
+    elif "1r" in phases:
+        print("phase 1: the recurrences against their plain versions",
+              flush=True)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        rows = phase1_recurrences(dev, H100, gen)
+    serve = phase2(dev) if "2" in phases else None
+    if "3" in phases:
+        phase3_layer(dev)
+        train_launches = phase3_train(dev)
+        phase3_resume(dev)
+    mixtral = phase4(dev) if "4" in phases else None
+    rwkv = phase_recurrent(dev, "rwkv6-1.6b", "phase 5") \
+        if "5" in phases else None
+    zamba = phase_recurrent(dev, "zamba2-1.2b", "phase 6") \
+        if "6" in phases else None
 
-    kernels = []
-    for name in REPLACES:
-        r = rows[name]
-        paths = {"serve": serve[name], "train": train_launches[name],
-                 "mixtral": mixtral[name], "rwkv": rwkv[name],
-                 "zamba": zamba[name]}
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE[name],
-            "replaces": REPLACES[name], "launches": sum(paths.values()),
-            **{f"launches_{p}": n for p, n in paths.items()},
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "device_ms": r["device_ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(smi, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    if sorted(phases) == list(PHASES):
+        kernels = []
+        for name in REPLACES:
+            r = rows[name]
+            paths = {"serve": serve[name], "train": train_launches[name],
+                     "mixtral": mixtral[name], "rwkv": rwkv[name],
+                     "zamba": zamba[name]}
+            kernels.append({
+                "name": name, "route": "cuda", "source": SOURCE[name],
+                "replaces": REPLACES[name], "launches": sum(paths.values()),
+                **{f"launches_{p}": n for p, n in paths.items()},
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "device_ms": r["device_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        print(json.dumps({"kernels": kernels}), flush=True)
+    else:
+        print(f"phases run: 0, {', '.join(phases)} (no kernels line)",
+              flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,13 +6,17 @@ r/k/v/w [B, T, H, hd] (w the log decay), u [H, hd], s0 [B, H, hd, hd]
 also the final state [B, H, hd, hd] float32.  Without ``s0`` it is the
 reference's Pallas kernel (``src/repro/kernels/rwkv6.py``); with it, the
 same recurrence continued from a cached state (one decode step is T = 1).
-The kernel stages min(64, T) steps at a time.
+From T = 64 the kernel runs the chunked form on the tensor cores, in
+chunks of 64 steps (the last one ragged); a shorter T runs a step loop.
 
 On the card: r, k and v bf16; w float32 (the model forms the log decay in
 float32, and a bf16 w would compound over T); u and s0 float32 (u is cast
 here); hd 64; every tensor contiguous; no gradient (the reference's kernel
-has no VJP either).  A CPU tensor takes the plain version in
-``kernels.ref``; a CUDA tensor launches the kernel or raises.
+has no VJP either).  From T = 64, r, k, v and w are loaded by TMA, which
+needs each base address to be a multiple of 16 bytes (``tma_base_rule``;
+the rows of a contiguous [B, T, H, 64] tensor are then too).  A CPU tensor
+takes the plain version in ``kernels.ref``; a CUDA tensor launches the
+kernel or raises.
 """
 from __future__ import annotations
 
@@ -24,7 +28,16 @@ from repro_torch.kernels._build import (BF16, LaunchCounter, check, lib,
 
 RWKV6_WKV = LaunchCounter("rwkv6_wkv")
 
-HEAD_DIM = 64       # the kernel's one instance: a thread per column of S
+HEAD_DIM = 64       # the kernel's one instance
+CHUNK = 64          # Q: from this T on, the chunked kernel (TMA loads)
+
+
+def tma_base_rule(name: str, data_ptr: int) -> None:
+    """Raise ValueError, naming the operand, unless its base address is a
+    multiple of 16 bytes, as the TMA's loads need."""
+    if data_ptr % 16:
+        raise ValueError(f"rwkv6_wkv {name}: the TMA needs a 16-byte aligned "
+                         f"base address, got offset {data_ptr % 16}")
 
 
 def rwkv6_wkv(r, k, v, w, u, *, s0=None, return_state: bool = False):
@@ -57,6 +70,9 @@ def rwkv6_wkv(r, k, v, w, u, *, s0=None, return_state: bool = False):
     if hd != HEAD_DIM:
         raise ValueError(f"rwkv6_wkv kernel takes head_dim {HEAD_DIM}, got "
                          f"{hd}")
+    if t >= CHUNK:
+        for name, a in (("r", r), ("k", k), ("v", v), ("w", w)):
+            tma_base_rule(name, a.data_ptr())
     uf = u.float().contiguous()
     y = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     s_t = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device) \
