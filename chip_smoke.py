@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 1r,5 [--src DIR]
+    python3 chip_smoke.py --phases 1m [--src DIR]
 
 With no arguments every phase runs, as below.  ``--phases`` runs phase 0
-and a subset (``1r``: phase 1's two recurrences alone; no kernels line
-unless every phase runs); ``--src`` drives the port under another tree's
-``src`` (e.g. a parent commit unpacked under the git-ignored ``build/``)
-so that two versions can be timed on the same card.
+and a subset (``1r``: phase 1's two recurrences alone; ``1m``: its five
+MoE routing kernels alone; no kernels line unless every phase runs);
+``--src`` drives the port under another tree's ``src`` (e.g. a parent
+commit unpacked under the git-ignored ``build/``) so that two versions can
+be timed on the same card (a gating case that tree's wrapper refuses is
+then printed and skipped).
 
 Phase 0  prints the card (``nvidia-smi`` name and power limit) and builds
          the seven CUDA kernel sources of ``src/repro_torch/kernels/csrc``
@@ -59,6 +62,17 @@ Phase 3  trains gpt2-moe on the card.  A layer check holds one MoE
          decision.  A resume check at full width and 2 layers holds 4
          straight steps bitwise against 2 + injected failure + restart + 2,
          under ``torch.use_deterministic_algorithms``.
+Phase 1's gating cases (GATING_CASES) add mixtral-8x22b's router (2048 x
+6144, E 8, top-2), llama4-maverick's width (2048 x 5120, E 128, top-1), 4
+experts (the router staged by threads: a row of 8 bytes is no TMA
+stride) and three exact-tie cases (a third of x's rows zero, the rest
+one-hot, router columns duplicated in pairs), each call repeated bitwise.
+Gating is held to ``ref_topk_gating`` on the exactly rounded logits
+(``rounded_logits``: float64 sums rounded to bf16): probabilities within
+1e-3, plus what a flipped rounding moves them where the kernel's fp32 sum
+may land across a bf16 rounding boundary (``shift_bounds``); ids on the
+rows clear of the top-k margin (on every row of the tie cases); weights
+likewise.  ``topk_positions`` is also timed at 8192 x 2.
 Phase 1 also holds the kernels at gpt2-moe training's shapes (8192 tokens,
 top-2, E=16, C=1288): gating at k=2, ``dispatch_rows`` with a per-row scale
 (combine's backward), ``combine_rows`` with unit weights (dispatch's
@@ -270,19 +284,10 @@ def _route_inputs(t: int, k: int, cap: int, slot_cap: int, gen, dev,
     return kept, pos, cum, slot_of
 
 
-def phase1(dev, hw) -> dict:
-    import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.dispatch import (combine_rows, dispatch_rows,
-                                              invert_slots, weighted_route)
-    from repro_torch.kernels.moe_ffn import grouped_ffn
-    from repro_torch.kernels.topk_gating import (topk_gating_fused,
-                                                 topk_positions)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    bf = torch.bfloat16
-    rows = {}
-
+def make_recorder(hw, rows: dict):
+    """A function that times a kernel, its plain version and (where one
+    PyTorch call computes the same function) that call, prints a line and
+    keeps the kernel's summary row (its prefill case) in ``rows``."""
     def record(name, case, err, kernel, plain_fn, nbytes, nops, iters=50,
                library_fn=None):
         ms = time_ms(kernel, iters)
@@ -303,43 +308,110 @@ def phase1(dev, hw) -> dict:
                               if cur else err)
         else:
             cur["max_abs_err"] = max(cur["max_abs_err"], err)
+    return record
 
-    # -- gating: serve prefill / decode (k=1), profiling (k=2), training ---
-    router = (torch.randn(D, E, generator=gen, device=dev) * D ** -0.5).to(bf)
-    for case, t, k in (("prefill", 256, 1), ("decode", 8, 1),
-                       ("profile", 256, 2), ("train", T_TRAIN, K_TRAIN)):
-        x = torch.randn(t, D, generator=gen, device=dev).to(bf)
-        idx, w, probs = topk_gating_fused(x, k, router=router)
-        ridx, rw, rprobs = ref.ref_topk_gating(x @ router, k)
-        torch.cuda.synchronize()
-        perr = (probs - rprobs).abs().max().item()
-        srt = torch.sort(rprobs, dim=-1, descending=True).values
-        margin = (srt[:, :k] - srt[:, 1:k + 1]).min(dim=-1).values
-        clear = margin > 1e-3
-        n_tie = int((~clear).sum())
-        if perr > 1e-3:
-            raise AssertionError(f"gating {case}: probs err {perr}")
-        if not torch.equal(idx[clear], ridx[clear]):
-            raise AssertionError(f"gating {case}: expert ids differ")
-        werr = (w - rw)[clear].abs().max().item() if clear.any() else 0.0
-        if werr > 1e-3:
-            raise AssertionError(f"gating {case}: weights err {werr}")
-        print(f"  gating {case}: {n_tie} of {t} rows within the 1e-3 "
-              f"top-k margin", flush=True)
+
+def phase1(dev, hw) -> dict:
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    rows = {}
+    record = make_recorder(hw, rows)
+    phase1_moe(dev, gen, record)
+    phase1_grouped_ffn(dev, hw, gen, record)
+    rows["grouped_matmul"] = phase1_grouped_matmul(dev, hw, gen)
+    rows["flash_attention"] = phase1_flash(dev, hw, gen)
+    rows.update(phase1_recurrences(dev, hw, gen))
+    return rows
+
+
+# topk_gating_fused's cases: (case, tokens, D, E, k, x and router).  The
+# serve path's prefill / decode (k 1), profiling (k 2) and training (8192
+# tokens, k 2) at gpt2-moe's width; mixtral-8x22b's router (d 6144, 8
+# experts, top-2) on a 2048-token prefill; llama4-maverick's width (d 5120,
+# 128 experts, top-1); 4 experts (a router row of 8 bytes, which TMA cannot
+# take: the thread-staged path); and exact ties ("tie"): a third of the
+# rows of x zero, the rest one-hot (so each logit is a router entry,
+# rounded nowhere), router columns duplicated in pairs, held id for id on
+# every row.
+GATING_CASES = (("prefill", 256, D, E, 1, "randn"),
+                ("decode", 8, D, E, 1, "randn"),
+                ("profile", 256, D, E, 2, "randn"),
+                ("train", T_TRAIN, D, E, K_TRAIN, "randn"),
+                ("mixtral", 2048, 6144, 8, 2, "randn"),
+                ("llama4", 2048, 5120, 128, 1, "randn"),
+                ("e4", T_TRAIN, D, 4, 2, "randn"),
+                ("tie", 1000, D, E, 2, "tie"),
+                ("tie e4", 1000, D, 4, 2, "tie"),
+                ("tie e128", 1000, 5120, 128, 2, "tie"))
+
+
+def gating_inputs(t, d, e, kind, gen, dev):
+    import torch
+    bf = torch.bfloat16
+    if kind == "randn":
+        x = torch.randn(t, d, generator=gen, device=dev).to(bf)
+        router = (torch.randn(d, e, generator=gen, device=dev)
+                  * d ** -0.5).to(bf)
+        return x, router
+    half = torch.randn(d, (e + 1) // 2, generator=gen, device=dev)
+    router = half.repeat_interleave(2, dim=1)[:, :e].contiguous().to(bf)
+    x = torch.zeros(t, d, device=dev)
+    rows = torch.arange(t, device=dev)
+    hot = rows % 3 != 0
+    col = torch.randint(0, d, (t,), generator=gen, device=dev)
+    sign = torch.where(rows % 2 == 0, 1.0, -2.0)   # powers of 2: exact
+    x[rows[hot], col[hot]] = sign[hot]
+    return x.to(bf), router
+
+
+def phase1_moe(dev, gen, record, strict: bool = True) -> None:
+    """The five MoE routing kernels against their plain versions at the
+    serve and training shapes, each call repeated bitwise.  With
+    ``strict`` False (another tree's port, through ``--src``) a gating
+    case that tree's wrapper refuses is printed and skipped."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dispatch import (combine_rows, dispatch_rows,
+                                              invert_slots, weighted_route)
+    from repro_torch.kernels.topk_gating import (topk_gating_fused,
+                                                 topk_positions)
+    bf = torch.bfloat16
+
+    # -- gating ------------------------------------------------------------
+    for case, t, d, e, k, kind in GATING_CASES:
+        x, router = gating_inputs(t, d, e, kind, gen, dev)
+        try:
+            idx, w, probs = topk_gating_fused(x, k, router=router)
+        except ValueError as err:
+            if strict:
+                raise
+            print(f"  gating {case}: refused by this tree ({err})",
+                  flush=True)
+            continue
+        again = topk_gating_fused(x, k, router=router)
+        if not all(torch.equal(a, b) for a, b in zip(again, (idx, w, probs))):
+            raise AssertionError(f"gating {case}: repeat not bitwise")
+        perr = check_gating(case, x, router, k, (idx, w, probs),
+                            tie=kind == "tie")
         record("topk_gating_fused", case, perr,
                lambda: topk_gating_fused(x, k, router=router),
                lambda: ref.ref_topk_gating(x @ router, k),
-               t * D * 2 + D * E * 2 + t * k * 8 + t * E * 4, 2 * t * D * E)
+               t * d * 2 + d * e * 2 + t * k * 8 + t * e * 4, 2 * t * d * e)
+        del x, router, idx, w, probs, again
 
     # -- positions ----------------------------------------------------------
     for case, t, k in (("prefill", 256, 1), ("decode", 8, 1),
-                       ("profile", 256, 2)):
+                       ("profile", 256, 2), ("train", T_TRAIN, K_TRAIN)):
         ids = torch.randint(-1, E, (t, k), generator=gen, device=dev,
                             dtype=torch.int32)
         got = topk_positions(ids, E)
         want = ref.ref_topk_positions(ids, E)
         if not torch.equal(got, want):
             raise AssertionError(f"topk_positions {case}: mismatch")
+        if not torch.equal(topk_positions(ids, E), got):
+            raise AssertionError(f"topk_positions {case}: repeat not "
+                                 f"bitwise")
         record("topk_positions", case, 0.0, lambda: topk_positions(ids, E),
                lambda: ref.ref_topk_positions(ids, E), t * k * 8, 0)
 
@@ -372,6 +444,8 @@ def phase1(dev, hw) -> dict:
         buf = dispatch_rows(x, src)
         if not torch.equal(buf, ref.ref_dispatch_rows(x, src)):
             raise AssertionError(f"dispatch_rows {case}: mismatch")
+        if not torch.equal(dispatch_rows(x, src), buf):
+            raise AssertionError(f"dispatch_rows {case}: repeat not bitwise")
         n_kept = int((src >= 0).sum())
         record("dispatch_rows", case, 0.0, lambda: dispatch_rows(x, src),
                lambda: ref.ref_dispatch_rows(x, src),
@@ -380,6 +454,8 @@ def phase1(dev, hw) -> dict:
         y_buf = torch.randn(n_rows, D, generator=gen, device=dev).to(bf)
         wts = torch.rand(t, k, generator=gen, device=dev)
         y = combine_rows(y_buf, rows_, wts)
+        if not torch.equal(combine_rows(y_buf, rows_, wts), y):
+            raise AssertionError(f"combine_rows {case}: repeat not bitwise")
         yr = ref.ref_combine_rows(y_buf, rows_, wts).float()
         ulp = torch.where(yr != 0, torch.exp2(torch.floor(torch.log2(
             yr.abs())) - 7), torch.full_like(yr, 2.0 ** -133))
@@ -417,6 +493,8 @@ def phase1(dev, hw) -> dict:
     buf = dispatch_rows(dy, src, scale)
     if not torch.equal(buf, ref.ref_dispatch_rows(dy, src, scale)):
         raise AssertionError("dispatch_rows train (scaled): mismatch")
+    if not torch.equal(dispatch_rows(dy, src, scale), buf):
+        raise AssertionError("dispatch_rows train: repeat not bitwise")
     record("dispatch_rows", "train", 0.0,
            lambda: dispatch_rows(dy, src, scale),
            lambda: ref.ref_dispatch_rows(dy, src, scale),
@@ -425,6 +503,8 @@ def phase1(dev, hw) -> dict:
     ones = torch.ones(t, k, device=dev)
     y_buf = torch.randn(n_rows, D, generator=gen, device=dev).to(bf)
     y = combine_rows(y_buf, rows_, ones)
+    if not torch.equal(combine_rows(y_buf, rows_, ones), y):
+        raise AssertionError("combine_rows train: repeat not bitwise")
     yr = ref.ref_combine_rows(y_buf, rows_, ones).float()
     ulp = torch.where(yr != 0, torch.exp2(torch.floor(torch.log2(
         yr.abs())) - 7), torch.full_like(yr, 2.0 ** -133))
@@ -437,12 +517,6 @@ def phase1(dev, hw) -> dict:
            lambda: ref.ref_combine_rows(y_buf, rows_, ones),
            n_kept * D * 2 + t * k * 8 + t * D * 2, 2 * n_kept * D)
     del buf, y_buf, y, yr, dy
-
-    phase1_grouped_ffn(dev, hw, gen, record)
-    rows["grouped_matmul"] = phase1_grouped_matmul(dev, hw, gen)
-    rows["flash_attention"] = phase1_flash(dev, hw, gen)
-    rows.update(phase1_recurrences(dev, hw, gen))
-    return rows
 
 
 # grouped_ffn at the paths' shapes: (case, groups, rows a group, D, F,
@@ -1281,14 +1355,113 @@ def ulp_margins(logits, probs, k: int):
     Returns (PROB_MARGIN + the bound [T, E], PROB_MARGIN + the gap's bound
     [T], the gap [T])."""
     import torch
-    z, p = logits.float(), probs.float()
+    z = logits.float()
     u = torch.exp2(torch.floor(torch.log2(z.abs().clamp_min(2.0 ** -126)))
                    - 7)
+    dp, pair, gap = shift_bounds(probs.float(), u, k)
+    return PROB_MARGIN + dp, PROB_MARGIN + pair, gap
+
+
+def shift_bounds(p, u, k: int):
+    """First-order bounds for probabilities p [T, E] whose logits move by at
+    most u [T, E] each: (the bound on each probability [T, E], on the gap
+    between the k-th and (k+1)-th largest [T], that gap [T]); with k = E
+    the gap is +inf."""
+    import torch
     pu = p * u
     dp = p * (u * (1 - p) + pu.sum(-1, keepdim=True) - pu)
+    if k >= p.shape[-1]:
+        inf = torch.full(p.shape[:-1], float("inf"), device=p.device)
+        return dp, torch.zeros_like(inf), inf
     srt, order = torch.sort(p, dim=-1, descending=True)
     pair = dp.gather(-1, order[:, k - 1:k + 1]).sum(-1)
-    return PROB_MARGIN + dp, PROB_MARGIN + pair, srt[:, k - 1] - srt[:, k]
+    return dp, pair, srt[:, k - 1] - srt[:, k]
+
+
+def rounded_logits(x, router):
+    """The router logits of a bf16 product as the exact sum rounded to bf16
+    (float64 sums: the bf16 products are exact, and D terms lose nothing
+    near a bf16 ulp), and each logit's flip: the bf16 step across the
+    nearest rounding boundary where the kernel's fp32 sum may land on its
+    other side, else 0.  The kernel adds the products in k16 steps in
+    ascending k, over the whole of D or, split over 2-8 CTAs, over
+    contiguous ranges of steps whose sums it adds in order.  Each addition
+    is taken to err by at most four fp32 ulps (2^-22) of the largest
+    partial sum of any of those orders (or of a step's absolute sum), so
+    the sum errs by at most D / 16 + 12 times that.  Returns (logits
+    [T, E] bf16, flips [T, E] f32)."""
+    import torch
+    import torch.nn.functional as F
+    t, d = x.shape
+    nk = -(-d // 16)
+    xs = F.pad(x.double(), (0, nk * 16 - d)).view(t, nk, 16).transpose(0, 1)
+    rs = F.pad(router.double(), (0, 0, 0, nk * 16 - d)).view(nk, 16, -1)
+    chunk = torch.bmm(xs, rs)                           # [nk, T, E]
+    big = torch.bmm(xs.abs(), rs.abs()).amax(0)
+    for splits in (1, 2, 4, 8):
+        steps = -(-nk // 4)                             # 64-deep stages
+        if splits > steps:
+            break
+        parts = []
+        for r in range(splits):
+            lo = r * steps // splits * 4
+            hi = min((r + 1) * steps // splits * 4, nk)
+            big = torch.maximum(big, chunk[lo:hi].cumsum(0).abs().amax(0))
+            parts.append(chunk[lo:hi].sum(0))
+        big = torch.maximum(big, torch.stack(parts).cumsum(0).abs()
+                            .amax(0))
+    z = chunk.sum(0)
+    del chunk
+    reach = (nk + 12) * 2.0 ** -22 * big
+    zb = z.to(torch.bfloat16)
+    zd = zb.double()
+    bits = zb.view(torch.int16)
+    away = (bits + 1).view(torch.bfloat16).double()     # one step from 0
+    toward = (bits - 1).view(torch.bfloat16).double()
+    dist = torch.minimum((z - (zd + away) / 2).abs(),
+                         (z - (zd + toward) / 2).abs())
+    flip = torch.where((dist <= reach) & (zd != 0), (away - zd).abs(),
+                       torch.zeros_like(zd))
+    return zb, flip.float()
+
+
+def check_gating(case, x, router, k, got, tie=False) -> float:
+    """Hold one gating call (idx, w, probs) against ``ref_topk_gating`` on
+    the exactly rounded logits: probabilities within PROB_MARGIN, plus, on
+    a logit that an fp32 sum may round the other way, what that flip moves
+    them (``shift_bounds``); ids on the rows whose top-k gap clears
+    PROB_MARGIN and that bound (with ``tie``: on every row); weights within
+    PROB_MARGIN and their flips' bound there.  Returns the largest
+    probability error."""
+    import torch
+    from repro_torch.kernels import ref
+    idx, w, probs = got
+    zb, flip = rounded_logits(x, router)
+    ridx, rw, rprobs = ref.ref_topk_gating(zb, k)
+    dp, pair, gap = shift_bounds(rprobs, flip, k)
+    perr = (probs - rprobs).abs()
+    over = perr - PROB_MARGIN - dp
+    if bool((over > 0).any()):
+        raise AssertionError(f"gating {case}: probs err {perr.max().item()}"
+                             f" ({int((over > 0).sum())} beyond the bound)")
+    clear = torch.ones_like(gap, dtype=torch.bool) if tie \
+        else gap > PROB_MARGIN + pair
+    if not torch.equal(idx[clear], ridx[clear]):
+        raise AssertionError(f"gating {case}: expert ids differ")
+    fs = flip.gather(-1, ridx.long())
+    wu = rw * fs
+    dw = rw * (fs * (1 - rw) + wu.sum(-1, keepdim=True) - wu)
+    if bool(((w - rw).abs() - PROB_MARGIN - dw)[clear].gt(0).any()):
+        raise AssertionError(f"gating {case}: weights err "
+                             f"{(w - rw)[clear].abs().max().item()}")
+    t, e = probs.shape
+    print(f"  gating {case} ({t} x {x.shape[1]}, E {e}, k {k}): "
+          f"{t - int(clear.sum())} of {t} rows within the top-k margin"
+          + (" (ids held on all)" if tie else "")
+          + f"; {int((flip > 0).sum())} of {t * e} logits within an fp32 "
+          f"sum's reach of a bf16 rounding boundary; max probs err "
+          f"{perr.max().item():.3e}", flush=True)
+    return perr.max().item()
 
 
 def replay_plain(calls, what: str, tag: str = "phase 2") -> None:
@@ -2105,12 +2278,14 @@ def phase3_train(dev) -> dict:
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
                   f"x{e.count:<5d} {e.key[:90]}", flush=True)
-        # grouped_matmul's kernels (csrc/grouped_matmul.cu), wherever they rank
+        # the port's kernels of grouped_matmul, gating and row moves,
+        # wherever they rank
         for e in kern:
-            if "gmm_" in e.key:
-                print(f"  phase 3 grouped_matmul kernel: "
-                      f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} "
-                      f"{e.key[:90]}", flush=True)
+            for tag, wrapper in WATCH_TRAIN.items():
+                if tag in e.key:
+                    print(f"  phase 3 {wrapper} kernel: "
+                          f"{e.self_device_time_total / 1e3:.3f} ms "
+                          f"x{e.count} {e.key[:90]}", flush=True)
         return launches
     finally:
         shutil.rmtree(ck, ignore_errors=True)
@@ -2168,6 +2343,11 @@ def phase3_resume(dev) -> None:
 
 
 PHASES = ("1", "2", "3", "4", "5", "6")
+# phase 3's profile: a part of a CUDA kernel's name -> its wrapper
+WATCH_TRAIN = {"gmm_": "grouped_matmul", "gating_kernel": "topk_gating_fused",
+               "positions_kernel": "topk_positions",
+               "dispatch_kernel": "dispatch_rows",
+               "combine_kernel": "combine_rows"}
 
 
 def main(argv=None) -> int:
@@ -2177,14 +2357,15 @@ def main(argv=None) -> int:
                                  "phase, as the module docstring says.")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of the phases to run after phase 0 "
-                    "(1-6; 1r: phase 1's two recurrences alone); the "
+                    "(1-6; 1r: phase 1's two recurrences alone; 1m: its "
+                    "five MoE routing kernels alone); the "
                     "kernels line is printed only when all run")
     ap.add_argument("--src", default=str(SRC),
                     help="the directory whose repro_torch is driven (another"
                     " tree's src, to time it on the same card)")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
-    if not set(phases) <= set(PHASES) | {"1r"}:
+    if not set(phases) <= set(PHASES) | {"1r", "1m"}:
         ap.error(f"--phases: {args.phases}")
     src = Path(args.src).resolve()
     try:
@@ -2233,6 +2414,13 @@ def main(argv=None) -> int:
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         rows = phase1_recurrences(dev, H100, gen)
+    if "1m" in phases:
+        print("phase 1: the MoE routing kernels against their plain "
+              "versions", flush=True)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        phase1_moe(dev, gen, make_recorder(H100, {}),
+                   strict=src == SRC.resolve())
     serve = phase2(dev) if "2" in phases else None
     if "3" in phases:
         phase3_layer(dev)

@@ -11,9 +11,16 @@
 //
 // combine_rows replaces dispatch.py::combine_rows (_combine_kernel):
 // y[t] = sum_k w[t,k] * buf[rows[t,k]] in fp32, dropped choices (-1) add
-// nothing.  One block per token, threads across d; products and sums use
-// explicit _rn intrinsics so no fused multiply-add changes the rounding
-// against the plain version.  Bound: bytes.
+// nothing.  Products and sums use explicit _rn intrinsics in choice order,
+// so no fused multiply-add changes the rounding against the plain version
+// and a repeat is bitwise.  Bound: bytes (the used slot rows' reads, the
+// rows and weights, every output row's write), so the design keeps bytes
+// in flight: one warp a token, its rows and weights read once; each lane
+// moves 16-byte vectors (8 bf16) and issues the loads of kVec vectors of
+// kChoices choices (at D 768 and top-2: all six of a lane's) before the
+// first is used.  The wrapper requires D a multiple of 8 and buf 16-byte
+// aligned (raising otherwise): every config of the repo has D a multiple
+// of 8, so no scalar tail is kept.
 //
 // weighted_route replaces dispatch.py::weighted_route (_route_kernel): bin
 // partition of each (token, choice)'s priority position over its expert's
@@ -29,6 +36,9 @@ namespace {
 
 constexpr int kRowThreads = 128;
 constexpr int kRouteThreads = 256;
+constexpr int kTokWarps = 8;   // combine: tokens a block, one a warp
+constexpr int kVec = 4;        // 16-byte vectors a lane loads together
+constexpr int kChoices = 2;    // choices whose vectors load together
 
 using bf16 = __nv_bfloat16;
 
@@ -50,23 +60,71 @@ dispatch_kernel(const bf16* __restrict__ x, const int32_t* __restrict__ src,
     o[c] = __float2bfloat16(__fmul_rn(__bfloat162float(xr[c]), sc));
 }
 
-__global__ void __launch_bounds__(kRowThreads)
-combine_kernel(const bf16* __restrict__ buf, const int32_t* __restrict__ rows,
-               const float* __restrict__ w, int n_rows, int k, int d,
-               bf16* __restrict__ out) {
-  const int t = blockIdx.x;
+// two floats -> two bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// acc[0..8) += v's 8 bf16 times w, each product and sum rounded to fp32
+__device__ __forceinline__ void add8(float (&acc)[8], uint4 v, float w) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
+    acc[2 * i] = __fadd_rn(acc[2 * i], __fmul_rn(f.x, w));
+    acc[2 * i + 1] = __fadd_rn(acc[2 * i + 1], __fmul_rn(f.y, w));
+  }
+}
+
+// dv = D / 8 vectors a row
+__global__ void __launch_bounds__(kTokWarps * 32)
+combine_kernel(const uint4* __restrict__ buf, const int32_t* __restrict__ rows,
+               const float* __restrict__ w, int n_rows, int n_tok, int k,
+               int dv, uint4* __restrict__ out) {
+  const int t = blockIdx.x * kTokWarps + (threadIdx.x >> 5);
+  if (t >= n_tok) return;   // whole warps leave together
+  const int lane = threadIdx.x & 31;
   const int32_t* tr = rows + (size_t)t * k;
   const float* tw = w + (size_t)t * k;
-  bf16* o = out + (size_t)t * d;
-  for (int c = threadIdx.x; c < d; c += kRowThreads) {
-    float acc = 0.f;
-    for (int j = 0; j < k; ++j) {
-      const int r = tr[j];
-      if (r < 0 || r >= n_rows) continue;
-      acc = __fadd_rn(acc, __fmul_rn(__bfloat162float(buf[(size_t)r * d + c]),
-                                     tw[j]));
+  uint4* o = out + (size_t)t * dv;
+  for (int c0 = lane; c0 < dv; c0 += 32 * kVec) {
+    float acc[kVec][8];
+#pragma unroll
+    for (int u = 0; u < kVec; ++u)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[u][i] = 0.f;
+    for (int j0 = 0; j0 < k; j0 += kChoices) {
+      int r[kChoices];
+      float wj[kChoices];
+#pragma unroll
+      for (int c = 0; c < kChoices; ++c) {
+        const int j = j0 + c;
+        r[c] = j < k ? __ldg(tr + j) : -1;
+        if (r[c] >= n_rows) r[c] = -1;   // dropped: adds nothing
+        wj[c] = j < k ? __ldg(tw + j) : 0.f;
+      }
+      uint4 v[kVec][kChoices];
+#pragma unroll
+      for (int u = 0; u < kVec; ++u)
+#pragma unroll
+        for (int c = 0; c < kChoices; ++c)
+          if (c0 + 32 * u < dv && r[c] >= 0)
+            v[u][c] = __ldg(buf + (size_t)r[c] * dv + c0 + 32 * u);
+#pragma unroll
+      for (int u = 0; u < kVec; ++u)
+#pragma unroll
+        for (int c = 0; c < kChoices; ++c)   // in choice order
+          if (c0 + 32 * u < dv && r[c] >= 0) add8(acc[u], v[u][c], wj[c]);
     }
-    o[c] = __float2bfloat16(acc);
+#pragma unroll
+    for (int u = 0; u < kVec; ++u)
+      if (c0 + 32 * u < dv)
+        o[c0 + 32 * u] = make_uint4(pack2(acc[u][0], acc[u][1]),
+                                    pack2(acc[u][2], acc[u][3]),
+                                    pack2(acc[u][4], acc[u][5]),
+                                    pack2(acc[u][6], acc[u][7]));
   }
 }
 
@@ -110,13 +168,17 @@ extern "C" int dispatch_rows(const void* x, const void* src, const void* scale,
   return (int)cudaGetLastError();
 }
 
+// combine_rows: D a multiple of 8, buf and out 16-byte aligned.
 extern "C" int combine_rows(const void* buf, const void* rows, const void* w,
                             int n_rows, int n_tok, int k, int d, void* out,
                             void* stream) {
+  if (d % 8 != 0 || ((uintptr_t)buf | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   if (n_tok == 0) return (int)cudaGetLastError();
-  combine_kernel<<<n_tok, kRowThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)buf, (const int32_t*)rows, (const float*)w, n_rows, k, d,
-      (bf16*)out);
+  combine_kernel<<<(n_tok + kTokWarps - 1) / kTokWarps, kTokWarps * 32, 0,
+                   (cudaStream_t)stream>>>(
+      (const uint4*)buf, (const int32_t*)rows, (const float*)w, n_rows,
+      n_tok, k, d / 8, (uint4*)out);
   return (int)cudaGetLastError();
 }
 

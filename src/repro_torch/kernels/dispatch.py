@@ -78,6 +78,10 @@ def combine_rows(buf, rows, weights):
     if weights.shape != rows.shape:
         raise ValueError("weights must match rows")
     r, d = buf.shape
+    if d % 8 or buf.data_ptr() % 16:
+        raise ValueError(f"combine_rows moves 16-byte vectors: D ({d}) must "
+                         f"be a multiple of 8 and buf 16-byte aligned "
+                         f"(offset {buf.data_ptr() % 16})")
     t, k = rows.shape
     out = torch.empty((t, d), dtype=buf.dtype, device=buf.device)
     status = lib("dispatch").combine_rows(

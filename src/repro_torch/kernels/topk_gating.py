@@ -5,7 +5,9 @@
 (router matmul + softmax + top-k, logits rounded to x's type) and
 ``topk_positions`` its choice-major priority-rank kernel.  A CPU tensor
 takes the plain version in ``kernels.ref``; a CUDA tensor launches the
-kernel (bf16 x and router only) or raises.
+kernel (bf16 x and router only) or raises.  The gating kernel loads x (and
+the router, where E is a multiple of 8) by TMA, so x's rows must be a
+positive multiple of 16 bytes (D % 8 == 0) and both bases 16-byte aligned.
 """
 from __future__ import annotations
 
@@ -14,12 +16,13 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import (BF16, LaunchCounter, check, lib,
                                         on_cpu, ptr, require, stream)
+from repro_torch.kernels.moe_ffn import tma_operand_rule
 
 GATING = LaunchCounter("topk_gating_fused")
 POSITIONS = LaunchCounter("topk_positions")
 
-MAX_EXPERTS = 32          # experts one gating warp holds in registers
-MAX_K = 4
+MAX_EXPERTS = 256         # router columns one wgmma product holds
+MAX_K = 4                 # choices: one a thread of the accumulator's quad
 MAX_POS_EXPERTS = 256     # per-warp count table of the positions kernel
 
 
@@ -40,6 +43,12 @@ def topk_gating_fused(x, k: int, *, router):
     if not (1 <= e <= MAX_EXPERTS and 1 <= k <= min(MAX_K, e)):
         raise ValueError(f"gating kernel takes 1 <= k <= {MAX_K}, k <= E "
                          f"<= {MAX_EXPERTS}; got k={k}, E={e}")
+    if d == 0:
+        raise ValueError("gating kernel takes D >= 8, got 0")
+    tma_operand_rule("topk_gating_fused x", (1, t, d), False, 2, x.data_ptr())
+    if e % 8 == 0:
+        tma_operand_rule("topk_gating_fused router", (1, d, e), False, 2,
+                         router.data_ptr())
     idx = torch.empty((t, k), dtype=torch.int32, device=x.device)
     w = torch.empty((t, k), dtype=torch.float32, device=x.device)
     probs = torch.empty((t, e), dtype=torch.float32, device=x.device)

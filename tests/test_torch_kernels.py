@@ -42,10 +42,13 @@ def exact(got, *wants):
 
 
 @pytest.mark.parametrize("k", [1, 2])
-@pytest.mark.parametrize("t", [24, 13])
-def test_topk_gating_matches_reference(k, t):
+@pytest.mark.parametrize("t,e", [(24, 8), (13, 8), (24, 40), (13, 40),
+                                 (24, 128), (13, 128)],
+                         ids=["24", "13", "24-e40", "13-e40", "24-e128",
+                              "13-e128"])
+def test_topk_gating_matches_reference(k, t, e):
     rng = np.random.RandomState(k + t)
-    d, e = 32, 8
+    d = 32
     x = rng.randn(t, d).astype(np.float32)
     router = (rng.randn(d, e) / np.sqrt(d)).astype(np.float32)
     got = topk_gating_fused(torch.from_numpy(x), k,
