@@ -14,10 +14,15 @@ be timed on the same card (a gating case that tree's wrapper refuses is
 then printed and skipped).
 
 Phase 0  prints the card (``nvidia-smi`` name and power limit) and builds
-         the seven CUDA kernel sources of ``src/repro_torch/kernels/csrc``
-         (one ``nvcc`` each, started together; timed).
-Phase 1  holds each of the six serve-path kernels against its plain PyTorch
-         version on the card, at the serve path's shapes (gpt2-moe: D=768,
+         the eight CUDA sources of ``src/repro_torch/kernels/csrc`` (one
+         ``nvcc`` each, started together; timed).
+Phase 1  first times the launch floor: ``csrc/launch_floor.cu``'s empty
+         kernel (one block of 32 threads, no memory traffic, no TPU
+         kernel), as every kernel is timed, printed on its own line; each
+         kernel line then gives the floor and the kernel's device time as
+         a share of max(bound, floor).  It holds each of the six
+         serve-path kernels against its plain PyTorch version on the
+         card, at the serve path's shapes (gpt2-moe: D=768,
          E=16, F=3072, 64 slots; prefill T<=256 slot_cap 24, decode T=8
          slot_cap 8, profiling k=2 and G=16 x 48 rows), and times the
          kernel and its plain version per call with CUDA events and the
@@ -59,9 +64,11 @@ Phase 3  trains gpt2-moe on the card.  A layer check holds one MoE
          launch, every loss be finite and the last below the first; it
          prints step time, tokens/s, peak memory, the card's busy share of
          a step, the checkpoint's bytes and seconds and the packing
-         decision.  A resume check at full width and 2 layers holds 4
-         straight steps bitwise against 2 + injected failure + restart + 2,
-         under ``torch.use_deterministic_algorithms``.
+         decision, and the losses in ``float.hex`` (the layer check prints
+         a digest of its kernel route's bits) so that two trees' runs can
+         be held bitwise equal.  A resume check at full width and 2 layers
+         holds 4 straight steps bitwise against 2 + injected failure +
+         restart + 2, under ``torch.use_deterministic_algorithms``.
 Phase 1's gating cases (GATING_CASES) add mixtral-8x22b's router (2048 x
 6144, E 8, top-2), llama4-maverick's width (2048 x 5120, E 128, top-1), 4
 experts (the router staged by threads: a row of 8 bytes is no TMA
@@ -72,7 +79,12 @@ Gating is held to ``ref_topk_gating`` on the exactly rounded logits
 1e-3, plus what a flipped rounding moves them where the kernel's fp32 sum
 may land across a bf16 rounding boundary (``shift_bounds``); ids on the
 rows clear of the top-k margin (on every row of the tie cases); weights
-likewise.  ``topk_positions`` is also timed at 8192 x 2.
+likewise.  ``topk_positions`` (POSITIONS_CASES) also runs at the training
+shape (8192 x 2), Mixtral's prefill (8192 x 2, E 8), llama4's width (2048
+x 1, E 128), E 256, every id one expert (12000 x 2) and 65,536 x 1 (a
+second walk a CTA), each bitwise against its plain version and on repeat,
+with the cluster it launches; ``weighted_route`` also at Mixtral's prefill
+(4096 x 2, E 8, 4 replicas in 32 slots).
 Phase 1 also holds the kernels at gpt2-moe training's shapes (8192 tokens,
 top-2, E=16, C=1288): gating at k=2, ``dispatch_rows`` with a per-row scale
 (combine's backward), ``combine_rows`` with unit weights (dispatch's
@@ -140,6 +152,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import subprocess
@@ -233,6 +246,40 @@ def device_ms(fn, iters: int = 20) -> float:
     raise RuntimeError("torch.profiler recorded no kernel time in 3 tries")
 
 
+# the launch floor: csrc/launch_floor.cu's empty kernel (one block of 32
+# threads, no memory traffic) timed in phase 1 as every kernel is; empty
+# where the driven tree has no such kernel
+FLOOR: dict = {}
+
+
+def phase1_floor(dev) -> None:
+    """Times the empty kernel with ``time_ms`` and ``device_ms``, exactly
+    as ``record`` times a kernel, into FLOOR, and prints it."""
+    from repro_torch.kernels import _build
+    if not hasattr(_build, "launch_floor"):
+        print("phase 1: launch floor: this tree has no empty kernel",
+              flush=True)
+        return
+
+    def fn():
+        _build.launch_floor(dev)
+    ms = time_ms(fn)
+    FLOOR.update(ms=ms, device_ms=device_ms(fn))
+    print(f"phase 1: launch floor (empty kernel, 1 block x 32 threads): "
+          f"kernel {ms:.4f} ms (device {FLOOR['device_ms']:.4f})",
+          flush=True)
+
+
+def vs_floor(dms: float, bound: float) -> str:
+    """The floor and a kernel's device time as a share of max(bound,
+    floor): a kernel "reaches half its bound" at 50% of that."""
+    if not FLOOR:
+        return ""
+    top = max(bound, FLOOR["device_ms"])
+    return (f"  floor {FLOOR['device_ms']:.4f} ms: "
+            f"{100 * top / dms:.1f}% of max(bound, floor)")
+
+
 # dense tensor-core peak of the H100 SXM for TF32 operands (NVIDIA's data
 # sheet): half the bf16 rate in HardwareConfig.peak_flops
 TF32_FLOPS = 495e12
@@ -298,7 +345,7 @@ def make_recorder(hw, rows: dict):
         print(f"  {name:18s} {case:8s} err {err:.3e}  kernel {ms:.4f} ms "
               f"(device {dms:.4f})  plain {plain:.4f} ms  "
               + (f"library {lib:.4f} ms  " if lib is not None else "")
-              + f"bound {b:.6f} ms ({by})", flush=True)
+              + f"bound {b:.6f} ms ({by})" + vs_floor(dms, b), flush=True)
         cur = rows.get(name)
         if cur is None or case == "prefill":
             # the prefill shape stands for the kernel in the summary line
@@ -365,12 +412,30 @@ def gating_inputs(t, d, e, kind, gen, dev):
     return x.to(bf), router
 
 
+# topk_positions' cases: (case, tokens, k, E, ids).  gpt2-moe's serve
+# prefill, decode and profiling and its training shape (8192 x 2: 16
+# chunks of 1024 entries); Mixtral's prefill (8192 x 2, E 8); llama4's
+# width (2048 x 1, E 128); E 256; every id one expert (12000 x 2: 24
+# chunks, two a CTA); 65,536 x 1 (64 chunks: a second walk a CTA).  "rand":
+# ids in [-1, E); "one": all E / 2
+POSITIONS_CASES = (("prefill", 256, 1, E, "rand"),
+                   ("decode", 8, 1, E, "rand"),
+                   ("profile", 256, 2, E, "rand"),
+                   ("train", T_TRAIN, K_TRAIN, E, "rand"),
+                   ("mixtral", 8192, 2, 8, "rand"),
+                   ("llama4", 2048, 1, 128, "rand"),
+                   ("e256", T_TRAIN, K_TRAIN, 256, "rand"),
+                   ("skew", 12000, 2, E, "one"),
+                   ("65536", 65536, 1, E, "rand"))
+
+
 def phase1_moe(dev, gen, record, strict: bool = True) -> None:
     """The five MoE routing kernels against their plain versions at the
     serve and training shapes, each call repeated bitwise.  With
     ``strict`` False (another tree's port, through ``--src``) a gating
     case that tree's wrapper refuses is printed and skipped."""
     import torch
+    from repro_torch.core.gating import capacity
     from repro_torch.kernels import ref
     from repro_torch.kernels.dispatch import (combine_rows, dispatch_rows,
                                               invert_slots, weighted_route)
@@ -400,20 +465,30 @@ def phase1_moe(dev, gen, record, strict: bool = True) -> None:
                t * d * 2 + d * e * 2 + t * k * 8 + t * e * 4, 2 * t * d * e)
         del x, router, idx, w, probs, again
 
-    # -- positions ----------------------------------------------------------
-    for case, t, k in (("prefill", 256, 1), ("decode", 8, 1),
-                       ("profile", 256, 2), ("train", T_TRAIN, K_TRAIN)):
-        ids = torch.randint(-1, E, (t, k), generator=gen, device=dev,
-                            dtype=torch.int32)
-        got = topk_positions(ids, E)
-        want = ref.ref_topk_positions(ids, E)
+    # -- positions (POSITIONS_CASES) --------------------------------------
+    try:
+        from repro_torch.kernels.topk_gating import positions_plan
+    except ImportError:         # a tree from before the cluster kernel
+        positions_plan = None
+    for case, t, k, e, kind in POSITIONS_CASES:
+        ids = (torch.randint(-1, e, (t, k), generator=gen, device=dev,
+                             dtype=torch.int32) if kind == "rand"
+               else torch.full((t, k), e // 2, dtype=torch.int32,
+                               device=dev))
+        got = topk_positions(ids, e)
+        want = ref.ref_topk_positions(ids, e)
         if not torch.equal(got, want):
             raise AssertionError(f"topk_positions {case}: mismatch")
-        if not torch.equal(topk_positions(ids, E), got):
+        if not torch.equal(topk_positions(ids, e), got):
             raise AssertionError(f"topk_positions {case}: repeat not "
                                  f"bitwise")
-        record("topk_positions", case, 0.0, lambda: topk_positions(ids, E),
-               lambda: ref.ref_topk_positions(ids, E), t * k * 8, 0)
+        if positions_plan is not None:
+            g, span, walk = positions_plan(t * k)
+            print(f"  topk_positions {case}: {t} x {k}, E {e}, {kind}: "
+                  f"bitwise, repeat bitwise; {g} CTA(s) of {span} "
+                  f"chunk(s) of 1024, {walk}", flush=True)
+        record("topk_positions", case, 0.0, lambda: topk_positions(ids, e),
+               lambda: ref.ref_topk_positions(ids, e), t * k * 8, 0)
 
     # -- route / dispatch / combine at the serve shapes ---------------------
     for case, t, cap, slot_cap, short in (("prefill", 256, 24, 24, False),
@@ -467,6 +542,28 @@ def phase1_moe(dev, gen, record, strict: bool = True) -> None:
                lambda: combine_rows(y_buf, rows_, wts),
                lambda: ref.ref_combine_rows(y_buf, rows_, wts),
                n_used * D * 2 + t * k * 8 + t * D * 2, 2 * n_used * D)
+
+    # -- weighted_route at Mixtral's prefill: 4096 tokens top-2 over 8
+    # experts of 4 replicas each in 32 slots, slot_cap the capacity ---------
+    t, k = 4096, 2
+    cap = capacity(t, MIX_E, k, 1.25)
+    kept, pos, cum, slot_of = _route_inputs(t, k, cap, cap, gen, dev,
+                                            n_exp=MIX_E, n_slots=MIX_SLOTS,
+                                            replicas=MAX_PACK)
+    got = weighted_route(kept, pos, cum, slot_of, cap)
+    if not torch.equal(got, ref.ref_weighted_route(kept, pos, cum, slot_of,
+                                                   cap)):
+        raise AssertionError("weighted_route mixtral: mismatch")
+    if not torch.equal(weighted_route(kept, pos, cum, slot_of, cap), got):
+        raise AssertionError("weighted_route mixtral: repeat not bitwise")
+    print(f"  weighted_route mixtral: {t} x {k}, E {MIX_E} x {MAX_PACK} "
+          f"replicas in {MIX_SLOTS} slots of {cap}: bitwise, repeat "
+          f"bitwise; {int((got >= 0).sum())} of {t * k} choices routed",
+          flush=True)
+    record("weighted_route", "mixtral", 0.0,
+           lambda: weighted_route(kept, pos, cum, slot_of, cap),
+           lambda: ref.ref_weighted_route(kept, pos, cum, slot_of, cap),
+           t * k * 4 * 3 + cum.numel() * 8, 0)
 
     # -- dispatch / combine at the training shape, as the backward calls
     # them: 8192 tokens top-2 into E x C rows, ids skewed so the busiest
@@ -783,8 +880,8 @@ def phase1_grouped_matmul(dev, hw, gen) -> dict:
               f"bitwise equal  kernel {ms:.4f} ms (device {dms:.4f}, "
               f"{2 * e * m * n * k / dms / 1e9:.1f} TFLOP/s, "
               f"{100 * bnd / dms:.1f}% of bound)  plain {plain:.4f} ms  "
-              f"torch.bmm {lib:.4f} ms  bound {bnd:.4f} ms ({by})",
-              flush=True)
+              f"torch.bmm {lib:.4f} ms  bound {bnd:.4f} ms ({by})"
+              + vs_floor(dms, bnd), flush=True)
         for key, v in (("ms", ms), ("device_ms", dms), ("plain_ms", plain),
                        ("library_ms", lib), ("bound_ms", bnd)):
             tot[key] += v
@@ -793,7 +890,8 @@ def phase1_grouped_matmul(dev, hw, gen) -> dict:
     print(f"  grouped_matmul, one layer's backward (5 GEMMs): kernel "
           f"{tot['ms']:.4f} ms (device {tot['device_ms']:.4f})  plain "
           f"{tot['plain_ms']:.4f} ms  torch.bmm {tot['library_ms']:.4f} ms  "
-          f"bound {tot['bound_ms']:.4f} ms", flush=True)
+          f"bound {tot['bound_ms']:.4f} ms"
+          + vs_floor(tot["device_ms"], tot["bound_ms"]), flush=True)
     del x, wi, wo, dy, act, dh, cases
 
     # depth sweep of h and da at K = 768 and 3072: the slope between the two
@@ -961,7 +1059,8 @@ def phase1_flash(dev, hw, gen) -> dict:
               f"{4 * hd * pairs * h * b / dms / 1e9:.1f} TFLOP/s, "
               f"{100 * bnd / dms:.1f}% of the bound)  plain {plain:.4f} ms  "
               f"sdpa {lib:.4f} ms (norm-wise {lib_rel:.3e})  bound "
-              f"{bnd:.4f} ms ({by}; {pairs} pairs a head)", flush=True)
+              f"{bnd:.4f} ms ({by}; {pairs} pairs a head)"
+              + vs_floor(dms, bnd), flush=True)
         if name == FLASH_ROW_CASE:
             row = dict(case=name, ms=ms, device_ms=dms, plain_ms=plain,
                        library_ms=lib, bound_ms=bnd, bound_by=by)
@@ -1095,7 +1194,7 @@ def phase1_recurrences(dev, hw, gen) -> dict:
               f"{nops / dms / 1e9:.2f} TFLOP/s, {nbytes / dms / 1e9:.2f} "
               f"TB/s, {bnd / dms:.1%} of the bound)  plain {pms:.4f} ms  "
               f"bound {bnd:.4f} ms ({by}, {rate} peak{extra}; {nbytes} "
-              f"bytes, {nops} operations)", flush=True)
+              f"bytes, {nops} operations)" + vs_floor(dms, bnd), flush=True)
         row = dict(case=case, ms=ms, device_ms=dms, plain_ms=pms,
                    library_ms=None, bound_ms=bnd, bound_by=by,
                    max_abs_err=errs["max_abs"])
@@ -2172,6 +2271,13 @@ def phase3_layer(dev) -> None:
     ko, kg = run("pallas", "pallas")
     po, pg = run("xla", "scatter")
     torch.cuda.synchronize()
+    # the kernel route's bits, to hold two trees' runs equal
+    digest = hashlib.sha256()
+    for a in (ko.expert_idx, ko.y, *kg):
+        digest.update(a.detach().reshape(-1).view(torch.uint8).cpu()
+                      .numpy().tobytes())
+    print(f"phase 3 layer check digest (kernel route ids, y, dx, drouter, "
+          f"dwi, dwo): sha256 {digest.hexdigest()[:32]}", flush=True)
     ik, ip = ko.expert_idx, po.expert_idx
     flip = (ik != ip).any(-1)
     touched = torch.unique(torch.cat([ik[flip].reshape(-1),
@@ -2252,6 +2358,8 @@ def phase3_train(dev) -> dict:
               f"{wall:.2f} s wall; losses "
               f"{[round(v, 6) for v in losses]}; grad norms "
               f"{[round(r['grad_norm'], 4) for r in log]}", flush=True)
+        print("phase 3 losses bitwise (float.hex): "
+              + " ".join(float(v).hex() for v in losses), flush=True)
         print(f"phase 3: step time (fwd_bwd stopwatch) first {dts[0]:.4f} s, "
               f"median of steps 1-11 {med:.4f} s (min {min(dts[1:]):.4f}, "
               f"max {max(dts[1:]):.4f}); {tokens / med:.1f} tokens/s; peak "
@@ -2405,6 +2513,8 @@ def main(argv=None) -> int:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     rows = {}
+    if {"1", "1r", "1m"} & set(phases):
+        phase1_floor(dev)
     if "1" in phases:
         print("phase 1: kernels against their plain versions", flush=True)
         rows = phase1(dev, H100)
@@ -2447,7 +2557,9 @@ def main(argv=None) -> int:
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "device_ms": r["device_ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "floor_ms": FLOOR["ms"],
+                "floor_device_ms": FLOOR["device_ms"]})
         print(json.dumps({"kernels": kernels}), flush=True)
     else:
         print(f"phases run: 0, {', '.join(phases)} (no kernels line)",

@@ -12,6 +12,9 @@ CPU tests import every module.
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``check`` raises if it is not 0.  Each kernel wrapper owns a
 ``LaunchCounter`` that it bumps exactly where it launches its kernel.
+``launch_floor`` launches ``csrc/launch_floor.cu``'s empty kernel, the
+yardstick a small kernel's time is judged by; it replaces no TPU kernel
+and has no counter.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("topk_gating", "dispatch", "moe_ffn", "grouped_matmul",
-           "flash_attention", "rwkv6", "ssd")
+           "flash_attention", "rwkv6", "ssd", "launch_floor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -43,6 +46,7 @@ SIGNATURES = {
     "topk_gating": {
         "topk_gating": (P, P, I, I, I, I, P, P, P, P),
         "topk_positions": (P, I, I, I, P, P),
+        "topk_positions_plan": (I, P),
     },
     "dispatch": {
         "dispatch_rows": (P, P, P, I, I, I, P, P),
@@ -64,6 +68,9 @@ SIGNATURES = {
     "ssd": {
         "ssd_scan": (P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                      L, L, L, L, L, L, L, L, P),
+    },
+    "launch_floor": {
+        "launch_floor": (P,),
     },
 }
 
@@ -197,3 +204,10 @@ def require(t, name: str, dtypes, ndim: int) -> None:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def launch_floor(device) -> None:
+    """One launch of the empty kernel (one block of 32 threads, no memory
+    traffic) on ``device``'s current stream."""
+    s = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    check(lib("launch_floor").launch_floor(s), "launch_floor")

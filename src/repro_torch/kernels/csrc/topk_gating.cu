@@ -57,13 +57,43 @@
 //     zero-fills them) are never stored.
 //
 // topk_positions replaces topk_gating.py::topk_positions (_pos_kernel): the
-// choice-major rank of each (token, choice) within its expert.  The TPU
-// kernel carries per-expert counters across a sequential grid; blocks have
-// no order on Hopper, so one block walks the T*k entries in chunks of 1024:
-// __match_any_sync ranks equal experts inside a warp, a per-warp count table
-// in shared memory is scanned over the 32 warps in order, and the running
-// per-expert base carries to the next chunk.  No atomics, so the result is
-// deterministic.  Bound: bytes (T*k*4 in, T*k*4 out) and launch latency.
+// choice-major rank of each (token, choice) within its expert, flat entry
+// f = choice * T + token; an id of -1 or >= E ranks 0 and advances nothing.
+// The TPU kernel carries per-expert counters across a sequential grid.
+// Bound on the card: bytes (T*k*4 in, T*k*4 out), some 0.04 us at the
+// training shape, so what costs is latency: the parent walked all T*k
+// entries in one 1,024-thread block, 16 chunks in series at 8192 x 2, each
+// with four barriers, a zeroed 32 x E table and E threads scanning 32 warps
+// in series (0.0216 ms, 131 SMs idle).  Design:
+//   * one thread-block cluster of G CTAs (up to 16 where the card takes a
+//     non-portable cluster that size, else 8), each owning `span`
+//     contiguous chunks of 1,024 entries of the flat order; G and span
+//     follow from n alone (topk_positions_plan), so every CTA keeps at
+//     least one chunk (8192 x 2: 16 CTAs of one chunk).  n <= 1,024 (the
+//     serve path) takes one CTA of ceil(n / 32) warps and no cluster
+//     (positions_solo_kernel): 0.0017 ms at a 256-token prefill against
+//     the parent's 0.0020, where a cluster launch of this kernel's one
+//     1,024-thread CTA took 0.0025 (chip_smoke.py phase 1);
+//   * a chunk is one entry a thread: __match_any_sync ranks equal experts
+//     inside a warp, the lowest lane of each group writes the group's count
+//     to the warp's row of a [32, E] table, and one warp a group of experts
+//     scans an expert's 32 counts with shuffles (lane w reads row w; rows
+//     are kPosRow = 257 ints apart, so the 32 reads hit 32 banks; a warp's
+//     up to 8 experts side by side), writing back each warp's offset
+//     complemented (~x < 0).  A positive entry is thus a count of this
+//     chunk and anything else counts 0: each warp zeroes its own row once,
+//     under its first loads, never a chunk;
+//   * spans of up to kPosHeld chunks rank as they load (the offsets held in
+//     registers, the CTA's per-expert count the scan's running total);
+//     longer spans count first (shared-memory adds, which give the same sum
+//     in any order) and rank in a second walk over the span;
+//   * cluster barrier; each CTA reads the counts of the ranks below it
+//     from distributed shared memory (all loads in flight at once) and adds
+//     them in rank order: its base per expert.  A second barrier, waited
+//     for only before exit, keeps each CTA's counts until its peers have
+//     read them.
+// No global scratch and no atomic that decides an order: the result is
+// exact and the same on every run.  One launch a call.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -86,9 +116,14 @@ static_assert(kRBlock == kBK * 64 * 2, "a router column block");
 constexpr int kRingMax = 204800;           // the ring's shared memory
 constexpr int kMaxSplits = 8;    // CTAs of a cluster that split a tile's k
 constexpr int kMinSplitSteps = 16;   // k steps each of them keeps at least
-constexpr int kPosThreads = 1024;
+constexpr int kPosThreads = 1024;   // a chunk: an entry a thread
 constexpr int kPosWarps = kPosThreads / 32;
 constexpr int kPosMaxE = 256;
+constexpr int kPosRow = 257;   // count table row stride: odd, no bank conflict
+constexpr int kPosMaxCluster = 16;     // CTAs, where the card allows it
+constexpr int kPosPortableCluster = 8;
+constexpr int kPosHeld = 2;    // chunks a CTA ranks in one pass
+constexpr int kPosMaxEntries = 1 << 30;   // T * k: offsets stay in int
 
 using bf16 = __nv_bfloat16;
 
@@ -498,45 +533,271 @@ cudaError_t launch_width(bool tma_router, const CUtensorMap& tx,
                                        w, probs, s);
 }
 
-__global__ void __launch_bounds__(kPosThreads)
-positions_kernel(const int32_t* __restrict__ idx, int n_tok, int k, int e,
-                 int32_t* __restrict__ pos) {
-  __shared__ int warp_cnt[kPosWarps][kPosMaxE];
-  __shared__ int base[kPosMaxE];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int j = tid; j < e; j += kPosThreads) base[j] = 0;
-  const int n = n_tok * k;
-  for (int start = 0; start < n; start += kPosThreads) {
-    // choice-major flat order: f = choice * T + token
-    const int f = start + tid;
-    int ex = -1, t = 0, c = 0;
-    if (f < n) {
-      c = f / n_tok;
-      t = f - c * n_tok;
-      ex = idx[(size_t)t * k + c];
-      if (ex >= e) ex = -1;
-    }
-    for (int j = tid; j < kPosWarps * e; j += kPosThreads)
-      warp_cnt[j / e][j % e] = 0;
-    __syncthreads();
-    const unsigned peers = __match_any_sync(0xffffffffu, ex);
-    const int rank = __popc(peers & ((1u << lane) - 1u));
-    if (ex >= 0 && lane == __ffs(peers) - 1) warp_cnt[warp][ex] = __popc(peers);
-    __syncthreads();
-    // exclusive scan of each expert's count over the warps, in order
-    for (int j = tid; j < e; j += kPosThreads) {
-      int run = base[j];
-      for (int w = 0; w < kPosWarps; ++w) {
-        const int cnt = warp_cnt[w][j];
-        warp_cnt[w][j] = run;
-        run += cnt;
-      }
-      base[j] = run;
-    }
-    __syncthreads();
-    if (f < n) pos[(size_t)t * k + c] = ex >= 0 ? warp_cnt[warp][ex] + rank : 0;
-    __syncthreads();
+// the int at the same shared-memory offset as `p` in CTA `rank` of the
+// cluster
+__device__ __forceinline__ int ld_peer_int(const int* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  int v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];" : "=r"(v) : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// entry f of the flat order: its expert (-1 if masked, past E or past the
+// span's end f1) and its index t * k + c in idx and pos
+__device__ __forceinline__ int pos_entry(const int32_t* __restrict__ idx,
+                                         int f, int f1, int n_tok, int k,
+                                         int e, int* at) {
+  if (f >= f1) return -1;
+  const int c = f / n_tok;
+  *at = (f - c * n_tok) * k + c;
+  const int ex = __ldg(idx + *at);
+  return (unsigned)ex < (unsigned)e ? ex : -1;
+}
+
+// one chunk: each entry's rank among its expert's entries of the chunk
+// before it, plus run[expert] (the expert's count before the chunk); adds
+// the chunk's counts to run.  Masked entries get 0.  Warp w scans the SCAN
+// experts w, w + 32, ... (SCAN = E / 32 rounded up to 1, 2, 4 or 8) side
+// by side: independent shuffle chains, unrolled with no test around a
+// shuffle (8 of them each under a runtime test cost 1.2-1.4 us at E 16)
+template <int SCAN>
+__device__ __forceinline__ int rank_chunk(int* tab, int* run, int ex, int e,
+                                          int lane, int warp) {
+  const unsigned peers = __match_any_sync(0xffffffffu, ex);
+  const int below = __popc(peers & ((1u << lane) - 1u));
+  if (ex >= 0 && below == 0) tab[warp * kPosRow + ex] = __popc(peers);
+  __syncthreads();
+  int cnt[SCAN], incl[SCAN];
+#pragma unroll
+  for (int i = 0; i < SCAN; ++i) {
+    const int x = warp + i * kPosWarps;
+    const int v = x < e ? tab[lane * kPosRow + x] : 0;
+    cnt[i] = v > 0 ? v : 0;    // not positive: no entry of x there
+    incl[i] = cnt[i];
   }
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+    for (int i = 0; i < SCAN; ++i) {
+      const int o = __shfl_up_sync(0xffffffffu, incl[i], d);
+      if (lane >= d) incl[i] += o;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < SCAN; ++i) {
+    const int x = warp + i * kPosWarps;
+    if (x < e) {
+      const int r0 = run[x];
+      tab[lane * kPosRow + x] = ~(r0 + incl[i] - cnt[i]);
+      __syncwarp();
+      if (lane == 31) run[x] = r0 + incl[i];
+    }
+  }
+  __syncthreads();
+  return ex >= 0 ? ~tab[warp * kPosRow + ex] + below : 0;
+}
+
+// n > 1024: the grid is one cluster of gridDim.x >= 2 CTAs, CTA r owning
+// the entries [r span 1024, (r + 1) span 1024) of the flat order
+template <bool HELD, int SCAN>
+__global__ void __launch_bounds__(kPosThreads, 1)
+positions_kernel(const int32_t* __restrict__ idx, int n_tok, int k, int e,
+                 int span, int32_t* __restrict__ pos) {
+  __shared__ int tab[kPosWarps * kPosRow];
+  __shared__ int cnt[kPosMaxE];    // this CTA's count an expert: the peers'
+  __shared__ int base[kPosMaxE];   // the count of the ranks below
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t rank = blockIdx.x;
+  const int n = n_tok * k;
+  const int f0 = rank * span * kPosThreads;
+  const int f1 = min(n, f0 + span * kPosThreads);
+  int ex[kPosHeld], at[kPosHeld], loc[kPosHeld];
+  if (HELD) {   // the loads in flight first, under the zeroing
+#pragma unroll
+    for (int j = 0; j < kPosHeld; ++j)
+      if (j < span)
+        ex[j] = pos_entry(idx, f0 + j * kPosThreads + tid, f1, n_tok, k, e,
+                          &at[j]);
+  }
+  // each warp zeroes its own row of the table and the counts it scans:
+  // both stay the warp's own until rank_chunk's first barrier
+  for (int c = lane; c < e; c += 32) tab[warp * kPosRow + c] = 0;
+  if (lane == 0)
+    for (int x = warp; x < e; x += kPosWarps) cnt[x] = 0;
+  __syncwarp();
+
+  if (HELD) {
+    // rank chunk by chunk from 0: cnt ends as the span's count an expert
+#pragma unroll
+    for (int j = 0; j < kPosHeld; ++j)
+      if (j < span)
+        loc[j] = rank_chunk<SCAN>(tab, cnt, ex[j], e, lane, warp);
+  } else {
+    __syncthreads();   // cnt, before any warp adds to it
+    for (int j = 0; j < span; ++j) {
+      int a;
+      const int x = pos_entry(idx, f0 + j * kPosThreads + tid, f1, n_tok, k,
+                              e, &a);
+      const unsigned peers = __match_any_sync(0xffffffffu, x);
+      if (x >= 0 && lane == __ffs(peers) - 1)
+        atomicAdd(&cnt[x], __popc(peers));
+    }
+  }
+
+  // the base an expert: the counts of ranks 0 .. rank - 1, in rank order
+  cluster_sync();
+  for (int x = tid; x < e; x += kPosThreads) {
+    int v[kPosMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kPosMaxCluster; ++r)
+      v[r] = r < (int)rank ? ld_peer_int(&cnt[x], r) : 0;
+    int b = 0;
+#pragma unroll
+    for (int r = 0; r < kPosMaxCluster; ++r) b += v[r];
+    base[x] = b;
+  }
+  cluster_arrive();     // done with the peers' counts
+  __syncthreads();
+
+  if (HELD) {
+#pragma unroll
+    for (int j = 0; j < kPosHeld; ++j)
+      if (j < span && f0 + j * kPosThreads + tid < f1)
+        pos[at[j]] = ex[j] >= 0 ? base[ex[j]] + loc[j] : 0;
+  } else {
+    // the second walk, from the base: base ends as base + the span's count
+    for (int j = 0; j < span; ++j) {
+      int a;
+      const int f = f0 + j * kPosThreads + tid;
+      const int x = pos_entry(idx, f, f1, n_tok, k, e, &a);
+      const int p = rank_chunk<SCAN>(tab, base, x, e, lane, warp);
+      if (f < f1) pos[a] = p;
+    }
+  }
+  cluster_wait();       // the peers are done with cnt
+}
+
+// n <= 1024 (the serve path): one CTA of ceil(n / 32) warps, no cluster
+// and no base.  Thread x sums expert x's counts over the CTA's warps
+// itself, the loads unrolled and in flight together: at 1 to 8 warps a
+// shuffle scan would leave each warp several experts to scan in series
+__global__ void __launch_bounds__(kPosThreads)
+positions_solo_kernel(const int32_t* __restrict__ idx, int n_tok, int k,
+                      int e, int32_t* __restrict__ pos) {
+  __shared__ int tab[kPosWarps * kPosRow];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  int at = 0;
+  const int ex = pos_entry(idx, tid, n_tok * k, n_tok, k, e, &at);
+  for (int c = lane; c < e; c += 32) tab[warp * kPosRow + c] = 0;
+  __syncwarp();
+  const unsigned peers = __match_any_sync(0xffffffffu, ex);
+  const int below = __popc(peers & ((1u << lane) - 1u));
+  if (ex >= 0 && below == 0) tab[warp * kPosRow + ex] = __popc(peers);
+  __syncthreads();
+  for (int x = tid; x < e; x += blockDim.x) {
+    int v[kPosWarps];
+#pragma unroll
+    for (int w = 0; w < kPosWarps; ++w)
+      v[w] = w < nw ? tab[w * kPosRow + x] : 0;
+    int run = 0;
+#pragma unroll
+    for (int w = 0; w < kPosWarps; ++w) {
+      if (w < nw) tab[w * kPosRow + x] = run;
+      run += v[w];
+    }
+  }
+  __syncthreads();
+  if (tid < n_tok * k)
+    pos[at] = ex >= 0 ? tab[warp * kPosRow + ex] + below : 0;
+}
+
+// G and span of n entries at clusters of up to gmax CTAs: span the fewest
+// chunks a CTA for which gmax CTAs cover n, G the CTAs that span needs
+void positions_plan(int n, int gmax, int* g, int* span) {
+  const int chunks = (n + kPosThreads - 1) / kPosThreads;
+  *span = (chunks + gmax - 1) / gmax;
+  *g = (chunks + *span - 1) / *span;
+}
+
+// the largest cluster the card runs positions_kernel in: 16 CTAs where it
+// allows non-portable sizes and a cluster that size fits, else 8
+template <bool HELD, int SCAN>
+bool allow_big_cluster() {
+  static const bool ok =
+      cudaFuncSetAttribute(positions_kernel<HELD, SCAN>,
+                           cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1) == cudaSuccess;
+  return ok;
+}
+
+int positions_cluster_max() {
+  static const int gmax = [] {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kPosMaxCluster);
+    cfg.blockDim = dim3(kPosThreads);
+    cudaLaunchAttribute cl[1];
+    cl[0].id = cudaLaunchAttributeClusterDimension;
+    cl[0].val.clusterDim.x = kPosMaxCluster;
+    cl[0].val.clusterDim.y = 1;
+    cl[0].val.clusterDim.z = 1;
+    cfg.attrs = cl;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    const bool big =
+        allow_big_cluster<true, 1>() &&
+        cudaOccupancyMaxActiveClusters(&clusters, positions_kernel<true, 1>,
+                                       &cfg) == cudaSuccess &&
+        clusters >= 1;
+    cudaGetLastError();
+    return big ? kPosMaxCluster : kPosPortableCluster;
+  }();
+  return gmax;
+}
+
+template <bool HELD, int SCAN>
+cudaError_t launch_positions(const int32_t* idx, int n_tok, int k, int e,
+                             int g, int span, int32_t* pos, cudaStream_t s) {
+  if (g > kPosPortableCluster && !allow_big_cluster<HELD, SCAN>())
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g);
+  cfg.blockDim = dim3(kPosThreads);
+  cfg.stream = s;
+  cudaLaunchAttribute cl[1];
+  cl[0].id = cudaLaunchAttributeClusterDimension;
+  cl[0].val.clusterDim.x = g;
+  cl[0].val.clusterDim.y = 1;
+  cl[0].val.clusterDim.z = 1;
+  cfg.attrs = cl;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, positions_kernel<HELD, SCAN>, idx, n_tok, k, e, span, pos);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <bool HELD>
+cudaError_t launch_positions_e(const int32_t* idx, int n_tok, int k, int e,
+                               int g, int span, int32_t* pos,
+                               cudaStream_t s) {
+  if (e <= 32)
+    return launch_positions<HELD, 1>(idx, n_tok, k, e, g, span, pos, s);
+  if (e <= 64)
+    return launch_positions<HELD, 2>(idx, n_tok, k, e, g, span, pos, s);
+  if (e <= 128)
+    return launch_positions<HELD, 4>(idx, n_tok, k, e, g, span, pos, s);
+  return launch_positions<HELD, 8>(idx, n_tok, k, e, g, span, pos, s);
 }
 
 }  // namespace
@@ -584,11 +845,43 @@ extern "C" int topk_gating(const void* x, const void* router, int n_tok,
   }
 }
 
+// idx [T, k] int32 contiguous; pos [T, k] int32.  1 <= E <= 256.
 extern "C" int topk_positions(const void* idx, int n_tok, int k, int e,
                               void* pos, void* stream) {
-  if (e < 1 || e > kPosMaxE) return (int)cudaErrorInvalidValue;
-  if (n_tok == 0 || k == 0) return (int)cudaGetLastError();
-  positions_kernel<<<1, kPosThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)idx, n_tok, k, e, (int32_t*)pos);
+  if (e < 1 || e > kPosMaxE || n_tok < 0 || k < 0 ||
+      (long long)n_tok * k > kPosMaxEntries)
+    return (int)cudaErrorInvalidValue;
+  const int n = n_tok * k;
+  if (n == 0) return (int)cudaGetLastError();
+  const int32_t* ip = (const int32_t*)idx;
+  int32_t* pp = (int32_t*)pos;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= kPosThreads) {
+    positions_solo_kernel<<<1, (n + 31) / 32 * 32, 0, s>>>(ip, n_tok, k, e,
+                                                           pp);
+    return (int)cudaGetLastError();
+  }
+  int g, span;
+  positions_plan(n, positions_cluster_max(), &g, &span);
+  return (int)(span <= kPosHeld
+                   ? launch_positions_e<true>(ip, n_tok, k, e, g, span, pp, s)
+                   : launch_positions_e<false>(ip, n_tok, k, e, g, span, pp,
+                                               s));
+}
+
+// what topk_positions launches for n = T * k entries: out[0] the CTAs of
+// its cluster, out[1] the chunks of 1,024 entries each owns, out[2] 0 for
+// the one-CTA kernel (n <= 1024), 1 where a CTA ranks its span in one pass
+// (span <= kPosHeld), 2 where it walks the span twice
+extern "C" int topk_positions_plan(int n, void* out) {
+  if (n < 1 || n > kPosMaxEntries) return (int)cudaErrorInvalidValue;
+  int* o = (int*)out;
+  if (n <= kPosThreads) {
+    o[0] = o[1] = 1;
+    o[2] = 0;
+    return (int)cudaGetLastError();
+  }
+  positions_plan(n, positions_cluster_max(), &o[0], &o[1]);
+  o[2] = o[1] <= kPosHeld ? 1 : 2;
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,8 @@ positive multiple of 16 bytes (D % 8 == 0) and both bases 16-byte aligned.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import ref
@@ -24,6 +26,7 @@ POSITIONS = LaunchCounter("topk_positions")
 MAX_EXPERTS = 256         # router columns one wgmma product holds
 MAX_K = 4                 # choices: one a thread of the accumulator's quad
 MAX_POS_EXPERTS = 256     # per-warp count table of the positions kernel
+MAX_POS_ENTRIES = 1 << 30  # T * k: the kernel's flat offsets are int32
 
 
 def topk_gating_fused(x, k: int, *, router):
@@ -63,7 +66,10 @@ def topk_gating_fused(x, k: int, *, router):
 def topk_positions(expert_idx, n_experts: int):
     """GShard priority positions: expert_idx [T, k] int32 (-1 masked) ->
     [T, k] int32 choice-major rank of each (token, choice) within its
-    expert; masked entries rank 0 and advance nothing."""
+    expert; masked entries and ids >= E rank 0 and advance nothing.  On the
+    card: one launch, of one CTA up to 1,024 entries, else of a
+    thread-block cluster that splits the T*k entries of the choice-major
+    order (``positions_plan``)."""
     if on_cpu(expert_idx):
         return ref.ref_topk_positions(expert_idx, n_experts)
     require(expert_idx, "expert_idx", (torch.int32,), 2)
@@ -71,9 +77,27 @@ def topk_positions(expert_idx, n_experts: int):
         raise ValueError(f"positions kernel takes 1 <= E <= "
                          f"{MAX_POS_EXPERTS}, got {n_experts}")
     t, k = expert_idx.shape
+    if t * k > MAX_POS_ENTRIES:
+        raise ValueError(f"positions kernel takes T*k <= {MAX_POS_ENTRIES}, "
+                         f"got {t} x {k}")
     pos = torch.empty((t, k), dtype=torch.int32, device=expert_idx.device)
     status = lib("topk_gating").topk_positions(
         ptr(expert_idx), t, k, int(n_experts), ptr(pos), stream(expert_idx))
     check(status, "topk_positions")
     POSITIONS.inc()
     return pos
+
+
+POSITIONS_WALKS = ("one CTA", "one pass", "second walk")
+
+
+def positions_plan(n: int) -> tuple:
+    """What ``topk_positions`` launches on the card for n = T*k entries:
+    (CTAs, chunks of 1,024 entries each CTA owns, walk): "one CTA" for n
+    <= 1024, else a cluster whose CTAs rank their spans in "one pass" or
+    count them and take a "second walk".  Needs the card (the largest
+    cluster is the card's); launches nothing."""
+    out = (ctypes.c_int * 3)()
+    check(lib("topk_gating").topk_positions_plan(int(n), out),
+          "topk_positions_plan")
+    return out[0], out[1], POSITIONS_WALKS[out[2]]

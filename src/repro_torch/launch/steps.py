@@ -4,10 +4,11 @@ one rank (the reference's ``launch/steps.py::make_train_step`` with
 
 Expert parallelism is 1 here, so there is no all-to-all and no
 data-parallel gradient reduction: the §4 reduction schedules
-(``optim/reduce.py``), gradient compression and the ScMoE shortcut are
-ROADMAP Queue 1 item 2, and asking for them raises.  The config's
-``n_microops`` / ``pipeline_ffn`` chunk the expert-parallel all-to-all
-only; the single-rank MoE layer runs its capacity buffer in one piece.
+(``optim/reduce.py``), gradient compression and the ScMoE shortcut come
+with ROADMAP's "expert parallelism and the §4 schedule", and asking for
+them raises.  The config's ``n_microops`` / ``pipeline_ffn`` chunk the
+expert-parallel all-to-all only; the single-rank MoE layer runs its
+capacity buffer in one piece.
 """
 from __future__ import annotations
 
@@ -19,8 +20,9 @@ from repro_torch.models import lm as lm_mod
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
-QUEUE_1_ITEM_2 = ("is not ported yet: it arrives with expert parallelism "
-                  "over NCCL (ROADMAP Queue 1 item 2)")
+EXPERT_PARALLELISM = ("is not ported yet: it arrives with expert "
+                      "parallelism over NCCL (ROADMAP: \"expert parallelism "
+                      "and the §4 schedule\")")
 
 
 def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, *,
@@ -38,12 +40,12 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, *,
     the step)."""
     if schedule is not None:
         raise NotImplementedError(f"gradient-reduction schedule "
-                                  f"{schedule!r} {QUEUE_1_ITEM_2}")
+                                  f"{schedule!r} {EXPERT_PARALLELISM}")
     if grad_compression is not None:
         raise NotImplementedError(f"grad_compression {grad_compression!r} "
-                                  f"{QUEUE_1_ITEM_2}")
+                                  f"{EXPERT_PARALLELISM}")
     if cfg.moe.enabled and cfg.moe.shortcut:
-        raise NotImplementedError(f"the ScMoE shortcut {QUEUE_1_ITEM_2}")
+        raise NotImplementedError(f"the ScMoE shortcut {EXPERT_PARALLELISM}")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     opt_cfg = opt_cfg or AdamWConfig(state_dtype=cfg.opt_state_dtype)

@@ -10,7 +10,8 @@ kernels), so with the arch's ``compute_backend`` "auto" every MoE op runs
 its kernel.  The reference's ``--schedule`` (other than ``implicit``),
 ``--grad-compression``, ``--n-microops``, ``--[no-]pipeline-ffn``,
 ``--[no-]shortcut`` and ``--mesh`` need expert parallelism over NCCL
-(ROADMAP Queue 1 item 2) and raise ``NotImplementedError``.
+(ROADMAP: "expert parallelism and the §4 schedule") and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig
-from repro_torch.launch.steps import QUEUE_1_ITEM_2
+from repro_torch.launch.steps import EXPERT_PARALLELISM
 from repro_torch.obs import ObsContext
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.trainer import (Trainer, TrainerConfig,
@@ -78,7 +79,7 @@ def parse_args(argv=None):
                         ("shortcut", None), ("mesh", None)):
         if getattr(args, flag) != unset:
             raise NotImplementedError(
-                f"--{flag.replace('_', '-')} {QUEUE_1_ITEM_2}")
+                f"--{flag.replace('_', '-')} {EXPERT_PARALLELISM}")
     return args
 
 

@@ -17,7 +17,8 @@ served here, through the reference's model entry points
 shared block's prefill attention the flash kernel on the kernel route
 (``cfg.moe.compute_backend`` "auto"/"pallas"), the plain versions on the
 "xla" route.  Training them needs backward kernels for WKV and SSD
-(ROADMAP queue 1 item 6), so ``forward_train`` refuses them.
+(ROADMAP: "training of the RWKV6 and hybrid Mamba2 families"), so
+``forward_train`` refuses them.
 """
 from __future__ import annotations
 
@@ -111,7 +112,8 @@ def _check_family(cfg, serve: bool = False) -> None:
     if (cfg.layer_pattern or cfg.attention_free) and not serve:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family needs backward "
-            f"kernels for WKV and SSD (ROADMAP queue 1 item 6); it is "
+            f"kernels for WKV and SSD (ROADMAP: \"training of the RWKV6 "
+            f"and hybrid Mamba2 families\"); it is "
             f"served through forward_prefill / init_cache / decode_step")
 
 

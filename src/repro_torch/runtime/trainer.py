@@ -17,8 +17,8 @@
 
 The reference's gradient-reduction schedule, compression and overlap
 knobs (``schedule``, ``grad_compression``, ``n_microops``,
-``pipeline_ffn``, ``shortcut``) need expert parallelism (ROADMAP Queue 1
-item 2) and are not fields here.
+``pipeline_ffn``, ``shortcut``) need expert parallelism (ROADMAP: "expert
+parallelism and the §4 schedule") and are not fields here.
 
 Spans (``obs``): ``train.step`` > ``data.batch``, ``fwd_bwd``,
 ``checkpoint``; counters ``trainer_steps_total``,

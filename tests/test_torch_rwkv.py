@@ -227,7 +227,9 @@ def test_plain_route_matches_kernel_route(models):
 def test_training_and_the_transformer_entry_points_refuse(models):
     _, cfg, _, params = models
     toks = torch.zeros((2, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="training of the RWKV6 and hybrid Mamba2 "
+                             "families"):
         lm.forward_train(cfg, params, {"tokens": toks, "labels": toks})
     moe = get_config("gpt2-moe-smoke")
     with pytest.raises(NotImplementedError, match="MoEServer"):

@@ -171,9 +171,13 @@ def test_train_step_matches_reference_composition(setup, backend,
 def test_train_step_rejects_what_needs_expert_parallelism():
     cfg = get_config("gpt2-moe-smoke")
     for kw in (dict(schedule="priority"), dict(grad_compression="bf16")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        with pytest.raises(NotImplementedError,
+                           match="expert parallelism and the §4 "
+                                 "schedule"):
             make_train_step(cfg, **kw)
     sc = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                           shortcut=True))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError,
+                       match="expert parallelism and the §4 "
+                             "schedule"):
         make_train_step(sc)

@@ -212,5 +212,7 @@ def test_train_driver_runs_on_the_cpu_when_asked(tmp_path, capsys):
                                    ["--n-microops", "2"], ["--pipeline-ffn"],
                                    ["--no-shortcut"], ["--mesh", "2x2"]])
 def test_train_driver_rejects_expert_parallel_flags(flags):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError,
+                       match="expert parallelism and the §4 "
+                             "schedule"):
         train.parse_args(["--arch", "gpt2-moe-smoke", *flags])

@@ -225,7 +225,9 @@ def test_plain_route_matches_kernel_route(models):
 def test_training_refuses_and_the_card_is_the_default(models):
     _, cfg, _, params = models
     toks = torch.zeros((2, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError,
+                       match="training of the RWKV6 and hybrid Mamba2 "
+                             "families"):
         lm.forward_train(cfg, params, {"tokens": toks, "labels": toks})
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
