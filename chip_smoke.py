@@ -63,7 +63,10 @@ Phase 3  trains gpt2-moe on the card.  A layer check holds one MoE
          steps, packing decided at step 10): every training kernel must
          launch, every loss be finite and the last below the first; it
          prints step time, tokens/s, peak memory, the card's busy share of
-         a step, the checkpoint's bytes and seconds and the packing
+         a step (and the device time of the kernels under the combine
+         backward, the ``_CombineBackward`` node, with and without the
+         remat recompute it triggers, beside the dispatch kernel's
+         total), the checkpoint's bytes and seconds and the packing
          decision, and the losses in ``float.hex`` (the layer check prints
          a digest of its kernel route's bits) so that two trees' runs can
          be held bitwise equal.  A resume check at full width and 2 layers
@@ -86,9 +89,14 @@ second walk a CTA), each bitwise against its plain version and on repeat,
 with the cluster it launches; ``weighted_route`` also at Mixtral's prefill
 (4096 x 2, E 8, 4 replicas in 32 slots).
 Phase 1 also holds the kernels at gpt2-moe training's shapes (8192 tokens,
-top-2, E=16, C=1288): gating at k=2, ``dispatch_rows`` with a per-row scale
-(combine's backward), ``combine_rows`` with unit weights (dispatch's
-backward), ``grouped_ffn`` at [16, 1288, 768], and ``grouped_matmul`` (the
+top-2, E=16, C=1288): gating at k=2, ``dispatch_rows`` unscaled (the
+forward), with a per-row scale, and with the scale and ``dot=`` (combine's
+backward: out bitwise, each rowdot within 1e-5 of sum |dot * x| of the
+plain version's, the largest ratio printed), ``combine_rows`` with unit
+weights (dispatch's backward), the combine backward alone (device time a
+call), then ``dispatch_rows`` and ``combine_rows``
+again with 128 MiB (over twice L2) written before each timed call (cold
+L2, beside the warm time), ``grouped_ffn`` at [16, 1288, 768], and ``grouped_matmul`` (the
 FFN backward's GEMM) at the five backward GEMM shapes (D=768, F=3072),
 timed beside ``torch.bmm``, each repeated bitwise; then at all 16 dtype x
 layout mixes on ragged shapes (E = 3, M and K 1288-1289, N 200-201; and
@@ -565,11 +573,14 @@ def phase1_moe(dev, gen, record, strict: bool = True) -> None:
            lambda: ref.ref_weighted_route(kept, pos, cum, slot_of, cap),
            t * k * 4 * 3 + cum.numel() * 8, 0)
 
-    # -- dispatch / combine at the training shape, as the backward calls
-    # them: 8192 tokens top-2 into E x C rows, ids skewed so the busiest
-    # experts pass C and drop tokens; dispatch with the gate weight as the
-    # per-row scale (combine's backward), combine with unit weights
-    # (dispatch's backward) --------------------------------------------------
+    # -- dispatch / combine at the training shape, as the step calls them:
+    # 8192 tokens top-2 into E x C rows, ids skewed so the busiest experts
+    # pass C and drop tokens; dispatch unscaled (the forward and its remat
+    # recompute, 24 of a step's 36 launches), with the gate weight as the
+    # per-row scale, and with it and the saved slot buffer as ``dot``
+    # (combine's backward), combine with unit weights (dispatch's
+    # backward); then dispatch and combine again with L2 flushed before
+    # each timed call ---------------------------------------------------------
     t, k, n_rows = T_TRAIN, K_TRAIN, E * C_TRAIN
     skew = torch.linspace(1.0, 3.0, E, device=dev).expand(t, E).contiguous()
     ids = torch.multinomial(skew, k, generator=gen).int()
@@ -587,22 +598,27 @@ def phase1_moe(dev, gen, record, strict: bool = True) -> None:
           f"capacity {C_TRAIN}, dropped", flush=True)
     if n_drop == 0:
         raise AssertionError("training dispatch case dropped nothing")
-    buf = dispatch_rows(dy, src, scale)
-    if not torch.equal(buf, ref.ref_dispatch_rows(dy, src, scale)):
-        raise AssertionError("dispatch_rows train (scaled): mismatch")
-    if not torch.equal(dispatch_rows(dy, src, scale), buf):
-        raise AssertionError("dispatch_rows train: repeat not bitwise")
-    record("dispatch_rows", "train", 0.0,
-           lambda: dispatch_rows(dy, src, scale),
-           lambda: ref.ref_dispatch_rows(dy, src, scale),
-           n_kept * D * 2 + n_rows * 8 + n_rows * D * 2, n_kept * D)
+    for case, sc in (("train", scale), ("train copy", None)):
+        buf = dispatch_rows(dy, src, sc)
+        if not torch.equal(buf, ref.ref_dispatch_rows(dy, src, sc)):
+            raise AssertionError(f"dispatch_rows {case}: mismatch")
+        if not torch.equal(dispatch_rows(dy, src, sc), buf):
+            raise AssertionError(f"dispatch_rows {case}: repeat not bitwise")
+        record("dispatch_rows", case, 0.0,
+               lambda: dispatch_rows(dy, src, sc),
+               lambda: ref.ref_dispatch_rows(dy, src, sc),
+               n_kept * D * 2 + n_rows * (4 if sc is None else 8)
+               + n_rows * D * 2, 0 if sc is None else n_kept * D)
+
+    slots = torch.randn(n_rows, D, generator=gen, device=dev).to(bf)
+    dot_ok = dispatch_dot_case(dy, src, scale, slots, n_kept, record,
+                               strict)
 
     ones = torch.ones(t, k, device=dev)
-    y_buf = torch.randn(n_rows, D, generator=gen, device=dev).to(bf)
-    y = combine_rows(y_buf, rows_, ones)
-    if not torch.equal(combine_rows(y_buf, rows_, ones), y):
+    y = combine_rows(slots, rows_, ones)
+    if not torch.equal(combine_rows(slots, rows_, ones), y):
         raise AssertionError("combine_rows train: repeat not bitwise")
-    yr = ref.ref_combine_rows(y_buf, rows_, ones).float()
+    yr = ref.ref_combine_rows(slots, rows_, ones).float()
     ulp = torch.where(yr != 0, torch.exp2(torch.floor(torch.log2(
         yr.abs())) - 7), torch.full_like(yr, 2.0 ** -133))
     cerr = (y.float() - yr).abs()
@@ -610,10 +626,124 @@ def phase1_moe(dev, gen, record, strict: bool = True) -> None:
         raise AssertionError("combine_rows train (unit weights): beyond 1 "
                              "bf16 ulp")
     record("combine_rows", "train", cerr.max().item(),
-           lambda: combine_rows(y_buf, rows_, ones),
-           lambda: ref.ref_combine_rows(y_buf, rows_, ones),
+           lambda: combine_rows(slots, rows_, ones),
+           lambda: ref.ref_combine_rows(slots, rows_, ones),
            n_kept * D * 2 + t * k * 8 + t * D * 2, 2 * n_kept * D)
-    del buf, y_buf, y, yr, dy
+
+    # the combine backward alone, as one training layer runs it (the
+    # _Combine node: invert_slots, the scale gather, the dispatch pass and
+    # the gate weights' gradient), by device time a call
+    from repro_torch.kernels import ops
+    leaves = (slots.detach().requires_grad_(), wts.detach().requires_grad_())
+    y_comb = ops.combine_op(leaves[0], rows_, leaves[1])
+    bwd_ms = device_ms(lambda: torch.autograd.grad(y_comb, leaves, dy,
+                                                   retain_graph=True))
+    print(f"  combine backward train (the _Combine node alone, {n_rows} "
+          f"slot rows, {t} x {k}): device {bwd_ms:.4f} ms a call", flush=True)
+    del y_comb, leaves
+
+    cold = [("dispatch_rows", "train", "dispatch_kernel",
+             lambda: dispatch_rows(dy, src, scale)),
+            ("dispatch_rows", "train copy", "dispatch_kernel",
+             lambda: dispatch_rows(dy, src)),
+            ("combine_rows", "train", "combine_kernel",
+             lambda: combine_rows(slots, rows_, ones))]
+    if dot_ok:
+        cold.insert(2, ("dispatch_rows", "train dot", "dispatch_kernel",
+                        lambda: dispatch_rows(dy, src, scale, dot=slots)))
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    for name, case, tag, fn in cold:
+        ms, dms = cold_ms(fn, tag, flush)
+        print(f"  {name:18s} {case:10s} cold L2 ({L2_FLUSH_BYTES >> 20} MiB "
+              f"written before each call): kernel {ms:.4f} ms (device "
+              f"{dms:.4f})", flush=True)
+    del buf, y, yr, dy, slots, flush
+
+
+def dispatch_dot_case(x, src, scale, slots, n_kept, record,
+                      strict: bool) -> bool:
+    """``dispatch_rows`` with the scale and ``dot`` (combine's backward at
+    the training shape): out bitwise the plain version's, each rowdot[r]
+    within DOT_REL of sum_c |dot[r,c] * x[src[r],c]| of the plain
+    version's (exact 0 on empty rows), both repeated bitwise.  Returns
+    False where another tree's wrapper has no ``dot`` (``strict`` False)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dispatch import dispatch_rows
+    try:
+        out, rowdot = dispatch_rows(x, src, scale, dot=slots)
+    except TypeError as err:
+        if strict:
+            raise
+        print(f"  dispatch_rows train dot: refused by this tree ({err})",
+              flush=True)
+        return False
+    want, want_dot = ref.ref_dispatch_rows(x, src, scale, dot=slots)
+    if not torch.equal(out, want):
+        raise AssertionError("dispatch_rows train dot: out mismatch")
+    again = dispatch_rows(x, src, scale, dot=slots)
+    if not (torch.equal(again[0], out) and torch.equal(again[1], rowdot)):
+        raise AssertionError("dispatch_rows train dot: repeat not bitwise")
+    kept = src >= 0
+    mag = (slots.float() * x[torch.clamp(src, min=0).long()].float()) \
+        .abs().sum(-1)
+    err = (rowdot - want_dot).abs()
+    if bool((rowdot[~kept] != 0).any()):
+        raise AssertionError("dispatch_rows train dot: rowdot of an empty "
+                             "row is not 0")
+    ratio = (err[kept] / mag[kept].clamp(min=1e-30)).max().item()
+    print(f"  dispatch_rows train dot: out bitwise, repeat bitwise; rowdot "
+          f"largest |err| / sum|dot * x| {ratio:.3e} (limit {DOT_REL:g}), "
+          f"max |err| {err.max().item():.3e}", flush=True)
+    if not ratio <= DOT_REL:
+        raise AssertionError(f"dispatch_rows train dot: rowdot off by "
+                             f"{ratio:.3e} of sum|dot * x|")
+    n_rows, d = slots.shape
+    record("dispatch_rows", "train dot", err.max().item(),
+           lambda: dispatch_rows(x, src, scale, dot=slots),
+           lambda: ref.ref_dispatch_rows(x, src, scale, dot=slots),
+           2 * n_kept * d * 2 + n_rows * 12 + n_rows * d * 2,
+           3 * n_kept * d)
+    return True
+
+
+# rowdot's limit, relative to sum_c |dot[r,c] * x[src[r],c]|: fp32 sums of
+# up to a few thousand products in two orders differ by some 1e-6 of it
+DOT_REL = 1e-5
+# bytes written between cold-L2 timed calls: over twice the 50 MB L2
+L2_FLUSH_BYTES = 128 << 20
+
+
+def cold_ms(fn, tag: str, flush, iters: int = 20) -> tuple:
+    """Per-call time of ``fn`` with ``flush`` (over twice L2) written before
+    each call, outside the timed pair: (ms by CUDA events around the call
+    alone, device ms of the kernels whose name holds ``tag``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    pairs = []
+    for i in range(iters):
+        flush.fill_(float(i))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    ms = sum(a.elapsed_time(b) for a, b in pairs) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            flush.fill_(float(i))
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and tag in e.key]
+    n = sum(e.count for e in hits)
+    if n == 0:
+        raise RuntimeError(f"torch.profiler recorded no {tag} launch")
+    return ms, sum(e.self_device_time_total for e in hits) / n / 1e3
 
 
 # grouped_ffn at the paths' shapes: (case, groups, rows a group, D, F,
@@ -2394,9 +2524,46 @@ def phase3_train(dev) -> dict:
                     print(f"  phase 3 {wrapper} kernel: "
                           f"{e.self_device_time_total / 1e3:.3f} ms "
                           f"x{e.count} {e.key[:90]}", flush=True)
+        combine_backward(prof, kern)
         return launches
     finally:
         shutil.rmtree(ck, ignore_errors=True)
+
+
+def combine_backward(prof, kern) -> None:
+    """Prints the device time a step of the kernels launched under the
+    combine backward (the ``_Combine`` autograd node, ``_CombineBackward``
+    in the profile) and of its own part, beside the dispatch kernel's
+    total over the step.  Under remat the node's first read of its saved
+    tensors recomputes the layer group's forward (its CPU children up to
+    the recomputed ``_Combine``); its own part is what follows, and the
+    dispatch kernel its body launches directly."""
+    def under(e):
+        yield from e.kernels
+        for c in e.cpu_children:
+            yield from under(c)
+    nodes = [e for e in prof.events() if e.name == "_CombineBackward"]
+    every, own = [], []
+    for e in nodes:
+        kids = sorted(e.cpu_children, key=lambda c: c.time_range.start)
+        fwd = [c.time_range.end for c in kids if c.name == "_Combine"]
+        cut = max(fwd, default=float("-inf"))
+        every += list(under(e))
+        own += [k for c in kids if c.time_range.start >= cut
+                for k in under(c)]
+        own += [k for k in e.kernels if "dispatch_kernel" in k.name]
+    disp = [k for k in own if "dispatch_kernel" in k.name]
+    total = [e for e in kern if "dispatch_kernel" in e.key]
+
+    def ms(ks):
+        return sum(k.duration for k in ks) / 1e3
+    print(f"phase 3 combine backward (_CombineBackward x{len(nodes)}): "
+          f"{ms(every):.3f} ms device a step over {len(every)} kernels, "
+          f"the remat recompute included; its own part {ms(own):.3f} ms "
+          f"over {len(own)} kernels, of it dispatch_kernel {ms(disp):.3f} "
+          f"ms x{len(disp)}; dispatch_kernel in the whole step "
+          f"{sum(e.self_device_time_total for e in total) / 1e3:.3f} ms "
+          f"x{sum(e.count for e in total)}", flush=True)
 
 
 def phase3_resume(dev) -> None:

@@ -49,7 +49,7 @@ SIGNATURES = {
         "topk_positions_plan": (I, P),
     },
     "dispatch": {
-        "dispatch_rows": (P, P, P, I, I, I, P, P),
+        "dispatch_rows": (P, P, P, P, I, I, I, P, P, P),
         "combine_rows": (P, P, P, I, I, I, I, P, P),
         "weighted_route": (P, P, P, P, I, I, I, I, P, P),
     },

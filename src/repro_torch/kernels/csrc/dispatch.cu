@@ -2,12 +2,27 @@
 // Hopper (sm_90a).
 //
 // dispatch_rows replaces src/repro/kernels/dispatch.py::dispatch_rows
-// (_dispatch_kernel): out[r] = scale[r] * x[src[r]], 0 where src[r] = -1,
-// product in fp32 then rounded to bf16 (the serve path's activation type,
-// the only one the kernels here take).  The TPU kernel streams source
-// tiles past a revisited output tile; here each block owns one output row
-// and gathers its one source row directly.  Bound: bytes (the kept rows'
-// reads plus every output row's write).
+// (_dispatch_kernel): out[r] = scale[r] * x[src[r]], 0 where src[r] = -1
+// or is out of range, product in fp32 (__fmul_rn) then rounded to nearest
+// bf16, so every output is bitwise the plain version's; without a scale a
+// pure row copy.  With a dot operand (combine's backward, whose dot is the
+// saved slot buffer) the same pass also returns rowdot[r] = sum_c
+// fp32(dot[r,c]) * fp32(x[src[r],c]), the unscaled x, 0 for empty rows:
+// the gate weights' gradient is rowdot[rows[t,j]], since rows and src are
+// inverse maps.  The TPU kernel streams source tiles past a revisited
+// output tile; here a warp owns one slot row (kRowWarps a block: 2 to 16
+// timed alike at 512, 1,536 and 20,608 rows; no grid-stride walk: 512
+// rows give 128 blocks, one an SM) and gathers its one source row.  Bound: bytes (the kept rows' reads, the dot rows' with dot,
+// every output row's write), so the design keeps bytes in flight: the
+// row's src and scale are one broadcast load a warp; each lane moves
+// 16-byte vectors (8 bf16) and issues the loads of kVec vectors (and as
+// many of the dot row) before its first store (at D 768: 3 of 96 a lane);
+// an empty row is zeroed by 16-byte stores.  rowdot: each lane sums its
+// products into 8 fp32 partials (one a vector position, in vector order),
+// adds them pairwise, then a shuffle butterfly over the 32 lanes; every
+// product and sum is an explicit _rn intrinsic, so a repeat is bitwise.
+// The wrapper requires D a multiple of 8 and x and dot 16-byte aligned
+// (raising otherwise); no scalar path is kept.
 //
 // combine_rows replaces dispatch.py::combine_rows (_combine_kernel):
 // y[t] = sum_k w[t,k] * buf[rows[t,k]] in fp32, dropped choices (-1) add
@@ -34,31 +49,11 @@
 
 namespace {
 
-constexpr int kRowThreads = 128;
+constexpr int kRowWarps = 4;   // dispatch: slot rows a block, one a warp
 constexpr int kRouteThreads = 256;
 constexpr int kTokWarps = 8;   // combine: tokens a block, one a warp
 constexpr int kVec = 4;        // 16-byte vectors a lane loads together
 constexpr int kChoices = 2;    // choices whose vectors load together
-
-using bf16 = __nv_bfloat16;
-
-__global__ void __launch_bounds__(kRowThreads)
-dispatch_kernel(const bf16* __restrict__ x, const int32_t* __restrict__ src,
-                const float* __restrict__ scale, int n_src, int d,
-                bf16* __restrict__ out) {
-  const int r = blockIdx.x;
-  const int s = src[r];
-  bf16* o = out + (size_t)r * d;
-  if (s < 0 || s >= n_src) {
-    for (int c = threadIdx.x; c < d; c += kRowThreads)
-      o[c] = __float2bfloat16(0.f);
-    return;
-  }
-  const float sc = scale != nullptr ? scale[r] : 1.f;
-  const bf16* xr = x + (size_t)s * d;
-  for (int c = threadIdx.x; c < d; c += kRowThreads)
-    o[c] = __float2bfloat16(__fmul_rn(__bfloat162float(xr[c]), sc));
-}
 
 // two floats -> two bf16 (round to nearest even), lo in the low half
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -75,6 +70,86 @@ __device__ __forceinline__ void add8(float (&acc)[8], uint4 v, float w) {
         __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
     acc[2 * i] = __fadd_rn(acc[2 * i], __fmul_rn(f.x, w));
     acc[2 * i + 1] = __fadd_rn(acc[2 * i + 1], __fmul_rn(f.y, w));
+  }
+}
+
+// v's 8 bf16 times s, each product rounded to fp32, then to nearest bf16
+__device__ __forceinline__ uint4 scale8(uint4 v, float s) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u[i]));
+    o[i] = pack2(__fmul_rn(f.x, s), __fmul_rn(f.y, s));
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// acc[i] += a[i] * b[i] over the 8 bf16 of each, product and sum rounded
+// to fp32
+__device__ __forceinline__ void dot8(float (&acc)[8], uint4 a, uint4 b) {
+  const uint32_t ua[4] = {a.x, a.y, a.z, a.w};
+  const uint32_t ub[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fa =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ua[i]));
+    const float2 fb =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ub[i]));
+    acc[2 * i] = __fadd_rn(acc[2 * i], __fmul_rn(fa.x, fb.x));
+    acc[2 * i + 1] = __fadd_rn(acc[2 * i + 1], __fmul_rn(fa.y, fb.y));
+  }
+}
+
+// dv = D / 8 vectors a row; warp w of block b owns slot row b * kRowWarps
+// + w.  kScaled: scale is given; kDot: dot and rowdot are.
+template <bool kScaled, bool kDot>
+__global__ void __launch_bounds__(kRowWarps * 32)
+dispatch_kernel(const uint4* __restrict__ x, const int32_t* __restrict__ src,
+                const float* __restrict__ scale,
+                const uint4* __restrict__ dot, int n_src, int n_rows, int dv,
+                uint4* __restrict__ out, float* __restrict__ rowdot) {
+  const int r = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (r >= n_rows) return;   // whole warps leave together
+  const int lane = threadIdx.x & 31;
+  const int s = __ldg(src + r);   // one broadcast load a warp
+  uint4* o = out + (size_t)r * dv;
+  if (s < 0 || s >= n_src) {
+    for (int c = lane; c < dv; c += 32) o[c] = make_uint4(0u, 0u, 0u, 0u);
+    if (kDot && lane == 0) rowdot[r] = 0.f;
+    return;
+  }
+  const float sc = kScaled ? __ldg(scale + r) : 1.f;
+  const uint4* xr = x + (size_t)s * dv;
+  const uint4* dr = kDot ? dot + (size_t)r * dv : nullptr;
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  for (int c0 = lane; c0 < dv; c0 += 32 * kVec) {
+    uint4 v[kVec], w[kVec];
+#pragma unroll
+    for (int u = 0; u < kVec; ++u)
+      if (c0 + 32 * u < dv) {
+        v[u] = __ldg(xr + c0 + 32 * u);
+        if (kDot) w[u] = __ldg(dr + c0 + 32 * u);
+      }
+#pragma unroll
+    for (int u = 0; u < kVec; ++u)
+      if (c0 + 32 * u < dv) {
+        o[c0 + 32 * u] = kScaled ? scale8(v[u], sc) : v[u];
+        if (kDot) dot8(acc, w[u], v[u]);
+      }
+  }
+  if (kDot) {
+    float sum = __fadd_rn(__fadd_rn(__fadd_rn(acc[0], acc[1]),
+                                    __fadd_rn(acc[2], acc[3])),
+                          __fadd_rn(__fadd_rn(acc[4], acc[5]),
+                                    __fadd_rn(acc[6], acc[7])));
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1)
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, m));
+    if (lane == 0) rowdot[r] = sum;
   }
 }
 
@@ -157,14 +232,28 @@ route_kernel(const int32_t* __restrict__ idx, const int32_t* __restrict__ pos,
 
 }  // namespace
 
-// x, buf and out are bfloat16.  scale may be null (all ones).
+// x, dot and out are bfloat16, D a multiple of 8, x, dot and out 16-byte
+// aligned.  scale may be null (all ones); dot may be null (no rowdot),
+// else rowdot is [n_rows] fp32.
 extern "C" int dispatch_rows(const void* x, const void* src, const void* scale,
-                             int n_src, int n_rows, int d, void* out,
-                             void* stream) {
+                             const void* dot, int n_src, int n_rows, int d,
+                             void* out, void* rowdot, void* stream) {
+  if (d % 8 != 0 ||
+      ((uintptr_t)x | (uintptr_t)dot | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return (int)cudaGetLastError();
-  dispatch_kernel<<<n_rows, kRowThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const int32_t*)src, (const float*)scale, n_src, d,
-      (bf16*)out);
+  const dim3 grid((n_rows + kRowWarps - 1) / kRowWarps), block(kRowWarps * 32);
+  cudaStream_t st = (cudaStream_t)stream;
+  auto launch = [&](auto kernel) {
+    kernel<<<grid, block, 0, st>>>((const uint4*)x, (const int32_t*)src,
+                                   (const float*)scale, (const uint4*)dot,
+                                   n_src, n_rows, d / 8, (uint4*)out,
+                                   (float*)rowdot);
+  };
+  if (scale != nullptr && dot != nullptr) launch(dispatch_kernel<true, true>);
+  else if (scale != nullptr) launch(dispatch_kernel<true, false>);
+  else if (dot != nullptr) launch(dispatch_kernel<false, true>);
+  else launch(dispatch_kernel<false, false>);
   return (int)cudaGetLastError();
 }
 

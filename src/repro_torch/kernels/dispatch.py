@@ -6,6 +6,8 @@ The caller inverts the metadata-sized (token -> slot row) map into a
 ids into a scratch row, no feature data), then:
 
   * ``dispatch_rows``  — out[r] = scale[r] * x[src[r]] (0 for src = -1);
+    with ``dot=`` also rowdot[r] = dot[r] . x[src[r]] in fp32 (combine's
+    backward: the gate weights' gradient from the same row pass);
   * ``combine_rows``   — y[t] = sum_k w[t,k] * buf[rows[t,k]] in fp32;
   * ``weighted_route`` — (expert, priority position) -> flat replica row by
     bin partition of the expert's cumulative integer weights (Lina §5/§6.2
@@ -13,6 +15,7 @@ ids into a scratch row, no feature data), then:
 
 A CPU tensor takes the plain version in ``kernels.ref``; a CUDA tensor
 launches the kernel (bf16 feature rows only) or raises.  Empty slots / dropped choices are -1.
+The two row movers take 16-byte vectors (``vector_rule``).
 """
 from __future__ import annotations
 
@@ -45,11 +48,24 @@ def invert_slots(rows, n_rows: int):
             torch.where(src >= 0, src % k, neg))
 
 
-def dispatch_rows(x, src_tok, scale=None):
+def vector_rule(name: str, d: int, data_ptr: int) -> None:
+    """Raise ValueError unless a kernel that moves 16-byte vectors (8 bf16)
+    can take a [rows, d] bf16 operand: d a multiple of 8 and the base
+    address 16-byte aligned, so that every row starts on a vector."""
+    if d % 8 or data_ptr % 16:
+        raise ValueError(f"{name} moves 16-byte vectors: D ({d}) must be a "
+                         f"multiple of 8 and the base address 16-byte "
+                         f"aligned (offset {data_ptr % 16})")
+
+
+def dispatch_rows(x, src_tok, scale=None, *, dot=None):
     """x: [T, d]; src_tok: [R] int32 source token per output row (-1 empty);
-    scale: optional [R] f32 per-row weight (default 1).  -> [R, d] x.dtype."""
-    if on_cpu(x, src_tok, scale):
-        return ref.ref_dispatch_rows(x, src_tok, scale)
+    scale: optional [R] f32 per-row weight (default 1).  -> [R, d] x.dtype.
+    With ``dot`` ([R, d] slot rows, x's dtype) -> (out, rowdot): rowdot [R]
+    f32, rowdot[r] = sum_c dot[r, c] * x[src[r], c] in fp32 (x unscaled),
+    0 for empty rows."""
+    if on_cpu(x, src_tok, scale, dot):
+        return ref.ref_dispatch_rows(x, src_tok, scale, dot=dot)
     require(x, "x", BF16, 2)
     require(src_tok, "src_tok", (torch.int32,), 1)
     if scale is not None:
@@ -58,12 +74,21 @@ def dispatch_rows(x, src_tok, scale=None):
             raise ValueError("scale must match src_tok")
     t, d = x.shape
     r = src_tok.shape[0]
+    vector_rule("dispatch_rows x", d, x.data_ptr())
+    rowdot = None
+    if dot is not None:
+        require(dot, "dot", BF16, 2)
+        if dot.shape != (r, d):
+            raise ValueError(f"dot {tuple(dot.shape)} must be [{r}, {d}]")
+        vector_rule("dispatch_rows dot", d, dot.data_ptr())
+        rowdot = torch.empty((r,), dtype=torch.float32, device=x.device)
     out = torch.empty((r, d), dtype=x.dtype, device=x.device)
     status = lib("dispatch").dispatch_rows(
-        ptr(x), ptr(src_tok), ptr(scale), t, r, d, ptr(out), stream(x))
+        ptr(x), ptr(src_tok), ptr(scale), ptr(dot), t, r, d, ptr(out),
+        ptr(rowdot), stream(x))
     check(status, "dispatch_rows")
     DISPATCH.inc()
-    return out
+    return out if dot is None else (out, rowdot)
 
 
 def combine_rows(buf, rows, weights):
@@ -78,10 +103,7 @@ def combine_rows(buf, rows, weights):
     if weights.shape != rows.shape:
         raise ValueError("weights must match rows")
     r, d = buf.shape
-    if d % 8 or buf.data_ptr() % 16:
-        raise ValueError(f"combine_rows moves 16-byte vectors: D ({d}) must "
-                         f"be a multiple of 8 and buf 16-byte aligned "
-                         f"(offset {buf.data_ptr() % 16})")
+    vector_rule("combine_rows buf", d, buf.data_ptr())
     t, k = rows.shape
     out = torch.empty((t, d), dtype=buf.dtype, device=buf.device)
     status = lib("dispatch").combine_rows(

@@ -31,7 +31,8 @@ launches the same kernels:
   * ``dispatch_op``     — the backward is the combine kernel with unit
     weights;
   * ``combine_op``      — the backward is the dispatch kernel with the gate
-    weight as the per-row scale, plus a row-wise dot for the weights.
+    weight as the per-row scale; its ``dot=`` operand (the saved slot
+    buffer) gives the weights' row-wise dot in the same pass.
 
 On a CPU tensor the same Functions run and their kernels' plain versions
 run inside, so the CPU tests exercise these backward formulas.
@@ -221,18 +222,18 @@ class _Combine(torch.autograd.Function):
         buf, rows, weights = ctx.saved_tensors
         t, k = rows.shape
         # d buf: each (token, choice)'s slot row gets w[t,k] * dy[t] — the
-        # dispatch kernel with the gate weight as the per-row scale
+        # dispatch kernel with the gate weight as the per-row scale; d
+        # weights: dot(buf[rows[t,k]], dy[t]), which the same pass returns
+        # per slot row as rowdot (rows and src_tok are inverse maps)
         src_tok, src_k = invert_slots(rows, buf.shape[0])
         w_flat = weights.reshape(-1).float()
         pick = torch.clamp(src_tok * k + src_k, min=0).long()
         scale = torch.where(src_tok >= 0, w_flat[pick],
                             torch.zeros_like(w_flat[pick]))
-        dbuf = dispatch_rows(dy.to(buf.dtype).contiguous(), src_tok,
-                             scale.contiguous())
-        # d weights: row-wise dot of dy with the gathered slot rows
-        vals = buf[torch.clamp(rows, min=0).long()].float()     # [T, k, d]
-        dw = torch.sum(vals * dy.float()[:, None, :], dim=-1)
-        dw = torch.where(rows >= 0, dw, torch.zeros_like(dw))
+        dbuf, rowdot = dispatch_rows(dy.to(buf.dtype).contiguous(), src_tok,
+                                     scale.contiguous(), dot=buf)
+        dw = torch.where(rows >= 0, rowdot[torch.clamp(rows, min=0).long()],
+                         torch.zeros((), device=rowdot.device))
         return dbuf, None, dw.to(weights.dtype)
 
 

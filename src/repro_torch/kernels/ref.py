@@ -73,14 +73,20 @@ def ref_topk_gating(logits, k: int):
     return idx, w, probs
 
 
-def ref_dispatch_rows(x, src_tok, scale=None):
+def ref_dispatch_rows(x, src_tok, scale=None, *, dot=None):
     """Slot-buffer dispatch.  x: [T, d]; src_tok: [R] source token per slot
-    row (-1 empty); scale: optional [R] f32.  -> [R, d] in x.dtype."""
+    row (-1 empty); scale: optional [R] f32.  -> [R, d] in x.dtype.  With
+    ``dot`` ([R, d]) -> (out, rowdot): rowdot [R] f32 the fp32 dot of each
+    slot row of ``dot`` with its unscaled source row, 0 for empty rows."""
     rows = x[torch.clamp(src_tok, min=0).long()]
     one = torch.ones_like(src_tok, dtype=torch.float32) if scale is None \
         else scale.float()
     s = torch.where(src_tok >= 0, one, torch.zeros_like(one))
-    return (rows.float() * s[:, None]).to(x.dtype)
+    out = (rows.float() * s[:, None]).to(x.dtype)
+    if dot is None:
+        return out
+    rowdot = torch.sum(dot.float() * rows.float(), dim=-1)
+    return out, torch.where(src_tok >= 0, rowdot, torch.zeros_like(rowdot))
 
 
 def ref_combine_rows(buf, rows, weights):
