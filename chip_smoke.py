@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --phases 1r,5 [--src DIR]
     python3 chip_smoke.py --phases 1m [--src DIR]
+    python3 chip_smoke.py --phases 3,7
 
 With no arguments every phase runs, as below.  ``--phases`` runs phase 0
 and a subset (``1r``: phase 1's two recurrences alone; ``1m``: its five
@@ -150,6 +151,32 @@ Phase 6  does the same for zamba2-1.2b (38 Mamba2 layers, the shared
          ``flash_attention`` 6 launches per prefill, each replayed against
          ``ref_ssd`` (1e-4) and ``ref_attention`` (1e-2); its decode steps
          run the plain ``mamba_decode`` and ``decode_attention``.
+
+Phase 7  drives expert parallelism and Lina's §4 schedule on a one-rank
+         NCCL mesh (``--mesh 1x1``: the all-to-all a self-exchange, the
+         all-reduce over one rank; this machine has one GPU, so no
+         multi-GPU number is taken).  It prints each communicator's
+         stream priority (the `model` group's high), holds gpt2-moe's MoE
+         layer at the training shape on the mesh (``lina`` with 4
+         micro-ops, and ``lina=False``) against ``mesh=None`` (ids equal;
+         y and the gradients norm-wise within 1e-5, the bitwise status
+         printed), trains at full width and depth 2 for 4 steps without a
+         mesh and with each of the five schedules and with bf16 and
+         int8_ef compression (the five schedules' losses bitwise equal),
+         then, counters zeroed just before and read just after, 12 steps
+         of priority+partition+pipeline with 2 microbatches at full depth
+         through ``launch.train``'s flags.  For each run it prints the
+         step median, the losses in ``float.hex``, and one more step
+         under the profiler: its NCCL kernels' device time and an ordering
+         check (each all-reduce after the last all-to-all before it ended:
+         by NCCL kernels where NCCL launched both kinds, else by the CUDA
+         events the mesh records on the compute stream; which one is
+         printed).  At depth 12 it also drives 5 of phase 3's 12 steps
+         (its LR schedule) on the mesh with one microbatch and without a
+         mesh with two: at world size 1 the mesh's steps must be the
+         single-rank steps bit for bit (the first 5 losses of phase 3 and
+         of the 2-microbatch run, in ``float.hex``); it prints the step
+         medians, busy and NCCL time beside phase 3's, and the loss gap.
 
 Prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit).
@@ -2508,6 +2535,7 @@ def phase3_train(dev) -> dict:
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        PHASE3.update(losses=losses, median=med, busy=dev_ms)
         print(f"phase 3 step under the profiler: wall {pwall * 1e3:.3f} ms, "
               f"device busy {dev_ms:.3f} ms = {100 * dev_ms / 1e3 / med:.1f}% "
               f"of the median step ({100 * dev_ms / 1e3 / pwall:.1f}% of "
@@ -2617,7 +2645,315 @@ def phase3_resume(dev) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
-PHASES = ("1", "2", "3", "4", "5", "6")
+# ---------------------------------------------------------------------------
+# phase 7: expert parallelism and Lina's §4 schedule at world size 1
+# ---------------------------------------------------------------------------
+
+# norm-wise ||mesh - no mesh|| / ||no mesh|| allowed for each gradient of
+# phase 7's layer check: the mesh path runs the same kernels on the same
+# rows, in 4 capacity chunks, so only the weight gradients' sums over the
+# rows are split (four fp32 partial sums added)
+EP_GRAD_REL = 1e-5
+EP_SCHEDULES = ("baseline", "priority", "fixed", "priority+partition",
+                "priority+partition+pipeline")
+# phase 3's step, kept for phase 7's comparison
+PHASE3: dict = {}
+
+
+def phase7_mesh(dev):
+    """The one-rank NCCL mesh (1 x 1) and its communicators' priorities."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1), device=str(dev))
+    least, greatest = torch.cuda.Stream.priority_range()
+    print(f"phase 7: {mesh}; communicator high-priority stream flags "
+          f"(ProcessGroupNCCL options read back) "
+          f"{json.dumps(mesh.stream_priorities())}; CUDA stream priorities "
+          f"{least} (least) .. {greatest} (greatest)", flush=True)
+    if mesh.stream_priorities() != {"data": False, "model": True}:
+        raise AssertionError("the model group's communicator must take the "
+                             "high-priority stream, the data group's not")
+    return mesh
+
+
+def phase7_layer(dev, mesh) -> None:
+    """gpt2-moe's MoE layer at the training shape (8 x 1024 tokens, E 16,
+    top-2, C 1288, kernel route, bf16) on the 1 x 1 mesh, ``lina`` with 4
+    micro-ops and ``lina=False``, against ``mesh=None``: the same ids, y
+    and gradients (x, router, wi, wo) within EP_GRAD_REL norm-wise."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.moe import MoEParams, moe_layer
+    cfg = get_config("gpt2-moe")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    bf = torch.bfloat16
+    x = torch.randn(8, 1024, D, generator=gen, device=dev).to(bf)
+    router = (torch.randn(D, E, generator=gen, device=dev)
+              * D ** -0.5).to(bf)
+    wi = (torch.randn(E, D, F, generator=gen, device=dev) * D ** -0.5).to(bf)
+    wo = (torch.randn(E, F, D, generator=gen, device=dev) * F ** -0.5).to(bf)
+    ct = torch.randn(8, 1024, D, generator=gen, device=dev)
+    mcfg = dataclasses.replace(cfg.moe, compute_backend="pallas",
+                               n_microops=4)
+
+    def run(m, lina):
+        leaves = [a.detach().requires_grad_() for a in (x, router, wi, wo)]
+        out = moe_layer(leaves[0], MoEParams(leaves[1], leaves[2], None,
+                                             leaves[3]), mcfg,
+                        ffn_type=cfg.ffn_type, dispatch_backend="pallas",
+                        mesh=m, lina=lina)
+        grads = torch.autograd.grad((out.y.float() * ct).sum(), leaves)
+        return out, [g.float() for g in grads]
+
+    base, bg = run(None, True)
+    for tag, lina in (("lina, 4 micro-ops", True), ("lina=False", False)):
+        out, g = run(mesh, lina)
+        torch.cuda.synchronize()
+        ids = torch.equal(out.expert_idx, base.expert_idx)
+        y_err = (out.y.float() - base.y.float()).abs().max().item()
+        rel = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+               for n, a, b in zip(("y", "dx", "drouter", "dwi", "dwo"),
+                                  [out.y, *g], [base.y, *bg])}
+        bits = {n: torch.equal(a, b) for n, a, b in
+                zip(rel, [out.y, *g], [base.y, *bg])}
+        print(f"phase 7 layer check ({tag}, 1 x 1 mesh against no mesh, 8 x "
+              f"1024 tokens, cap {C_TRAIN}): ids equal {ids}; bitwise "
+              f"{json.dumps(bits)}; y max abs err {y_err:.3e}; norm-wise rel "
+              f"err " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+              + f" (limit {EP_GRAD_REL})", flush=True)
+        if not ids or any(not v <= EP_GRAD_REL for v in rel.values()):
+            raise AssertionError(f"phase 7 layer check ({tag}) disagrees "
+                                 f"with the single-rank layer: {rel}")
+
+
+def nccl_split(prof):
+    """(device ms of NCCL kernels, their names and counts, memcpy ms) of a
+    profile."""
+    import torch
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = [e for e in kern if "nccl" in e.key.lower()]
+    copies = [e for e in kern if "memcpy" in e.key.lower()]
+    ms = sum(e.self_device_time_total for e in nccl) / 1e3
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    return ms, {e.key[:60]: e.count for e in nccl}, \
+        sum(e.self_device_time_total for e in copies) / 1e3, busy
+
+
+def ordering(prof, mesh, microbatches: int) -> str:
+    """Each all-reduce of the profiled step after the last backward
+    all-to-all before it ended: by NCCL kernels where NCCL launched both
+    kinds, else by the events the mesh recorded on the compute stream
+    (an all-to-all's after its wait, a reduction's before its first
+    chunk is issued)."""
+    import torch
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "nccl" in e.name.lower()]
+    red = [k for k in kernels if "allreduce" in k.name.lower()]
+    a2a = [k for k in kernels if k not in red]
+    if red and a2a and microbatches == 1:
+        first = min(k.time_range.start for k in red)
+        last = max(k.time_range.end for k in a2a)
+        if first < last:
+            raise AssertionError(f"an all-reduce kernel started {last - first}"
+                                 f" us before the last all-to-all ended")
+        return (f"by NCCL kernels: first all-reduce starts "
+                f"{first - last:.1f} us after the last all-to-all ends "
+                f"({len(a2a)} all-to-all, {len(red)} all-reduce kernels)")
+    tl = mesh.timeline
+    t0 = tl[0][1]
+    times = [(kind, t0.elapsed_time(ev)) for kind, ev in tl]
+    gaps = []
+    for i, (kind, t) in enumerate(times):
+        if kind != "reduce":
+            continue
+        before = [u for k, u in times[:i] if k == "a2a"]
+        if not before:
+            raise AssertionError("a reduction issued before any all-to-all")
+        gaps.append(t - max(before))
+    if not gaps or min(gaps) < 0:
+        raise AssertionError(f"a reduction issued before the all-to-all it "
+                             f"must follow: gaps {gaps}")
+    return (f"by events (NCCL launched {len(a2a)} all-to-all and "
+            f"{len(red)} all-reduce kernels): {len(gaps)} reductions, each "
+            f"issued {min(gaps) * 1e3:.1f}-{max(gaps) * 1e3:.1f} us after "
+            f"the last all-to-all before it completed, "
+            f"{sum(k == 'a2a' for k, _ in times)} all-to-all events")
+
+
+def phase7_run(dev, mesh, tag, argv, n_layers=None, run=False, steps=None):
+    """One training run from the driver's flags (``n_layers`` cuts the
+    depth): with ``run`` through ``Trainer.run`` (checkpoint included),
+    else its step function driven from the seeded state for ``steps``
+    (default the flags' ``--steps``, which also set the LR schedule; no
+    checkpoint); then one more step under the profiler.
+    Prints and returns the steps' losses, the step median (steps after
+    the first), busy and NCCL device time and the ordering check."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train
+    from repro_torch.runtime.trainer import Trainer
+    ck = tempfile.mkdtemp(prefix="repro_torch_ep_")
+    try:
+        args = train.parse_args(argv + ["--ckpt-dir", ck, "--device",
+                                        str(dev)])
+        cfg, dcfg, ocfg, tcfg = train.configs(args)
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        tr = Trainer(cfg, dcfg, ocfg, tcfg,
+                     mesh=mesh if args.mesh else None)
+
+        def step(state, i):
+            extra = (state["reduce_state"],) if tr.stateful_reduce else ()
+            out = tr.step_fn(state["params"], state["opt_state"],
+                             tr._batch(i), *extra)
+            loss = float(out[2]["loss"])                     # waits
+            new = {"params": out[0], "opt_state": out[1]}
+            if tr.stateful_reduce:
+                new["reduce_state"] = out[3]
+            return new, loss
+
+        if run:
+            state = tr.run()
+            losses = [r["loss"] for r in tr.metrics_log]
+            dts = [r["dt"] for r in tr.metrics_log]
+        else:
+            state, losses, dts = tr.init_state(), [], []
+            for i in range(steps or tcfg.steps):
+                t0 = time.perf_counter()
+                state, loss = step(state, i)
+                dts.append(time.perf_counter() - t0)
+                losses.append(loss)
+        torch.cuda.synchronize(dev)
+        if len(losses) != (steps or tcfg.steps) or \
+                not all(np.isfinite(losses)) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"phase 7 {tag}: {losses}")
+        row = {"tag": tag, "losses": losses,
+               "median": float(np.median(dts[1:]))}
+        if tr.mesh is not None:
+            tr.mesh.timeline = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, len(losses))
+            pwall = time.perf_counter() - t0
+        nccl_ms, names, copy_ms, busy = nccl_split(prof)
+        row.update(nccl_ms=nccl_ms, busy=busy)
+        msg = ""
+        if tr.mesh is not None:
+            msg = "; ordering " + ordering(prof, tr.mesh, tcfg.microbatches)
+            tr.mesh.timeline = None
+        print(f"phase 7 {tag}: step median {row['median']:.4f} s (steps "
+              f"1-{len(dts) - 1}; min {min(dts[1:]):.4f}, max "
+              f"{max(dts[1:]):.4f}); profiled step wall {pwall * 1e3:.1f} "
+              f"ms, busy {busy:.3f} ms, NCCL kernels {nccl_ms:.3f} ms "
+              f"{json.dumps(names)}, memcpy {copy_ms:.3f} ms{msg}; losses "
+              f"(float.hex) " + " ".join(float(v).hex() for v in losses),
+              flush=True)
+        return row
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+
+
+def phase7(dev) -> dict:
+    """Expert parallelism and the §4 schedule on a one-rank NCCL mesh:
+    the communicators' priorities, the layer check, the five schedules
+    and two compressions at full width and depth 2 (4 steps each, beside
+    the same steps without a mesh), at depth 12 the 1 x 1 mesh with 4
+    micro-ops beside phase 3 (one microbatch) and 2 microbatches without
+    a mesh, then 12 steps of priority+partition+pipeline with 2
+    microbatches through ``Trainer.run``, counters zeroed just before and
+    read just after (every training kernel must launch); the mesh's steps
+    held bitwise to the single-rank ones."""
+    import gc
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import COUNTERS, reset_counters
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = phase7_mesh(dev)
+    phase7_layer(dev, mesh)
+    base = ["--arch", "gpt2-moe", "--steps", "4", "--batch", "8", "--seq",
+            "1024", "--ckpt-every", "100"]
+    ep = ["--mesh", "1x1", "--n-microops", "4"]
+    none = phase7_run(dev, mesh, "depth 2, no mesh", base, n_layers=2)
+    rows = [phase7_run(dev, mesh, f"depth 2, {s}", base + ep + [
+        "--schedule", s], n_layers=2) for s in EP_SCHEDULES]
+    for comp in ("bf16", "int8_ef"):
+        rows.append(phase7_run(dev, mesh, f"depth 2, priority+partition, "
+                               f"{comp}", base + ep + [
+                                   "--schedule", "priority+partition",
+                                   "--grad-compression", comp], n_layers=2))
+    same = {tuple(r["losses"]) for r in rows[:len(EP_SCHEDULES)]}
+    gap = max(abs(a - b) for r in rows for a, b in zip(r["losses"],
+                                                       none["losses"]))
+    print(f"phase 7 depth 2: step median without a mesh {none['median']:.4f}"
+          f" s; on the 1 x 1 mesh with 4 micro-ops "
+          + ", ".join(f"{r['tag'][9:]} {r['median']:.4f}" for r in rows)
+          + f" s; the five schedules' losses bitwise equal {len(same) == 1};"
+          f" largest loss gap to the steps without a mesh {gap:.3e}",
+          flush=True)
+    if len(same) != 1:
+        raise AssertionError("the schedules reduce over one rank: their "
+                             "losses must be bitwise equal")
+    # 5 of the 12 steps phase 3 runs (the same LR schedule)
+    mesh1 = phase7_run(dev, mesh, "depth 12, 1 x 1 mesh, implicit",
+                       TRAIN_ARGV[:] + ep, steps=5)
+    mb2 = phase7_run(dev, mesh, "depth 12, no mesh, 2 microbatches",
+                     TRAIN_ARGV[:] + ["--microbatches", "2"], steps=5)
+    reset_counters()
+    full = phase7_run(dev, mesh, "depth 12, priority+partition+pipeline, 2 "
+                      "microbatches", TRAIN_ARGV[:] + ep + [
+                          "--schedule", "priority+partition+pipeline",
+                          "--microbatches", "2"], run=True)
+    launches = {n: c.count for n, c in COUNTERS.items()}
+    print("phase 7 launches: " + json.dumps(launches), flush=True)
+    missing = [n for n, c in launches.items()
+               if c == 0 and n not in SERVE_ONLY | RECURRENT]
+    if missing:
+        raise AssertionError(f"kernels never launched in phase 7: {missing}")
+    print(f"phase 7 depth 12: step median on the 1 x 1 mesh with 4 "
+          f"micro-ops (implicit reduction, 1 microbatch) "
+          f"{mesh1['median']:.4f} s, busy {mesh1['busy']:.3f} ms; "
+          f"priority+partition+pipeline with 2 microbatches "
+          f"{full['median']:.4f} s, busy {full['busy']:.3f} ms, NCCL "
+          f"{full['nccl_ms']:.3f} ms, against 2 microbatches without a mesh "
+          f"{mb2['median']:.4f} s, busy {mb2['busy']:.3f} ms", flush=True)
+    # at world size 1 the exchanges copy and the all-reduce adds nothing:
+    # the mesh's steps must be the single-rank steps bit for bit
+    same_mb2 = full["losses"][:5] == mb2["losses"]
+    same_mb1 = PHASE3.get("losses", [])[:5] == mesh1["losses"]
+    print(f"phase 7 depth 12: losses bitwise the single-rank steps' (first "
+          f"5): 2 microbatches {same_mb2}; 1 microbatch against phase 3 "
+          f"{same_mb1 if PHASE3 else 'not run'}", flush=True)
+    if not same_mb2 or PHASE3 and not same_mb1:
+        raise AssertionError("the 1 x 1 mesh's training steps differ from "
+                             "the single-rank steps")
+    if PHASE3:
+        gaps = [abs(a - b) for a, b in zip(full["losses"], PHASE3["losses"])]
+        i = int(np.argmax(gaps))
+        print(f"phase 7 depth 12 against phase 3 (no mesh, 1 microbatch: "
+              f"step median {PHASE3['median']:.4f} s, busy "
+              f"{PHASE3['busy']:.3f} ms): the mesh's step "
+              f"{mesh1['median'] / PHASE3['median']:.3f}x, busy "
+              f"{mesh1['busy'] / PHASE3['busy']:.3f}x; loss gap of the "
+              f"2-microbatch run to phase 3 largest {gaps[i]:.3e} (step {i}:"
+              f" {full['losses'][i]:.6f} against {PHASE3['losses'][i]:.6f}),"
+              f" at the end {gaps[-1]:.3e}", flush=True)
+    dist.destroy_process_group()
+    print(f"phase 7: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return launches
+
+
+PHASES = ("1", "2", "3", "4", "5", "6", "7")
 # phase 3's profile: a part of a CUDA kernel's name -> its wrapper
 WATCH_TRAIN = {"gmm_": "grouped_matmul", "gating_kernel": "topk_gating_fused",
                "positions_kernel": "topk_positions",
@@ -2632,7 +2968,7 @@ def main(argv=None) -> int:
                                  "phase, as the module docstring says.")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of the phases to run after phase 0 "
-                    "(1-6; 1r: phase 1's two recurrences alone; 1m: its "
+                    "(1-7; 1r: phase 1's two recurrences alone; 1m: its "
                     "five MoE routing kernels alone); the "
                     "kernels line is printed only when all run")
     ap.add_argument("--src", default=str(SRC),
@@ -2708,6 +3044,7 @@ def main(argv=None) -> int:
         if "5" in phases else None
     zamba = phase_recurrent(dev, "zamba2-1.2b", "phase 6") \
         if "6" in phases else None
+    ep_train = phase7(dev) if "7" in phases else None
 
     print(smi, flush=True)
     if sorted(phases) == list(PHASES):
@@ -2716,7 +3053,7 @@ def main(argv=None) -> int:
             r = rows[name]
             paths = {"serve": serve[name], "train": train_launches[name],
                      "mixtral": mixtral[name], "rwkv": rwkv[name],
-                     "zamba": zamba[name]}
+                     "zamba": zamba[name], "ep_train": ep_train[name]}
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": sum(paths.values()),

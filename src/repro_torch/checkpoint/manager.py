@@ -6,7 +6,11 @@
   * checksummed: the manifest records a CRC32 per array, verified on load,
     so a torn or bit-rotted write is detected (``CorruptCheckpointError``);
     ``restore_latest`` falls back to the newest step that verifies;
-  * keep-last-k garbage collection and latest-step discovery.
+  * keep-last-k garbage collection and latest-step discovery;
+  * resettable subtrees: leaves under a ``reset_ok`` prefix (the trainer's
+    per-rank int8 residuals, saved as a ``[world, ...]`` stack) that are
+    missing or shaped for another world size restore as zeros, and the
+    manager lists them in ``last_reset``.
 
 Leaves go to host numpy in their logical layout, one ``.npy`` file each
 (one leaf in host memory at a time; the reference packs them into one
@@ -83,11 +87,14 @@ def save_pytree(tree, directory: str) -> int:
     return n_bytes
 
 
-def load_pytree(directory: str, like, verify: bool = True):
+def load_pytree(directory: str, like, verify: bool = True,
+                reset_ok: tuple = (), reset: list | None = None):
     """Restore into the structure of ``like``, each leaf on the device of
     ``like``'s leaf.  With ``verify`` every array's CRC32 is checked
     against the manifest; a mismatch, a missing or unreadable array raises
-    ``CorruptCheckpointError``."""
+    ``CorruptCheckpointError``.  A leaf whose path starts with a prefix in
+    ``reset_ok`` and that the checkpoint lacks or holds in another shape
+    comes back as zeros, its path appended to ``reset``."""
     try:
         with open(os.path.join(directory, "manifest.json")) as f:
             manifest = {m["key"]: m for m in json.load(f)}
@@ -96,6 +103,12 @@ def load_pytree(directory: str, like, verify: bool = True):
     leaves = []
     for key, leaf in tree_items(like):
         m = manifest.get(key)
+        if any(key.startswith(p) for p in reset_ok) and (
+                m is None or tuple(m["shape"]) != tuple(leaf.shape)):
+            leaves.append(torch.zeros_like(leaf))
+            if reset is not None:
+                reset.append(key)
+            continue
         if m is None:
             raise KeyError(f"checkpoint missing leaf {key!r}")
         try:
@@ -119,6 +132,7 @@ class CheckpointManager:
         self.keep = keep
         self.corrupt_steps: list = []   # steps restore_latest skipped
         self.last_save_bytes = 0
+        self.last_reset: list = []      # leaves the last restore zeroed
         os.makedirs(root, exist_ok=True)
 
     def _dir(self, step: int) -> str:
@@ -142,16 +156,19 @@ class CheckpointManager:
         for old in self.steps()[: -self.keep]:
             shutil.rmtree(self._dir(old), ignore_errors=True)
 
-    def restore(self, step: int, like: Any, verify: bool = True):
-        return load_pytree(self._dir(step), like, verify=verify)
+    def restore(self, step: int, like: Any, verify: bool = True,
+                reset_ok: tuple = ()):
+        self.last_reset = []
+        return load_pytree(self._dir(step), like, verify=verify,
+                           reset_ok=reset_ok, reset=self.last_reset)
 
-    def restore_latest(self, like: Any):
+    def restore_latest(self, like: Any, reset_ok: tuple = ()):
         """Restore the newest step that verifies, walking past corrupted
         checkpoints (recorded in ``corrupt_steps``).  Returns (None, None)
         when nothing loads."""
         for s in reversed(self.steps()):
             try:
-                return s, self.restore(s, like)
+                return s, self.restore(s, like, reset_ok=reset_ok)
             except CorruptCheckpointError:
                 self.corrupt_steps.append(s)
         return None, None

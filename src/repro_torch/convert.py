@@ -9,13 +9,20 @@ goes back: the port's params (or decode cache) into a numpy tree of the
 structure of a reference tree the caller passes, so two trained models can
 be compared leaf by leaf.  Both read fields by name and import
 nothing of the reference.
+
+``shard_params`` cuts a full tree (params, or an ``OptState``'s moments)
+down to one rank's part of an expert-parallel mesh, and
+``unshard_params`` gathers it back over the mesh's groups (the
+checkpoint's inverse).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.moe import MoEParams
+from repro_torch.core import axes
+from repro_torch.core.moe import EXPERT_FIELDS, MoEParams, all_gather_rows
 from repro_torch.devices import resolve_device
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.lm import (FFNParams, GroupParams, HybridParams,
@@ -93,3 +100,74 @@ def to_reference(params, like):
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def _map_experts(tree, fn):
+    """``tree`` with each expert leaf w of a ``MoEParams`` replaced by
+    fn(field name, w); other leaves kept."""
+    if isinstance(tree, MoEParams):
+        return MoEParams(*(fn(f, w) if f in EXPERT_FIELDS and w is not None
+                           else w for f, w in zip(tree._fields, tree)))
+    if isinstance(tree, dict):
+        return {k: _map_experts(tree[k], fn) for k in sorted(tree)}
+    if isinstance(tree, tuple):
+        parts = [_map_experts(t, fn) for t in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") \
+            else tuple(parts)
+    return tree
+
+
+def _hidden_dim(field: str, w) -> int:
+    # wi / wu [.., E, d, f], wo [.., E, f, d]
+    return w.dim() - (2 if field == "wo" else 1)
+
+
+def shard_params(params, mesh, fsdp: bool = False):
+    """This rank's part of a full tree: expert leaves cut to its E / ep
+    experts (the `model` index picks them) and, with ``fsdp``, to 1 / dp
+    of their hidden dim (the `data` index); every other leaf whole."""
+    if mesh is None:
+        return params
+    ep, m = mesh.size(axes.EP_AXIS), mesh.index(axes.EP_AXIS)
+    dp, d = mesh.size(axes.DATA), mesh.index(axes.DATA)
+
+    def cut(field, w):
+        e_dim = w.dim() - 3
+        if w.shape[e_dim] % ep:
+            raise ValueError(f"{w.shape[e_dim]} experts do not split over "
+                             f"ep {ep}")
+        w = w.chunk(ep, dim=e_dim)[m]
+        if fsdp:
+            h = _hidden_dim(field, w)
+            if w.shape[h] % dp:
+                raise ValueError(f"hidden dim {w.shape[h]} does not split "
+                                 f"over dp {dp}")
+            w = w.chunk(dp, dim=h)[d]
+        # a copy of its own, so that the full tree can be freed (a slice
+        # that happens to be contiguous would keep it alive)
+        return w.clone(memory_format=torch.contiguous_format)
+    if ep == 1 and not fsdp:
+        return params
+    return _map_experts(params, cut)
+
+
+def _gather(w, group, dim):
+    n = dist.get_world_size(group)
+    wm = w.movedim(dim, 0).contiguous()
+    out = wm.new_empty((n * wm.shape[0], *wm.shape[1:]))
+    all_gather_rows(out, wm, group)
+    return out.movedim(0, dim).contiguous()
+
+
+def unshard_params(params, mesh, fsdp: bool = False):
+    """The inverse of ``shard_params``: expert leaves gathered over the
+    mesh's `model` group (and the data-parallel group with ``fsdp``).
+    Every rank of the mesh calls it."""
+    if mesh is None:
+        return params
+
+    def full(field, w):
+        if fsdp:
+            w = _gather(w, mesh.dp_group, _hidden_dim(field, w))
+        return _gather(w, mesh.group(axes.EP_AXIS), w.dim() - 3)
+    return _map_experts(params, full)

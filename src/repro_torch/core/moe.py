@@ -1,13 +1,19 @@
-"""The MoE layer on one rank: gating -> dispatch -> grouped expert FFN ->
-combine (paper Fig. 1), in PyTorch.
+"""The MoE layer: gating -> dispatch -> (a2a micro-ops pipelined with the
+grouped expert FFN) -> combine (paper Fig. 1), in PyTorch; the reference's
+``_moe_shard_body`` / ``moe_layer`` (``src/repro/core/moe.py``) on one
+rank's token shard.
 
-This slice runs expert parallelism of 1: the all-to-all exchanges of the
-reference's ``shard_map`` body are the identity and the Lina micro-op
-pipeline (``core/microop``) is not ported yet, so ``moe_layer`` is the
-reference's ``lina=False`` layer.  It is differentiable on both routes:
-the kernel route's ops are ``torch.autograd.Function``s whose backward
-launches kernels too (``kernels.ops``), so ``loss.backward()`` reaches the
-router and the expert weights.
+With a ``mesh`` (``launch.mesh``) the experts are sharded over its `model`
+group (each rank holds E / ep of them) and the layer runs Lina's schedule
+(``core.microop``): the capacity buffers go to the experts' owners in
+``cfg.n_microops`` uniform all-to-all micro-ops, chunk k's FFN runs while
+chunk k+1 is in flight, and the results come back the same way.  Without
+a mesh it is the single-rank layer: no exchange exists to partition, so
+the buffers go to the FFN kernel in one piece with the kept counts (the
+reference chunks even on its one-device default mesh).  It is
+differentiable on both routes: the kernel route's ops are
+``torch.autograd.Function``s whose backward launches kernels too
+(``kernels.ops``), and the exchanges' backward is the inverse exchange.
 """
 from __future__ import annotations
 
@@ -16,11 +22,16 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+import torch.distributed as dist
+
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core import axes
 from repro_torch.core import dispatch as D
+from repro_torch.core import microop
 from repro_torch.core.gating import (capacity, kept_counts,
                                      router_top_k_gating)
-from repro_torch.kernels.ops import grouped_ffn_op, resolve_backend
+from repro_torch.kernels.ops import (grouped_ffn_grads, grouped_ffn_op,
+                                     resolve_backend, vjp)
 from repro_torch.kernels.ref import gelu
 
 
@@ -31,11 +42,88 @@ class MoEParams(NamedTuple):
     wo: torch.Tensor                # [E, f, d]
 
 
+EXPERT_FIELDS = ("wi", "wu", "wo")      # MoEParams leaves sharded over ep
+
+
 class MoEOutput(NamedTuple):
     y: torch.Tensor                 # [B, S, d]
     aux_loss: torch.Tensor          # scalar
     expert_idx: torch.Tensor        # [T, k] — for popularity profiling
     router_probs: torch.Tensor      # [T, E]
+    # the reference's a2a_token has no counterpart here: the mesh records
+    # its newest all-to-all as a CUDA event (``Mesh.a2a_event``)
+
+
+def expert_leaf_flags(tree) -> list:
+    """One bool per leaf of ``tree`` (``tree_leaves`` order): whether it is
+    an expert weight (``wi``, ``wu``, ``wo`` of a ``MoEParams``), sharded
+    over the `model` group.  The router and every other leaf are
+    replicated."""
+    if tree is None:
+        return []
+    if isinstance(tree, MoEParams):
+        return [f in EXPERT_FIELDS for f in tree._fields
+                if getattr(tree, f) is not None]
+    if isinstance(tree, dict):
+        return [b for k in sorted(tree) for b in expert_leaf_flags(tree[k])]
+    if isinstance(tree, tuple):
+        return [b for sub in tree for b in expert_leaf_flags(sub)]
+    return [False]
+
+
+def all_gather_rows(out, x, group):
+    """``out`` [n * x0, ...] = the group's ``x`` [x0, ...] in rank order
+    (``all_gather_single``, named ``all_gather_into_tensor`` before)."""
+    fn = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    fn(out, x, group=group)
+
+
+def reduce_scatter_rows(out, x, group):
+    """``out`` [x0 / n, ...] = this rank's block of the group's summed
+    ``x`` (``reduce_scatter_single``, ``reduce_scatter_tensor`` before)."""
+    fn = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    fn(out, x, group=group)
+
+
+class _GatherHidden(torch.autograd.Function):
+    """All-gather of an expert weight's hidden-dim shards over the
+    data-parallel group (FSDP for experts); the backward is the
+    reduce-scatter of the gradient (summed over the group)."""
+
+    @staticmethod
+    def forward(ctx, w, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = dist.get_world_size(group)
+        wm = w.movedim(dim, 0).contiguous()
+        out = wm.new_empty((n * wm.shape[0], *wm.shape[1:]))
+        all_gather_rows(out, wm, group)
+        return out.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        gm = g.movedim(ctx.dim, 0).contiguous()
+        out = gm.new_empty((gm.shape[0] // n, *gm.shape[1:]))
+        reduce_scatter_rows(out, gm, ctx.group)
+        return out.movedim(0, ctx.dim).contiguous(), None, None
+
+
+def gather_hidden(w, mesh, dim: int):
+    """``w``'s hidden-dim shards (dim ``dim``) gathered over the mesh's
+    data-parallel group."""
+    return _GatherHidden.apply(w, mesh.dp_group, dim)
+
+
+def world_mean_value(v: torch.Tensor, mesh) -> torch.Tensor:
+    """``v`` with the value of its mean over every rank of ``mesh`` and
+    the gradient of ``v`` itself: each rank's loss then carries the global
+    mean's value, and averaging the ranks' gradients (``optim.reduce``)
+    gives the gradient of that mean."""
+    m = v.detach().clone()
+    dist.all_reduce(m)
+    return v + (m / mesh.world - v.detach())
 
 
 def expert_ffn(wi, wu, wo, x, ffn_type: str = "swiglu",
@@ -59,24 +147,169 @@ def expert_ffn(wi, wu, wo, x, ffn_type: str = "swiglu",
     return torch.einsum("enf,efd->end", h, wo)
 
 
+class _Plan:
+    """What ``_ExpertParallel`` needs besides tensors."""
+
+    def __init__(self, mesh, n_experts, n_chunks, pipeline, ffn_type,
+                 backend, counts, shadow):
+        self.mesh, self.e, self.n_chunks = mesh, n_experts, n_chunks
+        self.pipeline, self.ffn_type, self.backend = pipeline, ffn_type, \
+            backend
+        self.counts, self.shadow, self.side = counts, shadow, None
+        self.ep = mesh.size(axes.EP_AXIS)
+
+    def to_rows(self, recv):
+        """[ep * E_local, c, d] received -> the FFN's [E_local, ep * c, d]
+        (rows ordered by source rank, then capacity)."""
+        c, d = recv.shape[1], recv.shape[2]
+        rs = recv.reshape(self.ep, self.e // self.ep, c, d).transpose(0, 1)
+        return rs.reshape(self.e // self.ep, self.ep * c, d)
+
+    def from_rows(self, rows, c):
+        d = rows.shape[2]
+        out = rows.reshape(self.e // self.ep, self.ep, c, d).transpose(0, 1)
+        return out.reshape(self.e, c, d)
+
+
+class _ExpertParallel(torch.autograd.Function):
+    """The layer's expert-parallel section as one autograd node: dispatch
+    all-to-all micro-ops, the experts' FFN on each landed chunk, return
+    all-to-all micro-ops.
+
+    The forward is Lina's pipeline (``microop.pipelined_expert_ffn``).  The
+    backward exchanges dy in the same micro-ops, runs the FFN's backward
+    once on the whole received buffer (the chunks' rows side by side) and
+    sends dx back in micro-ops: each expert weight's gradient is one fp32
+    sum over every row, rounded once to the weight's dtype, as without a
+    mesh (autograd over the chunks would round each chunk's part to the
+    bf16 compute dtype and add them there).  At ep 1 the whole buffer is
+    the single-rank layer's, so its gradients are bitwise that layer's.
+    The ScMoE shortcut (``plan.shadow``) runs, with autograd, while the
+    first dispatch is in flight; its output comes back in ``plan.side``."""
+
+    @staticmethod
+    def forward(ctx, buf, wi, wu, wo, plan):
+        rows = []
+
+        def ffn(recv, start):
+            rs = plan.to_rows(recv)
+            c = recv.shape[1]
+            gr = None if plan.counts is None else \
+                torch.clamp(plan.counts - start, 0, c).to(torch.int32)
+            rows.append(rs)
+            out = expert_ffn(wi, wu, wo, rs, plan.ffn_type, plan.backend,
+                             group_rows=gr)
+            return plan.from_rows(out, c)
+
+        def shadow():
+            with torch.enable_grad():
+                return plan.shadow()
+
+        out, plan.side = microop.pipelined_expert_ffn(
+            buf, ffn, plan.mesh, plan.n_chunks, plan.e,
+            pipeline=plan.pipeline,
+            shadow=shadow if plan.shadow is not None else None)
+        ctx.plan, ctx.n = plan, len(rows)
+        ctx.save_for_backward(torch.cat(rows, 1) if len(rows) > 1
+                              else rows[0], wi, wu, wo)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x_rows, wi, wu, wo = ctx.saved_tensors
+        plan, mesh = ctx.plan, ctx.plan.mesh
+        c = dy.shape[1] // ctx.n
+        # the return exchange's adjoint is the same exchange of dy
+        recv = [microop.all_to_all_ec(p, mesh, async_op=True)
+                for p in torch.split(dy, c, dim=1)]
+        d_rows = torch.cat([plan.to_rows(r.wait()) for r in recv], 1)
+        if plan.backend == "pallas":
+            dx, dwi, dwu, dwo = grouped_ffn_grads(x_rows, wi, wu, wo,
+                                                  plan.ffn_type, d_rows)
+        else:
+            prim = (x_rows, wi, wo) if wu is None else (x_rows, wi, wo, wu)
+            grads = vjp(lambda x, a, o, u=None: expert_ffn(
+                a, u, o, x, plan.ffn_type), prim, d_rows)
+            dx, dwi, dwo = grads[:3]
+            dwu = grads[3] if wu is not None else None
+        back = [microop.all_to_all_ec_inverse(
+            plan.from_rows(part, c), mesh, plan.e, async_op=True)
+            for part in torch.split(dx, plan.ep * c, dim=1)]
+        dbuf = torch.cat([b.wait() for b in back], 1)
+        return dbuf, dwi, dwu, dwo, None
+
+
+def dense_ffn(x, w_in, w_up, w_out, ffn_type: str):
+    """The ScMoE shortcut's dense branch on [T, d] tokens."""
+    h = x @ w_in
+    h = F.silu(h) * (x @ w_up) if ffn_type == "swiglu" else gelu(h)
+    return h @ w_out
+
+
 def moe_layer(x, params: MoEParams, cfg: MoEConfig, *,
               ffn_type: str = "swiglu", dispatch_backend: str = "scatter",
-              top_k: int | None = None) -> MoEOutput:
-    """x: [B, S, d] on one rank -> MoEOutput."""
+              top_k: int | None = None, mesh=None, lina: bool = True,
+              fsdp: bool = False, shortcut_params=None) -> MoEOutput:
+    """x: [B, S, d], this rank's tokens -> MoEOutput on them.
+
+    ``params`` hold this rank's experts: E / ep of them (``wi``, ``wu``,
+    ``wo`` with leading dim E_local; ``convert.shard_params``), with
+    ``fsdp`` also 1 / dp of their hidden dim, gathered here per layer over
+    the data-parallel group (its backward a reduce-scatter).  The capacity
+    comes from the local token count, as the reference's.  ``lina`` splits
+    the exchange into ``cfg.n_microops`` micro-ops and, with
+    ``cfg.pipeline_ffn``, pipelines them with the FFN; ``lina=False`` is
+    one all-to-all, the whole FFN, one all-to-all.  ``shortcut_params``
+    (``w_in``, ``w_up``, ``w_out``: the ScMoE dense branch) runs on the
+    local tokens while the first dispatch all-to-all is in flight and is
+    summed into the combine.  With a mesh the aux loss has the value of
+    its mean over every rank (each holds its own tokens), the reference's
+    ``pmean``, and this rank's own gradient (``world_mean_value``)."""
     b, s, d_model = x.shape
     x2 = x.reshape(b * s, d_model)
     e = cfg.n_experts
     k = top_k or cfg.top_k
     cap = capacity(b * s, e, k, cfg.capacity_factor)
     backend = resolve_backend(cfg.compute_backend)
+    wi, wu, wo = params.wi, params.wu, params.wo
+    if fsdp:
+        if mesh is None:
+            raise ValueError("fsdp shards the experts over a mesh's "
+                             "data-parallel group: pass mesh=")
+        wi = gather_hidden(wi, mesh, 2)
+        wu = gather_hidden(wu, mesh, 2) if wu is not None else None
+        wo = gather_hidden(wo, mesh, 1)
     g = router_top_k_gating(x2, params.router, k, cap, cfg.aux_loss_weight,
                             compute_backend=backend)
     disp, comb = D.get_backend(dispatch_backend)
     buf = disp(x2, g, e, cap)                                   # [E, C, d]
-    # the kernel skips each expert's buffer rows past its kept count
-    rows = kept_counts(g, e) if backend == "pallas" else None
-    out_buf = expert_ffn(params.wi, params.wu, params.wo, buf, ffn_type,
-                         backend, group_rows=rows)
+
+    def shortcut():
+        return dense_ffn(x2, *shortcut_params, ffn_type)
+
+    sc_out = None
+    aux = g.aux_loss
+    if mesh is None:
+        # the kernel skips each expert's buffer rows past its kept count
+        rows = kept_counts(g, e) if backend == "pallas" else None
+        out_buf = expert_ffn(wi, wu, wo, buf, ffn_type, backend,
+                             group_rows=rows)
+        if shortcut_params is not None:
+            sc_out = shortcut()
+    else:
+        # at ep 1 a chunk's rows are this rank's own: the kept counts say
+        # which hold tokens.  At ep > 1 rows past a count are zeros, which
+        # a bias-free FFN maps to zeros.
+        counts = kept_counts(g, e) \
+            if backend == "pallas" and mesh.size(axes.EP_AXIS) == 1 else None
+        plan = _Plan(mesh, e, cfg.n_microops if lina else 1,
+                     lina and cfg.pipeline_ffn, ffn_type, backend, counts,
+                     shortcut if shortcut_params is not None else None)
+        out_buf = _ExpertParallel.apply(buf, wi, wu, wo, plan)
+        sc_out = plan.side
+        aux = world_mean_value(aux, mesh)
     y = comb(out_buf, g, e, cap)
-    return MoEOutput(y.reshape(b, s, d_model), g.aux_loss, g.expert_idx,
+    if sc_out is not None:
+        y = y + sc_out                    # summed into the combine (ScMoE)
+    return MoEOutput(y.reshape(b, s, d_model), aux, g.expert_idx,
                      g.router_probs)

@@ -74,7 +74,7 @@ def kernel_route(cfg) -> bool:
     return resolve_backend(cfg.moe.compute_backend) == "pallas"
 
 
-def _vjp(fn, primals, cotangent):
+def vjp(fn, primals, cotangent):
     """Gradients of ``fn(*primals)`` against ``cotangent`` (plain autograd
     on detached copies, as ``jax.vjp`` of the formula)."""
     with torch.enable_grad():
@@ -98,29 +98,37 @@ class _GroupedFFN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, wi, wu, wo = ctx.saved_tensors
-        dy = dy.float()
-        xt = x.transpose(1, 2)                            # [E, D, T]
-        h = grouped_matmul(x, wi)                         # recompute [E, T, F]
-        if ctx.ffn_type == "swiglu":
-            u = grouped_matmul(x, wu)
-            act = torch.nn.functional.silu(h) * u
-        else:
-            act = ref.gelu(h)
-        da = grouped_matmul(dy, wo.transpose(1, 2))       # [E, T, F]
-        dwo = grouped_matmul(act.transpose(1, 2), dy)     # [E, F, D]
-        if ctx.ffn_type == "swiglu":
-            dh, du = _vjp(lambda a, b: torch.nn.functional.silu(a) * b,
-                          (h, u), da)
-            dx = grouped_matmul(dh, wi.transpose(1, 2)) \
-                + grouped_matmul(du, wu.transpose(1, 2))
-            dwu = grouped_matmul(xt, du).to(wu.dtype)
-        else:
-            (dh,) = _vjp(ref.gelu, (h,), da)
-            dx = grouped_matmul(dh, wi.transpose(1, 2))
-            dwu = None
-        dwi = grouped_matmul(xt, dh)
-        return (dx.to(x.dtype), dwi.to(wi.dtype), dwu, dwo.to(wo.dtype),
+        return (*grouped_ffn_grads(x, wi, wu, wo, ctx.ffn_type, dy),
                 None, None)
+
+
+def grouped_ffn_grads(x, wi, wu, wo, ffn_type: str, dy):
+    """(dx, dwi, dwu or None, dwo) of the grouped FFN at x [E, T, D] for
+    the cotangent dy [E, T, D]: h (and u) recomputed on the full buffers,
+    every dgrad / wgrad by ``grouped_matmul`` in fp32, each gradient
+    rounded once to its operand's dtype."""
+    dy = dy.float()
+    xt = x.transpose(1, 2)                            # [E, D, T]
+    h = grouped_matmul(x, wi)                         # recompute [E, T, F]
+    if ffn_type == "swiglu":
+        u = grouped_matmul(x, wu)
+        act = torch.nn.functional.silu(h) * u
+    else:
+        act = ref.gelu(h)
+    da = grouped_matmul(dy, wo.transpose(1, 2))       # [E, T, F]
+    dwo = grouped_matmul(act.transpose(1, 2), dy)     # [E, F, D]
+    if ffn_type == "swiglu":
+        dh, du = vjp(lambda a, b: torch.nn.functional.silu(a) * b,
+                      (h, u), da)
+        dx = grouped_matmul(dh, wi.transpose(1, 2)) \
+            + grouped_matmul(du, wu.transpose(1, 2))
+        dwu = grouped_matmul(xt, du).to(wu.dtype)
+    else:
+        (dh,) = vjp(ref.gelu, (h,), da)
+        dx = grouped_matmul(dh, wi.transpose(1, 2))
+        dwu = None
+    dwi = grouped_matmul(xt, dh)
+    return dx.to(x.dtype), dwi.to(wi.dtype), dwu, dwo.to(wo.dtype)
 
 
 def grouped_ffn_op(x, wi, wu, wo, ffn_type: str = "swiglu", *,
@@ -164,7 +172,7 @@ class _TopkGating(torch.autograd.Function):
         # w / probs backprop through the plain formulation, as the
         # reference's oracle VJP: the same math as the plain route
         x, router = ctx.saved_tensors
-        dx, drouter = _vjp(
+        dx, drouter = vjp(
             lambda x_, r_: ref.ref_topk_gating(x_ @ r_, ctx.k)[1:],
             (x, router), (dw, dprobs))
         return dx, drouter, None

@@ -1,0 +1,211 @@
+"""Process-group meshes: the port's counterpart of the reference's
+``jax.make_mesh`` (``src/repro/launch/mesh.py``).
+
+A ``Mesh`` is one rank's view of a ``(data, model)`` grid of ranks: its
+coordinates, a process group per axis and the world group.  Ranks are laid
+out row-major, rank = d * ep + m, as ``jax.make_mesh`` orders devices.
+
+Lina's §4 priority is a property of the communicators here: the `model`
+(expert-parallel) group's NCCL communicator runs on a high-priority CUDA
+stream and the `data` one at normal priority, so an all-to-all and a
+gradient all-reduce that are in flight together share the card's SMs in
+the all-to-all's favour.  The reference, with no streams to set, emulates
+that with program order (its ``core/microop.py`` barriers).  gloo has no
+streams; its groups take no options.
+
+``init_distributed`` joins the job's group (``torchrun``'s environment, or
+an explicit ``init_method``) or starts a one-rank group; NCCL on the card,
+gloo on the CPU.  Nothing falls back: a mesh that needs more GPUs than the
+machine has raises, and so does a failed NCCL init.
+"""
+from __future__ import annotations
+
+import math
+import os
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.core import axes
+from repro_torch.devices import resolve_device
+
+
+def _local_device(device) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type == "cuda" and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def init_distributed(device="cuda", init_method: Optional[str] = None,
+                     rank: Optional[int] = None,
+                     world_size: Optional[int] = None) -> torch.device:
+    """Join (or start) the default process group; returns this rank's
+    device.  With ``init_method`` (and ``rank``, ``world_size``) it
+    rendezvouses there; else under ``torchrun`` (``WORLD_SIZE`` set) it
+    reads the environment; else it starts a one-rank group in-process."""
+    dev = _local_device(device)
+    if dist.is_initialized():
+        return dev
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if init_method is not None:
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                world_size=world_size)
+    elif "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return dev
+
+
+def _lines(shape, axis: int) -> list:
+    """The rank lists along ``axis`` of a row-major grid of ``shape``: one
+    list per coordinate of the other axes, in row-major order."""
+    strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+    others = [i for i in range(len(shape)) if i != axis]
+    out = []
+    for flat in range(math.prod(shape[i] for i in others)):
+        base, rem = 0, flat
+        for i in reversed(others):
+            base += (rem % shape[i]) * strides[i]
+            rem //= shape[i]
+        out.append([base + j * strides[axis] for j in range(shape[axis])])
+    return sorted(out)
+
+
+def _nccl_options(high_priority: bool):
+    opts = dist.ProcessGroupNCCL.Options()
+    opts.is_high_priority_stream = high_priority
+    return opts
+
+
+class Mesh:
+    """One rank's view of the process-group grid (see the module doc).
+
+    ``a2a_event`` is a CUDA event recorded on the compute stream once the
+    newest all-to-all's result is ordered before it (None on the CPU, or
+    before any exchange): the "backward all-to-all done" marker the
+    gradient reduction waits on.  With ``timeline`` a list, every
+    collective of ``core.microop`` appends (kind, timed event) pairs to it
+    (kinds "a2a" and "reduce"), for an ordering check on the card."""
+
+    def __init__(self, shape, axis_names, device: torch.device):
+        self.shape = tuple(int(s) for s in shape)
+        self.axis_names = tuple(axis_names)
+        self.device = device
+        self.backend = dist.get_backend()
+        self.rank = dist.get_rank()
+        self.world = dist.get_world_size()
+        strides = [math.prod(self.shape[i + 1:])
+                   for i in range(len(self.shape))]
+        self.coords = {a: (self.rank // st) % n for a, st, n in
+                       zip(self.axis_names, strides, self.shape)}
+        self.groups = {}
+        # every rank creates every group, in the same order
+        for i, a in enumerate(self.axis_names):
+            for ranks in _lines(self.shape, i):
+                kw = {}
+                if self.backend == "nccl":
+                    kw["pg_options"] = _nccl_options(a == axes.EP_AXIS)
+                g = dist.new_group(ranks, **kw)
+                if self.rank in ranks:
+                    self.groups[a] = g
+        self.a2a_event = None
+        self.timeline = None
+
+    def size(self, axis: str) -> int:
+        return axes.axis_sizes(self).get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        return self.coords.get(axis, 0)
+
+    def group(self, axis: str):
+        return self.groups[axis]
+
+    @property
+    def dp_group(self):
+        dp = axes.dp_axes(self)
+        if len(dp) != 1 or dp[0] not in self.groups:
+            raise NotImplementedError(f"a mesh over {self.axis_names}: the "
+                                      f"port's meshes are (data, model)")
+        return self.groups[dp[0]]
+
+    def mark(self, kind: str) -> None:
+        """Record that a collective of ``kind`` is ordered before the
+        compute stream's next work (see the class doc)."""
+        if self.device.type != "cuda":
+            return
+        ev = torch.cuda.Event(enable_timing=self.timeline is not None)
+        ev.record()
+        if kind == "a2a":
+            self.a2a_event = ev
+        if self.timeline is not None:
+            self.timeline.append((kind, ev))
+
+    def stream_priorities(self) -> dict:
+        """{axis: (is_high_priority_stream as the communicator's options
+        read back, or None on gloo)}."""
+        out = {}
+        for a, g in self.groups.items():
+            if self.backend != "nccl":
+                out[a] = None
+                continue
+            backend = g._get_backend(self.device)
+            out[a] = bool(backend.options.is_high_priority_stream)
+        return out
+
+    def __repr__(self):
+        dims = "x".join(str(s) for s in self.shape)
+        return (f"Mesh({dims} {self.axis_names}, rank {self.rank} at "
+                f"{self.coords}, {self.backend})")
+
+
+def make_mesh(shape, axis_names=(axes.DATA, axes.MODEL), device="cuda"):
+    """The ``Mesh`` of ``shape`` over ``axis_names`` for this rank, joining
+    or starting the default group first (``init_distributed``).  The
+    world must hold exactly prod(shape) ranks; on the card, one GPU each.
+    Every rank calls it (it creates the groups); a process makes one mesh
+    and passes it on."""
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        gpus = torch.cuda.device_count()
+        if n > gpus:
+            raise RuntimeError(f"a {'x'.join(map(str, shape))} mesh needs "
+                               f"{n} GPUs; this machine has {gpus}")
+    dev = init_distributed(device)
+    if dist.get_world_size() != n:
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs {n} "
+                         f"ranks; the process group has "
+                         f"{dist.get_world_size()}")
+    return Mesh(shape, axis_names, dev)
+
+
+def parse_mesh(spec: str) -> tuple:
+    """"DxE" -> (D, E)."""
+    try:
+        dp_n, ep_n = (int(v) for v in spec.lower().split("x"))
+    except ValueError as e:
+        raise ValueError(f"--mesh {spec!r}: expected DxE, e.g. 2x2") from e
+    if dp_n < 1 or ep_n < 1:
+        raise ValueError(f"--mesh {spec!r}: sizes must be >= 1")
+    return dp_n, ep_n
+
+
+def dp_size(mesh) -> int:
+    sizes = axes.axis_sizes(mesh)
+    return sizes.get(axes.POD, 1) * sizes.get(axes.DATA, 1)
+
+
+def ep_size(mesh) -> int:
+    return axes.axis_sizes(mesh).get(axes.MODEL, 1)
+
+
+def tp_axes(mesh):
+    """The tensor-parallel axes: `model` plus `tp` when present."""
+    return axes.mp_axes(mesh)

@@ -8,7 +8,8 @@ two-phase popularity scheduling, on one card.
 Flags follow ``repro.launch.serve``, less those of code not ported yet:
 ``--workload`` and ``--autoscale`` (the reference's ``sched/`` package) and
 ``--n-microops`` / ``--pipeline-ffn`` (the all-to-all micro-op pipeline of
-``core/microop``, which has nothing to overlap at expert parallelism 1).  ``--device``
+the multi-rank serve layer, which comes with serving on an
+expert-parallel mesh: ROADMAP queue 1 item 1).  ``--device``
 defaults to ``cuda`` and raises without a card; ``--device cpu`` runs the
 kernels' plain versions.
 """

@@ -1,17 +1,22 @@
-"""Training driver of the port, on one card.
+"""Training driver of the port, on one card or an expert-parallel mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-moe \\
-        [--steps 50 --batch 8 --seq 1024] [--device cuda|cpu]
+        [--steps 50 --batch 8 --seq 1024] [--device cuda|cpu] \\
+        [--mesh DxE] [--schedule priority+partition+pipeline] \\
+        [--grad-compression bf16|int8_ef] [--n-microops 4] [--no-lina]
 
 Flags follow ``repro.launch.train``.  ``--device`` defaults to ``cuda`` and
 raises without a card; ``--device cpu`` runs the kernels' plain versions.
 ``--dispatch-backend`` defaults to ``pallas`` (the dispatch / combine
 kernels), so with the arch's ``compute_backend`` "auto" every MoE op runs
-its kernel.  The reference's ``--schedule`` (other than ``implicit``),
-``--grad-compression``, ``--n-microops``, ``--[no-]pipeline-ffn``,
-``--[no-]shortcut`` and ``--mesh`` need expert parallelism over NCCL
-(ROADMAP: "expert parallelism and the §4 schedule") and raise
-``NotImplementedError``.
+its kernel.
+
+``--mesh DxE`` trains on D x E ranks (``launch.mesh``: data x model, the
+experts split over E).  Under ``torchrun`` each process joins the job's
+group; otherwise, for D * E > 1, the driver spawns D * E local ranks (gloo
+with ``--device cpu``, NCCL with one GPU a rank, raising when the machine
+has too few GPUs), and at ``1x1`` it runs in-process on a one-rank group.
+Rank 0 prints and writes the metrics and the trace.
 """
 from __future__ import annotations
 
@@ -19,14 +24,16 @@ import argparse
 import dataclasses
 import json
 import os
+import tempfile
 
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig
-from repro_torch.launch.steps import EXPERT_PARALLELISM
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.obs import ObsContext
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.optim.reduce import DEFAULT_PARTITION_BYTES, SCHEDULES
 from repro_torch.runtime.trainer import (Trainer, TrainerConfig,
                                          default_ckpt_dir)
 
@@ -60,35 +67,73 @@ def parse_args(argv=None):
     ap.add_argument("--trace-dir", default=None,
                     help="enable span tracing and export trace.json / "
                          "spans.json / metrics.prom / metrics.json here")
-    # the reference's expert-parallel flags: accepted so that using them
-    # fails loudly instead of being ignored
-    ap.add_argument("--schedule", default="implicit")
-    ap.add_argument("--grad-compression", default=None)
-    ap.add_argument("--n-microops", type=int, default=None)
+    ap.add_argument("--no-lina", action="store_true",
+                    help="one all-to-all, the whole FFN, one all-to-all "
+                         "(no micro-ops)")
+    ap.add_argument("--schedule", default="implicit",
+                    choices=("implicit",) + SCHEDULES,
+                    help="gradient-reduction schedule (optim.reduce."
+                         "SCHEDULES); 'implicit' is one unordered "
+                         "all-reduce with a mesh, none without")
+    ap.add_argument("--partition-bytes", type=float,
+                    default=DEFAULT_PARTITION_BYTES,
+                    help="micro-op size for the partitioned schedules")
+    ap.add_argument("--grad-compression", default=None,
+                    choices=["bf16", "int8_ef"],
+                    help="compress the gradient reduction (bf16 cast or "
+                         "int8 with error feedback)")
+    ap.add_argument("--n-microops", type=int, default=None,
+                    help="a2a tensor-partition count (MoEConfig.n_microops)"
+                         "; a count that does not divide the capacity "
+                         "resolves to its largest divisor below")
     ap.add_argument("--pipeline-ffn", dest="pipeline_ffn", default=None,
-                    action="store_true")
+                    action="store_true",
+                    help="pipeline expert FFN with a2a micro-ops (Fig. 8b)")
     ap.add_argument("--no-pipeline-ffn", dest="pipeline_ffn",
-                    action="store_false")
+                    action="store_false",
+                    help="one a2a, the whole FFN, one a2a")
     ap.add_argument("--shortcut", dest="shortcut", default=None,
-                    action="store_true")
-    ap.add_argument("--no-shortcut", dest="shortcut", action="store_false")
-    ap.add_argument("--mesh", default=None)
-    args = ap.parse_args(argv)
-    for flag, unset in (("schedule", "implicit"), ("grad_compression", None),
-                        ("n_microops", None), ("pipeline_ffn", None),
-                        ("shortcut", None), ("mesh", None)):
-        if getattr(args, flag) != unset:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} {EXPERT_PARALLELISM}")
-    return args
+                    action="store_true",
+                    help="ScMoE shortcut: the dense branch runs under the "
+                         "dispatch a2a, summed into the combine")
+    ap.add_argument("--no-shortcut", dest="shortcut", action="store_false",
+                    help="disable the shortcut even if the arch enables it")
+    ap.add_argument("--mesh", default=None,
+                    help="data x model mesh DxE, e.g. 2x2 (see the module "
+                         "doc)")
+    return ap.parse_args(argv)
 
 
-def run(argv=None) -> dict:
-    """Build and run the trainer.  Returns {"trainer", "state", "obs",
-    "args"}."""
-    args = parse_args(argv)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def _spawned(rank, argv, world, init_method, device):
+    """One spawned rank: join the group, then run the driver."""
+    if device == "cpu":              # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh_mod.init_distributed(
+        f"cuda:{rank}" if device == "cuda" else device,
+        init_method=init_method, rank=rank, world_size=world)
+    try:
+        main(argv, _child=True)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn(argv, world: int, device: str) -> None:
+    """Run the driver on ``world`` local ranks (see the module doc)."""
+    import torch.multiprocessing as mp
+    if device.startswith("cuda"):
+        gpus = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if world > gpus:
+            raise RuntimeError(f"--mesh needs {world} GPUs; this machine has "
+                               f"{gpus}")
+        device = "cuda"
+    tmp = tempfile.mkdtemp(prefix="repro_torch_rdzv_")
+    mp.spawn(_spawned, args=(argv, world, f"file://{tmp}/rdzv", device),
+             nprocs=world, join=True)
+
+
+def configs(args) -> tuple:
+    """Parsed flags -> (model config, DataConfig, AdamWConfig,
+    TrainerConfig)."""
     cfg = get_config(args.arch)
     if args.compute_backend is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -100,15 +145,36 @@ def run(argv=None) -> dict:
                           state_dtype=cfg.opt_state_dtype)
     tcfg = TrainerConfig(steps=args.steps,
                          ckpt_dir=args.ckpt_dir or default_ckpt_dir(),
-                         ckpt_every=args.ckpt_every,
+                         ckpt_every=args.ckpt_every, lina=not args.no_lina,
                          microbatches=args.microbatches, seed=args.seed,
+                         schedule=None if args.schedule == "implicit"
+                         else args.schedule,
+                         partition_bytes=args.partition_bytes,
+                         grad_compression=args.grad_compression,
                          dispatch_backend=args.dispatch_backend,
-                         device=args.device)
+                         n_microops=args.n_microops,
+                         pipeline_ffn=args.pipeline_ffn,
+                         shortcut=args.shortcut, device=args.device)
+    return cfg, data_cfg, opt_cfg, tcfg
+
+
+def run(argv=None) -> dict:
+    """Build and run the trainer (on this rank).  Returns {"trainer",
+    "state", "obs", "args"}."""
+    args = parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, data_cfg, opt_cfg, tcfg = configs(args)
+    mesh = None
+    if args.mesh:
+        mesh = mesh_mod.make_mesh(mesh_mod.parse_mesh(args.mesh),
+                                  device=args.device)
     obs = ObsContext.enabled() if args.trace_dir else ObsContext.disabled()
-    trainer = Trainer(cfg, data_cfg, opt_cfg, tcfg, obs=obs)
+    trainer = Trainer(cfg, data_cfg, opt_cfg, tcfg, mesh=mesh, obs=obs)
+    lead = mesh is None or mesh.rank == 0
 
     def log(step, m):
-        if step % tcfg.log_every == 0:
+        if lead and step % tcfg.log_every == 0:
             print(f"step {step:5d}  loss {m['loss']:.4f}  "
                   f"aux {m['aux_loss']:.4f}  gnorm {m['grad_norm']:.3f}",
                   flush=True)
@@ -117,9 +183,17 @@ def run(argv=None) -> dict:
     return {"trainer": trainer, "state": state, "obs": obs, "args": args}
 
 
-def main(argv=None):
+def main(argv=None, _child: bool = False):
+    args = parse_args(argv)
+    if args.mesh and not _child and "WORLD_SIZE" not in os.environ:
+        dp_n, ep_n = mesh_mod.parse_mesh(args.mesh)
+        if dp_n * ep_n > 1:
+            spawn(argv, dp_n * ep_n, args.device)
+            return 0
     out = run(argv)
     trainer, args, obs = out["trainer"], out["args"], out["obs"]
+    if trainer.rank != 0:
+        return 0
     if trainer.packing_decision:
         print(f"expert packing: {trainer.packing_decision}")
     if args.metrics_out:

@@ -256,9 +256,13 @@ def chunked_ce_loss(x, w_unembed, labels, loss_mask, chunk=CE_CHUNK,
 # forward
 # ---------------------------------------------------------------------------
 
-def _group_apply(cfg, gp: GroupParams, x, dispatch_backend: str):
+def _group_apply(cfg, gp: GroupParams, x, dispatch_backend: str,
+                 mesh=None, lina: bool = True, fsdp: bool = False):
     """One layer group (``moe.every`` blocks) on [B, S, d] ->
-    (x, aux loss, top-1 expert per token or None)."""
+    (x, aux loss, top-1 expert per token or None).  With
+    ``cfg.moe.shortcut`` the shared FFN is the ScMoE shortcut, run inside
+    the MoE layer under the dispatch all-to-all and summed into its
+    combine; otherwise a shared expert is added after."""
     every = cfg.moe.every if cfg.moe.enabled else 1
     aux = torch.zeros((), device=x.device)
     top1 = None
@@ -270,10 +274,12 @@ def _group_apply(cfg, gp: GroupParams, x, dispatch_backend: str):
         if not (cfg.moe.enabled and j == every - 1):
             x = x + _ffn_apply(tree_idx(gp.ffn, j), h, cfg.ffn_type)
             continue
+        sc = gp.shared if cfg.moe.shortcut else None
         out = moe_layer(h, gp.moe, cfg.moe, ffn_type=cfg.ffn_type,
-                        dispatch_backend=dispatch_backend)
+                        dispatch_backend=dispatch_backend, mesh=mesh,
+                        lina=lina, fsdp=fsdp, shortcut_params=sc)
         moe_y = out.y
-        if gp.shared is not None:
+        if gp.shared is not None and sc is None:
             moe_y = moe_y + _ffn_apply(gp.shared, h, cfg.ffn_type)
         x = x + moe_y
         aux = aux + out.aux_loss
@@ -282,18 +288,22 @@ def _group_apply(cfg, gp: GroupParams, x, dispatch_backend: str):
 
 
 def forward_train(cfg, params: LMParams, batch: dict, *,
-                  dispatch_backend: str = "scatter") -> ModelOutput:
-    """Training forward on one rank (the reference's ``lina=False``; at
-    expert parallelism 1 the all-to-alls are the identity): loss (CE +
-    aux), aux loss, and per-MoE-layer top-1 expert choices
-    [n_moe_layers, B*S].  ``batch`` holds ``tokens`` and ``labels`` [B, S]
-    tensors on the params' device.
+                  dispatch_backend: str = "scatter", mesh=None,
+                  lina: bool = True, fsdp: bool = False) -> ModelOutput:
+    """Training forward on this rank's batch: loss (CE + aux), aux loss,
+    and per-MoE-layer top-1 expert choices [n_moe_layers, B*S].  ``batch``
+    holds ``tokens`` and ``labels`` [B, S] tensors on the params' device.
+    Without ``mesh`` it is the single-rank model; with one, the MoE layers
+    run expert parallel over it (``core.moe.moe_layer``'s ``mesh``,
+    ``lina`` and ``fsdp``; ``params`` hold this rank's experts).  The loss
+    is this rank's: its mean over the ranks is the global loss.
 
     Differentiable in ``params`` (fp32 masters cast to ``cfg.dtype`` for
     compute).  With ``cfg.remat`` each layer group runs under
     ``torch.utils.checkpoint`` (non-reentrant): only the group boundaries
-    are kept and the backward recomputes the group, kernels included, as
-    the reference's ``jax.checkpoint`` over the scan body."""
+    are kept and the backward recomputes the group, kernels and
+    all-to-alls included, as the reference's ``jax.checkpoint`` over the
+    scan body."""
     _check_family(cfg)
     p = cast_for_compute(cfg, params)
     dtype = DTYPES[cfg.dtype]
@@ -307,9 +317,11 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
         gp = tree_idx(p.stack, gi)
         if cfg.remat:
             x, a, top1 = checkpoint(_group_apply, cfg, gp, x,
-                                    dispatch_backend, use_reentrant=False)
+                                    dispatch_backend, mesh, lina, fsdp,
+                                    use_reentrant=False)
         else:
-            x, a, top1 = _group_apply(cfg, gp, x, dispatch_backend)
+            x, a, top1 = _group_apply(cfg, gp, x, dispatch_backend, mesh,
+                                      lina, fsdp)
         aux = aux + a
         if top1 is not None:
             top1s.append(top1)

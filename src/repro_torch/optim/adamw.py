@@ -60,16 +60,21 @@ def cosine_schedule(step, cfg: AdamWConfig):
     return cfg.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * t))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                        for g in tree_leaves(grads)))
+def clip_by_global_norm(grads, max_norm: float, gn=None):
+    """Scale ``grads`` to global norm <= ``max_norm``.  ``gn``, when given,
+    is the norm to use (a sharded model's, over every rank's leaves)."""
+    if gn is None:
+        gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                            for g in tree_leaves(grads)))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
 
 
-def adamw_update(params, grads, state: OptState, cfg: AdamWConfig):
-    """Returns (new_params, new_state, metrics {"grad_norm", "lr"})."""
-    grads, gn = clip_by_global_norm(grads, cfg.grad_clip)
+def adamw_update(params, grads, state: OptState, cfg: AdamWConfig, *,
+                 grad_norm=None):
+    """Returns (new_params, new_state, metrics {"grad_norm", "lr"}).
+    ``grad_norm`` is the global norm where ``grads`` are a shard."""
+    grads, gn = clip_by_global_norm(grads, cfg.grad_clip, grad_norm)
     step = state.step + 1
     lr = cosine_schedule(step, cfg)
     b1, b2 = cfg.betas

@@ -1,5 +1,5 @@
-"""Fault-tolerant training loop of the port on one card (the reference's
-``src/repro/runtime/trainer.py``):
+"""Fault-tolerant training loop of the port, on one card or one rank of
+an expert-parallel mesh (the reference's ``src/repro/runtime/trainer.py``):
 
   * checkpoint/restart: atomic keep-k checkpoints; on start the Trainer
     resumes from the latest checkpoint and, because the data pipeline is
@@ -13,17 +13,26 @@
     ``max_bad_steps`` consecutive bad steps roll back to the newest
     verified checkpoint; ``nan_at_steps`` injects such steps;
   * expert packing (paper §6.1): after ``pack_warmup`` steps the analytic
-    model (``core.packing`` on the H100) picks experts-per-device.
+    model (``core.packing`` on the H100) picks experts-per-device for the
+    mesh's expert-parallel size.
 
-The reference's gradient-reduction schedule, compression and overlap
-knobs (``schedule``, ``grad_compression``, ``n_microops``,
-``pipeline_ffn``, ``shortcut``) need expert parallelism (ROADMAP: "expert
-parallelism and the §4 schedule") and are not fields here.
+With a ``mesh`` (``launch.mesh``) every rank initialises the same full
+params from the seed and keeps its shard (``convert.shard_params``), and
+reads its own B / W rows of each step's global batch (W ranks).  Lina's
+knobs (``lina``, ``schedule``, ``partition_bytes``, ``grad_compression``,
+and ``n_microops`` / ``pipeline_ffn`` / ``shortcut`` applied onto the model
+config) reach the step (``launch.steps``).  A checkpoint stays one tree:
+rank 0 writes the full params and optimizer state, gathered over the
+`model` group, and every rank restores the full tree and takes its shard,
+so a run saved on one mesh resumes on another.  The int8 residuals
+(``reduce_state``) differ per rank and are saved as a ``[world, ...]``
+stack; a resume at another world size zeroes them and logs it.
 
 Spans (``obs``): ``train.step`` > ``data.batch``, ``fwd_bwd``,
-``checkpoint``; counters ``trainer_steps_total``,
-``trainer_skipped_steps_total``, ``trainer_rollbacks_total``,
-``trainer_straggler_events_total`` and the ``trainer_step_s`` histogram.
+``checkpoint``, the first two with ``schedule=``; counters
+``trainer_steps_total``, ``trainer_skipped_steps_total``,
+``trainer_rollbacks_total``, ``trainer_straggler_events_total`` and the
+``trainer_step_s`` histogram.
 The ``fwd_bwd`` stopwatch ends after the card has finished: the metrics
 are read to the host inside it.
 """
@@ -31,20 +40,26 @@ from __future__ import annotations
 
 import os
 import tempfile
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.convert import shard_params, unshard_params
+from repro_torch.core.moe import all_gather_rows
 from repro_torch.core.packing import choose_packing
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.devices import resolve_device
+from repro_torch.launch.mesh import ep_size
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import lm as lm_mod
 from repro_torch.obs import ObsContext
+from repro_torch.optim import reduce as reduce_mod
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+from repro_torch.tree import tree_map
 
 
 def default_ckpt_dir() -> str:
@@ -58,10 +73,21 @@ class TrainerConfig:
     ckpt_every: int = 50
     keep: int = 3
     log_every: int = 10
+    lina: bool = True
     microbatches: int = 1
+    # Lina §4 gradient-reduction schedule (optim.reduce.SCHEDULES); None
+    # keeps the implicit reduction (with a mesh: one unordered all-reduce)
+    schedule: Optional[str] = None
+    partition_bytes: float = reduce_mod.DEFAULT_PARTITION_BYTES
+    grad_compression: Optional[str] = None   # None | "bf16" | "int8_ef"
     # token dispatch/combine backend (core.dispatch.BACKENDS): "pallas"
     # (the kernels), "scatter" or "einsum" (plain tensor code)
     dispatch_backend: str = "pallas"
+    # overlap knobs (None = keep the model config's), applied onto
+    # model_cfg.moe at construction
+    n_microops: Optional[int] = None
+    pipeline_ffn: Optional[bool] = None
+    shortcut: Optional[bool] = None
     fail_at_step: Optional[int] = None       # failure injection (tests)
     straggler_factor: float = 3.0
     pack_warmup: int = 10                    # paper: packing decided at step 10
@@ -75,42 +101,130 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, model_cfg, data_cfg: DataConfig, opt_cfg: AdamWConfig,
-                 cfg: TrainerConfig, obs: Optional[ObsContext] = None):
-        self.device = resolve_device(cfg.device)
+                 cfg: TrainerConfig, mesh=None,
+                 obs: Optional[ObsContext] = None):
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(cfg.device)
         self.obs = obs or ObsContext.disabled()
+        moe_over = {k: v for k, v in (("n_microops", cfg.n_microops),
+                                      ("pipeline_ffn", cfg.pipeline_ffn),
+                                      ("shortcut", cfg.shortcut))
+                    if v is not None}
+        if moe_over:
+            model_cfg = replace(model_cfg,
+                                moe=replace(model_cfg.moe, **moe_over))
         self.model_cfg = model_cfg
         self.data_cfg = data_cfg
         self.opt_cfg = opt_cfg
         self.cfg = cfg
+        self.mesh = mesh
+        self.world = mesh.world if mesh is not None else 1
+        self.rank = mesh.rank if mesh is not None else 0
+        if data_cfg.global_batch % self.world:
+            raise ValueError(f"global batch {data_cfg.global_batch} does not "
+                             f"split over {self.world} ranks")
         self.ckpt = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
         self.dataset = SyntheticLM(data_cfg)
+        self.stateful_reduce = cfg.grad_compression == "int8_ef"
         self.step_fn = make_train_step(
-            model_cfg, opt_cfg, dispatch_backend=cfg.dispatch_backend,
-            microbatches=cfg.microbatches)
+            model_cfg, opt_cfg, mesh=mesh, lina=cfg.lina,
+            dispatch_backend=cfg.dispatch_backend,
+            microbatches=cfg.microbatches, schedule=cfg.schedule,
+            partition_bytes=cfg.partition_bytes,
+            grad_compression=cfg.grad_compression)
         self.metrics_log: list = []
         self.straggler_events: list = []
         self.checkpoint_log: list = []       # {"step", "bytes", "seconds"}
         self.packing_decision = None
         self.skipped_steps: list = []
         self.rollbacks = 0
+        self.reset_log: list = []            # leaves a restore zeroed
 
-    def init_state(self) -> dict:
+    def _full_state(self) -> dict:
+        """The whole model's state as rank 0 saves it (full shapes)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.cfg.seed)
         params = lm_mod.init_params(self.model_cfg, gen, device=self.device)
-        return {"params": params,
-                "opt_state": init_opt_state(params, self.opt_cfg)}
+        state = {"params": params,
+                 "opt_state": init_opt_state(params, self.opt_cfg)}
+        if self.stateful_reduce:
+            rs = reduce_mod.init_reduce_state(
+                shard_params(params, self.mesh), reduce_mod.ReduceConfig(
+                    schedule=self.cfg.schedule,
+                    partition_bytes=self.cfg.partition_bytes,
+                    compression=self.cfg.grad_compression))
+            if self.mesh is not None:       # one residual a rank
+                rs = tree_map(lambda r: r.expand(self.world, *r.shape)
+                              .contiguous(), rs)
+            state["reduce_state"] = rs
+        return state
+
+    def _shard(self, full: dict) -> dict:
+        """This rank's part of a full state."""
+        if self.mesh is None:
+            return full
+        st = {"params": shard_params(full["params"], self.mesh),
+              "opt_state": shard_params(full["opt_state"], self.mesh)}
+        if "reduce_state" in full:
+            st["reduce_state"] = tree_map(lambda r: r[self.rank].clone(),
+                                          full["reduce_state"])
+        return st
+
+    def _gather(self, state: dict) -> dict:
+        """The full state from every rank's shard (every rank calls it)."""
+        if self.mesh is None:
+            return state
+        full = {"params": unshard_params(state["params"], self.mesh),
+                "opt_state": unshard_params(state["opt_state"], self.mesh)}
+        if "reduce_state" in state:
+            def stack(r):
+                out = r.new_empty((self.world, *r.shape))
+                all_gather_rows(out, r.contiguous()[None],
+                                dist.group.WORLD)
+                return out
+            full["reduce_state"] = tree_map(stack, state["reduce_state"])
+        return full
+
+    def init_state(self) -> dict:
+        return self._shard(self._full_state())
+
+    def _save(self, step: int, state: dict) -> None:
+        full = self._gather(state)
+        if self.rank == 0:
+            self.ckpt.save(step, full)
+        if self.mesh is not None:
+            dist.barrier()
+
+    def _restore(self, like: dict):
+        """(step, this rank's state) of the newest checkpoint that
+        verifies, or (None, None).  ``like``: a full state (its shapes and
+        devices)."""
+        step, full = self.ckpt.restore_latest(like,
+                                              reset_ok=("reduce_state",))
+        if full is None:
+            return None, None
+        if self.ckpt.last_reset:
+            self.reset_log.append({"step": step,
+                                   "leaves": list(self.ckpt.last_reset)})
+            print(f"trainer: restored step {step}: the int8 residuals were "
+                  f"saved for another world size; {len(self.ckpt.last_reset)}"
+                  f" residual leaves start from zero at world {self.world}",
+                  flush=True)
+        return step, self._shard(full)
 
     def _batch(self, step: int) -> dict:
-        return {k: torch.from_numpy(v).to(self.device)
+        b = self.data_cfg.global_batch // self.world
+        return {k: torch.from_numpy(v[self.rank * b:(self.rank + 1) * b])
+                .to(self.device)
                 for k, v in self.dataset.batch(step).items()}
 
     def run(self, on_step: Optional[Callable] = None) -> dict:
-        state = self.init_state()
-        start, restored = self.ckpt.restore_latest(state)
-        if restored is not None:
-            state = restored
+        full = self._full_state()
+        start, restored = self._restore(full)
+        state = restored if restored is not None else self._shard(full)
+        del full
         start_step = start if restored is not None else 0
+        sched = self.cfg.schedule or "implicit"
 
         times: list = []
         consec_bad = 0
@@ -120,12 +234,17 @@ class Trainer:
             if self.cfg.fail_at_step is not None and \
                     step == self.cfg.fail_at_step:
                 raise RuntimeError(f"injected failure at step {step}")
-            with tr.span("train.step", step=step) as ssp:
+            with tr.span("train.step", step=step, schedule=sched) as ssp:
                 with tr.span("data.batch"):
                     batch = self._batch(step)
-                with tr.timed("fwd_bwd") as sw:
-                    params, opt_state, m = self.step_fn(
-                        state["params"], state["opt_state"], batch)
+                with tr.timed("fwd_bwd", schedule=sched) as sw:
+                    if self.stateful_reduce:
+                        params, opt_state, m, rstate = self.step_fn(
+                            state["params"], state["opt_state"], batch,
+                            state["reduce_state"])
+                    else:
+                        params, opt_state, m = self.step_fn(
+                            state["params"], state["opt_state"], batch)
                     m = {k: float(v) for k, v in m.items()}   # waits
                 if step in (self.cfg.nan_at_steps or ()):
                     m = dict(m, loss=float("nan"))   # injected divergence
@@ -141,7 +260,9 @@ class Trainer:
                     ssp.set(skipped=True)
                     consec_bad += 1
                     if consec_bad >= self.cfg.max_bad_steps:
-                        _, rb_state = self.ckpt.restore_latest(state)
+                        _, rb_state = self._restore(
+                            state if self.mesh is None
+                            else self._full_state())
                         if rb_state is not None:
                             state = rb_state
                             self.rollbacks += 1
@@ -151,6 +272,8 @@ class Trainer:
                     continue     # params/opt_state keep pre-step values
                 consec_bad = 0
                 state = {"params": params, "opt_state": opt_state}
+                if self.stateful_reduce:
+                    state["reduce_state"] = rstate
                 times.append(dt)
                 med = float(np.median(times[-20:]))
                 if len(times) > 5 and dt > self.cfg.straggler_factor * med:
@@ -166,7 +289,7 @@ class Trainer:
                 if (step + 1) % self.cfg.ckpt_every == 0 or \
                         step + 1 == self.cfg.steps:
                     with tr.timed("checkpoint", step=step + 1) as cw:
-                        self.ckpt.save(step + 1, state)
+                        self._save(step + 1, state)
                     self.checkpoint_log.append(
                         {"step": step + 1, "bytes": self.ckpt.last_save_bytes,
                          "seconds": cw.dt})
@@ -174,9 +297,9 @@ class Trainer:
 
     def _decide_packing(self):
         mc = self.model_cfg
-        # the expert-parallel group this trainer runs: one rank (the
-        # reference likewise takes the EP size of its mesh, 1 on a 1x1 one)
-        ep = 1
+        # the expert-parallel group this trainer runs, as the reference
+        # takes it from its mesh (one rank without a mesh)
+        ep = ep_size(self.mesh)
         tokens = (self.data_cfg.global_batch * self.data_cfg.seq_len
                   // max(ep, 1) // max(mc.moe.n_microops, 1))
         self.packing_decision = choose_packing(

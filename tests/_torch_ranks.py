@@ -1,0 +1,411 @@
+"""Spawned gloo ranks for the port's multi-rank CPU tests.
+
+``run_ranks(fn, world, tmp_path, *args)`` starts ``world`` processes, each
+joining a gloo group through a rendezvous file under ``tmp_path`` (so
+parallel test workers never share a port), runs ``fn(rank, *args)`` with
+one thread and returns every rank's result.  ``fn`` must live in a module
+that imports only torch, numpy and the port (this one, for the tests'
+rank bodies), since every rank imports it.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+from datetime import timedelta
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+# a collective that waits longer than this raises, so a rank that never
+# joins fails the test instead of hanging it
+TIMEOUT = timedelta(seconds=180)
+
+
+def _entry(rank, fn, world, tmp, args):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rdzv",
+                            rank=rank, world_size=world, timeout=TIMEOUT)
+    try:
+        out = fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"out{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_ranks(fn, world: int, tmp_path, *args) -> list:
+    tmp = Path(tmp_path) / f"ranks_{fn.__name__}_{os.getpid()}"
+    n = 0
+    while (tmp.parent / f"{tmp.name}_{n}").exists():
+        n += 1
+    tmp = tmp.parent / f"{tmp.name}_{n}"
+    tmp.mkdir(parents=True)
+    mp.spawn(_entry, args=(fn, world, str(tmp), args), nprocs=world,
+             join=True)
+    out = []
+    for r in range(world):
+        with open(tmp / f"out{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def np_tree(t):
+    """Tensors of a nested structure -> numpy (for pickling results)."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().numpy() if t.is_floating_point() \
+            else t.detach().numpy()
+    if isinstance(t, dict):
+        return {k: np_tree(v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(np_tree(v) for v in t) if not hasattr(t, "_fields") \
+            else [np_tree(v) for v in t]
+    return t
+
+
+# ---------------------------------------------------------------------------
+# rank bodies (each runs on every rank of a spawned gloo group)
+# ---------------------------------------------------------------------------
+
+def a2a_body(rank, inp_path, shape):
+    """all_to_all_ec, its inverse and chunked_all_to_all on a (1, n) mesh,
+    and the exchange Function's gradient against the inverse exchange."""
+    import numpy as np
+    from repro_torch.core import microop
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, device="cpu")
+    inp = np.load(inp_path)
+    buf = torch.from_numpy(inp["bufs"][rank])              # [E, C, d]
+    e = buf.shape[0]
+    fwd = microop.all_to_all_ec(buf, mesh)
+    inv = microop.all_to_all_ec_inverse(buf, mesh, e)
+    chunks = microop.chunked_all_to_all(buf, mesh, 3)
+    ichunks = microop.chunked_all_to_all(buf, mesh, 4, inverse=True,
+                                         n_experts=e)
+    x = buf.clone().requires_grad_()
+    ct = torch.from_numpy(inp["cts"][rank])
+    (microop.all_to_all_ec(x, mesh) * ct).sum().backward()
+    want_grad = microop.all_to_all_ec_inverse(ct, mesh, e)
+    return {"fwd": fwd.numpy(), "inv": inv.numpy(),
+            "chunked": torch.cat(chunks, 1).numpy(), "n_chunked": len(chunks),
+            "ichunked": torch.cat(ichunks, 1).numpy(),
+            "n_ichunked": len(ichunks),
+            "grad": x.grad.numpy(), "want_grad": want_grad.numpy()}
+
+
+def pipeline_body(rank, inp_path, counts):
+    """pipelined_expert_ffn against the serial form (one a2a, the expert
+    function on everything, one a2a) for each requested chunk count."""
+    import numpy as np
+    from repro_torch.core import microop
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 4), device="cpu")
+    inp = np.load(inp_path)
+    buf = torch.from_numpy(inp["bufs"][rank])              # [E, C, d]
+    w = torch.from_numpy(inp["w"][rank])                   # [E_local, d, d]
+    e = buf.shape[0]
+    ep = 4
+    calls = []
+
+    def fn(rows, start):
+        calls.append((rows.shape[1], start))
+        r = rows.reshape(ep, e // ep, rows.shape[1], -1)
+        out = torch.tanh(torch.einsum("secd,edf->secf", r, w))
+        return out.reshape(rows.shape)
+
+    serial = microop.all_to_all_ec_inverse(
+        fn(microop.all_to_all_ec(buf, mesh), 0), mesh, e)
+    out = {"serial": serial.numpy()}
+    for n in counts:
+        calls.clear()
+        got, side = microop.pipelined_expert_ffn(
+            buf, fn, mesh, n, e, shadow=lambda: buf.sum())
+        out[n] = (got.numpy(), list(calls), float(side))
+    calls.clear()
+    got, _ = microop.pipelined_expert_ffn(buf, fn, mesh, 4, e,
+                                          pipeline=False)
+    out["no_pipeline"] = (got.numpy(), list(calls))
+    return out
+
+
+# the layer-parity cases of test_torch_moe_ep: name -> (lina, n_microops,
+# ffn_type, top_k, fsdp, shortcut, compute_backend)
+MOE_CASES = {
+    "lina": (True, 2, "swiglu", 2, False, False, "xla"),
+    "no_lina": (False, 2, "swiglu", 2, False, False, "xla"),
+    "microops_1": (True, 1, "swiglu", 2, False, False, "xla"),
+    "microops_3": (True, 3, "swiglu", 2, False, False, "xla"),
+    "gelu_top1": (True, 2, "gelu", 1, False, False, "xla"),
+    "fsdp": (True, 2, "swiglu", 2, True, False, "xla"),
+    "shortcut": (True, 2, "swiglu", 2, False, True, "xla"),
+    "kernel_route": (True, 2, "gelu", 2, False, False, "auto"),
+}
+
+
+def moe_body(rank, inp_path, shape, cases):
+    """Every case of MOE_CASES on a (2, 4) mesh: this rank's y, aux, ids,
+    probs and gradients of sum(y * ct) (x, router, experts, shortcut)."""
+    import numpy as np
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.convert import shard_params
+    from repro_torch.core.moe import MoEParams, moe_layer
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, device="cpu")
+    inp = np.load(inp_path)
+    dp_n, ep_n = shape
+    d, m = mesh.index("data"), mesh.index("model")
+    b = inp["x"].shape[0] // dp_n
+    s = inp["x"].shape[1] // ep_n
+    t = {k: torch.from_numpy(inp[k]) for k in inp.files}
+    out = {}
+    for name in cases:
+        lina, nmo, ffn, k, fsdp, sc, backend = MOE_CASES[name]
+        cfg = MoEConfig(n_experts=t["wi"].shape[0], top_k=k,
+                        d_ff=t["wi"].shape[2], n_microops=nmo,
+                        compute_backend=backend)
+        full = MoEParams(t["router"], t["wi"],
+                         t["wu"] if ffn == "swiglu" else None, t["wo"])
+        ps = MoEParams(*(None if a is None else a.clone().requires_grad_()
+                         for a in shard_params(full, mesh, fsdp=fsdp)))
+        scp = None
+        if sc:
+            scp = tuple(t[k].clone().requires_grad_()
+                        for k in ("sc_in", "sc_up", "sc_out"))
+        x = t["x"][d * b:(d + 1) * b, m * s:(m + 1) * s].clone() \
+            .requires_grad_()
+        ct = t["ct"][d * b:(d + 1) * b, m * s:(m + 1) * s]
+        o = moe_layer(x, ps, cfg, ffn_type=ffn, mesh=mesh, lina=lina,
+                      fsdp=fsdp, shortcut_params=scp)
+        (o.y * ct).sum().backward()
+        out[name] = {"y": o.y.detach().numpy(),
+                     "aux": float(o.aux_loss.detach()),
+                     "eidx": o.expert_idx.numpy(),
+                     "probs": o.router_probs.detach().numpy(),
+                     "gx": x.grad.numpy(),
+                     "grads": {f: getattr(ps, f).grad.numpy()
+                               for f in ps._fields
+                               if getattr(ps, f) is not None},
+                     "gsc": [a.grad.numpy() for a in scp] if scp else None}
+    return out
+
+
+def reduce_tree(rank, seed: int = 0):
+    """A gradient tree with replicated and expert leaves, perturbed by
+    rank: a dense matrix, a bias and a MoEParams (router, wi, wo)."""
+    import numpy as np
+    from repro_torch.core.moe import MoEParams
+    rng = np.random.RandomState(seed)
+    base = {"dense": rng.randn(24, 16), "bias": rng.randn(40),
+            "router": rng.randn(16, 4), "wi": rng.randn(2, 16, 8),
+            "wo": rng.randn(2, 8, 16)}
+    delta = {k: rng.randn(*v.shape) for k, v in base.items()}
+    t = {k: torch.from_numpy((base[k] + 0.25 * (rank + 1) * delta[k])
+                             .astype(np.float32)) for k in base}
+    return {"dense": t["dense"], "bias": t["bias"],
+            "moe": MoEParams(t["router"], t["wi"], None, t["wo"])}
+
+
+def reduce_body(rank, shape, combos, partition_bytes):
+    """reduce_gradients on a mesh of ``shape`` for each (schedule,
+    compression): the reduced leaves, the plan's chunk counts, and the
+    int8 state after two reductions."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import reduce as R
+    from repro_torch.tree import tree_leaves
+    mesh = make_mesh(shape, device="cpu")
+    grads = reduce_tree(rank)
+    out = {}
+    for sched, comp in combos:
+        cfg = R.ReduceConfig(sched, partition_bytes=partition_bytes,
+                             compression=comp)
+        state = R.init_reduce_state(grads, cfg)
+        red, state = R.reduce_gradients(mesh, grads, cfg, state=state)
+        pend, _ = R.reduce_gradients(mesh, grads, cfg, state=state,
+                                     async_op=True)
+        again = pend.wait()
+        out[(sched, comp)] = {
+            "red": [r.numpy() for r in tree_leaves(red)],
+            "again": [r.numpy() for r in tree_leaves(again)],
+            "plan": [(idx, n) for idx, _, _, n in
+                     R.reduce_plan(mesh, grads, cfg)],
+            "residual": None if state is None else
+            [r.numpy() for r in tree_leaves(state.int8.residual)]}
+    return out
+
+
+def _smoke(**moe):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("gpt2-moe-smoke")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe)) \
+        if moe else cfg
+
+
+def _local_batch(cfg, step, mesh, global_batch=8, seq=32):
+    from repro_torch.data import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                  global_batch=global_batch))
+    w = 1 if mesh is None else mesh.world
+    r = 0 if mesh is None else mesh.rank
+    b = global_batch // w
+    return {k: torch.from_numpy(v[r * b:(r + 1) * b])
+            for k, v in data.batch(step).items()}
+
+
+def full_params(cfg, seed: int = 0):
+    from repro_torch.models import lm
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return lm.init_params(cfg, gen, device="cpu")
+
+
+def schedules_body(rank, combos, steps, microbatches):
+    """Each (schedule, compression) trains gpt2-moe-smoke ``steps`` steps
+    on a (2, 2) mesh from the same seed; rank 0 returns the full params
+    (gathered), every rank its losses."""
+    from repro_torch.convert import shard_params, unshard_params
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import reduce as R
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.tree import tree_leaves
+    mesh = make_mesh((2, 2), device="cpu")
+    cfg = _smoke()
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    out = {}
+    for sched, comp in combos:
+        params = shard_params(full_params(cfg), mesh)
+        opt = init_opt_state(params, ocfg)
+        step = make_train_step(cfg, ocfg, mesh=mesh, schedule=sched,
+                               grad_compression=comp,
+                               microbatches=microbatches,
+                               dispatch_backend="pallas")
+        rstate = R.init_reduce_state(params, R.ReduceConfig(
+            sched, compression=comp)) if comp == "int8_ef" else None
+        losses = []
+        for s in range(steps):
+            batch = _local_batch(cfg, s, mesh)
+            if rstate is not None:
+                params, opt, m, rstate = step(params, opt, batch, rstate)
+            else:
+                params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+        full = unshard_params(params, mesh)
+        out[(sched, comp)] = {
+            "losses": losses,
+            "params": [p.numpy() for p in tree_leaves(full)]
+            if rank == 0 else None}
+    return out
+
+
+def grads_config(remat: bool):
+    """gpt2-moe-smoke at no-drop capacity and aux weight 0; with
+    ``remat`` also recomputing each layer group (all-to-alls included) in
+    the backward, and the ScMoE shortcut on."""
+    import dataclasses
+    cfg = _smoke(capacity_factor=4.0, aux_loss_weight=0.0, shortcut=remat)
+    return dataclasses.replace(cfg, remat=remat)
+
+
+def grads_body(rank, remat, fsdp=False):
+    """The (2, 2) step's reduced gradients (``grads_config``; with
+    ``fsdp`` the experts' hidden dims also split over `data`), gathered to
+    full shapes (rank 0), their global norm and the loss."""
+    from repro_torch.convert import shard_params, unshard_params
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import global_grad_norm, make_train_step
+    from repro_torch.tree import tree_leaves
+    mesh = make_mesh((2, 2), device="cpu")
+    cfg = grads_config(remat)
+    params = shard_params(full_params(cfg), mesh, fsdp=fsdp)
+    step = make_train_step(cfg, mesh=mesh, schedule="priority+partition",
+                           partition_bytes=4096, dispatch_backend="pallas",
+                           fsdp=fsdp)
+    grads, loss, _, _ = step.reduced_grads(params, _local_batch(cfg, 0, mesh))
+    norm = float(global_grad_norm(mesh, grads, fsdp))
+    full = unshard_params(grads, mesh, fsdp=fsdp)
+    return {"loss": float(loss), "norm": norm,
+            "grads": [g.numpy() for g in tree_leaves(full)]
+            if rank == 0 else None}
+
+
+def _trainer(cfg, root, mesh, **kw):
+    from repro_torch.data import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    tcfg = TrainerConfig(steps=kw.pop("steps", 4), ckpt_every=2,
+                         ckpt_dir=root, device="cpu", **kw)
+    return Trainer(cfg, dcfg, ocfg, tcfg, mesh=mesh)
+
+
+TRAINER_KW = dict(schedule="priority+partition+pipeline", microbatches=2,
+                  grad_compression="int8_ef", n_microops=2)
+
+
+def resume_body(rank, root):
+    """On a (2, 2) mesh: 4 straight steps against 2 + injected failure +
+    restart + 2; this rank's states and both runs' losses."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.tree import tree_leaves
+    mesh = make_mesh((2, 2), device="cpu")
+    cfg = _smoke()
+    straight = _trainer(cfg, f"{root}/a", mesh, **TRAINER_KW)
+    want = straight.run()
+    failing = _trainer(cfg, f"{root}/b", mesh, fail_at_step=2, **TRAINER_KW)
+    try:
+        failing.run()
+    except RuntimeError as e:
+        assert "injected failure at step 2" in str(e)
+    else:
+        raise AssertionError("the injected failure did not fire")
+    resumed = _trainer(cfg, f"{root}/b", mesh, **TRAINER_KW)
+    got = resumed.run()
+    return {"want": [t.numpy() for t in tree_leaves(want)],
+            "got": [t.numpy() for t in tree_leaves(got)],
+            "straight": [r["loss"] for r in straight.metrics_log],
+            "resumed": [r["loss"] for r in failing.metrics_log
+                        + resumed.metrics_log],
+            "knobs": (straight.model_cfg.moe.n_microops,
+                      straight.packing_decision)}
+
+
+def restore_1x1_body(rank, root):
+    """A (2, 2) run's checkpoint restored on a (1, 1) mesh: the state it
+    restores (no step left to run) and the residuals it zeroed."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.tree import tree_items
+    mesh = make_mesh((1, 1), device="cpu")
+    tr = _trainer(_smoke(), root, mesh, **TRAINER_KW)
+    state = tr.run()
+    return {"state": {k: v.numpy() for k, v in tree_items(state)},
+            "reset": tr.reset_log}
+
+
+def one_rank_body(rank, flags):
+    """The driver's step on a (1, 1) mesh and without one, 4 steps each
+    from the same seed: both runs' losses and final params."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.trainer import Trainer
+    from repro_torch.tree import tree_leaves
+    mesh = make_mesh((1, 1), device="cpu")
+    out = []
+    for extra in ([], ["--mesh", "1x1", *flags]):
+        args = train.parse_args(["--arch", "gpt2-moe-smoke", "--device",
+                                 "cpu", "--steps", "12", "--batch", "8",
+                                 "--seq", "32", "--ckpt-dir", "unused",
+                                 "--microbatches", "2", *extra])
+        cfg, dcfg, ocfg, tcfg = train.configs(args)
+        tr = Trainer(cfg, dcfg, ocfg, tcfg,
+                     mesh=mesh if args.mesh else None)
+        st, losses = tr.init_state(), []
+        for i in range(4):
+            p, o, m = tr.step_fn(st["params"], st["opt_state"], tr._batch(i))
+            st = {"params": p, "opt_state": o}
+            losses.append(float(m["loss"]))
+        out.append((losses, [t.numpy() for t in tree_leaves(st)]))
+    return out

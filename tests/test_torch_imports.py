@@ -22,8 +22,12 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+need = {"repro_torch.core.axes", "repro_torch.core.microop",
+        "repro_torch.launch.mesh", "repro_torch.optim.reduce",
+        "repro_torch.optim.compression"}
+missing = sorted(need - set(names))
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 20 else 0)
 """
 
 

@@ -1,0 +1,126 @@
+"""The port's a2a micro-ops (``repro_torch.core.microop``) on spawned gloo
+ranks against the reference's on an 8-device CPU mesh.
+
+The reference runs once, in a subprocess with
+``--xla_force_host_platform_device_count=8`` (``REF`` below, module-scoped),
+and saves its outputs to an ``.npz``; the port's ranks (``_torch_ranks``)
+rendezvous through a file under ``tmp_path``.  Exchanges move values, so
+they are held bitwise; ``resolve_chunk_count`` exactly over C 1-64 x
+n 1-9.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+from _torch_ranks import a2a_body, pipeline_body, run_ranks
+from repro_torch.core.microop import resolve_chunk_count
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+E, C, D = 8, 6, 4
+
+REF = """
+import sys
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+from jax.experimental.shard_map import shard_map
+from repro.core import microop
+inp = np.load(sys.argv[1])
+E = inp["bufs8"].shape[1]
+out = {"chunk_table": np.array([[microop.resolve_chunk_count(c, n)
+                                 for n in range(1, 10)]
+                                for c in range(1, 65)])}
+fns = {
+    "fwd": lambda b: microop.all_to_all_ec(b, "model"),
+    "inv": lambda b: microop.all_to_all_ec_inverse(b, "model", E),
+    "chunked": lambda b: jnp.concatenate(
+        microop.chunked_all_to_all(b, "model", 3), 1),
+    "ichunked": lambda b: jnp.concatenate(microop.chunked_all_to_all(
+        b, "model", 4, inverse=True, n_experts=E), 1),
+}
+m8 = jax.make_mesh((1, 8), ("data", "model"))
+m24 = jax.make_mesh((2, 4), ("data", "model"))
+for name, fn in fns.items():
+    f8 = shard_map(lambda b, fn=fn: fn(b[0])[None], mesh=m8,
+                   in_specs=P("model"), out_specs=P("model"),
+                   check_rep=False)
+    out[name + "8"] = np.asarray(jax.jit(f8)(inp["bufs8"]))
+    f24 = shard_map(lambda b, fn=fn: fn(b[0, 0])[None, None], mesh=m24,
+                    in_specs=P("data", "model"),
+                    out_specs=P("data", "model"), check_rep=False)
+    out[name + "4"] = np.asarray(jax.jit(f24)(inp["bufs24"]))[0]
+np.savez(sys.argv[2], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("microop")
+    rng = np.random.RandomState(0)
+    inp = {"bufs8": rng.randn(8, E, C, D).astype(np.float32),
+           "bufs24": rng.randn(2, 4, E, C, D).astype(np.float32),
+           "cts8": rng.randn(8, E, C, D).astype(np.float32)}
+    np.savez(tmp / "inp.npz", **inp)
+    env = dict(os.environ,
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=os.path.join(ROOT, "src"), JAX_PLATFORMS="cpu")
+    p = subprocess.run([sys.executable, "-c", textwrap.dedent(REF),
+                        str(tmp / "inp.npz"), str(tmp / "ref.npz")],
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-3000:]
+    return tmp, inp, dict(np.load(tmp / "ref.npz"))
+
+
+def test_resolve_chunk_count_matches_reference(ref):
+    _, _, want = ref
+    got = np.array([[resolve_chunk_count(c, n) for n in range(1, 10)]
+                    for c in range(1, 65)])
+    np.testing.assert_array_equal(got, want["chunk_table"])
+
+
+@pytest.mark.parametrize("world", [4, 8])
+def test_a2a_matches_reference(ref, world, tmp_path):
+    tmp, inp, want = ref
+    if world == 8:
+        np.savez(tmp_path / "bufs.npz", bufs=inp["bufs8"], cts=inp["cts8"])
+    else:
+        np.savez(tmp_path / "bufs.npz", bufs=inp["bufs24"][0],
+                 cts=inp["cts8"][:4])
+    got = run_ranks(a2a_body, world, tmp_path, str(tmp_path / "bufs.npz"),
+                    (1, world))
+    for name in ("fwd", "inv", "chunked", "ichunked"):
+        np.testing.assert_array_equal(np.stack([g[name] for g in got]),
+                                      want[f"{name}{world}"], err_msg=name)
+    assert {g["n_chunked"] for g in got} == {3}
+    assert {g["n_ichunked"] for g in got} == {3}     # 4 resolves to 3 of 6
+    # the exchange's backward is the inverse exchange of the cotangent
+    for g in got:
+        np.testing.assert_array_equal(g["grad"], g["want_grad"])
+
+
+def test_pipelined_ffn_equals_serial_across_chunk_counts(tmp_path):
+    rng = np.random.RandomState(1)
+    np.savez(tmp_path / "inp.npz",
+             bufs=rng.randn(4, E, C, D).astype(np.float32),
+             w=rng.randn(4, E // 4, D, D).astype(np.float32))
+    counts = (1, 2, 3, 4)
+    got = run_ranks(pipeline_body, 4, tmp_path, str(tmp_path / "inp.npz"),
+                    counts)
+    for g in got:
+        for n in counts:
+            out, calls, _ = g[n]
+            np.testing.assert_allclose(out, g["serial"], rtol=1e-6,
+                                       atol=1e-6, err_msg=f"n_chunks {n}")
+            k = resolve_chunk_count(C, n)                # 4 -> 3 of C = 6
+            assert calls == [(C // k, i * C // k) for i in range(k)]
+        out, calls = g["no_pipeline"]
+        np.testing.assert_array_equal(out, g["serial"])
+        assert calls == [(C, 0)]
+    # the shadow ran once a call, on this rank's own buffer
+    rng = np.random.RandomState(1)
+    bufs = rng.randn(4, E, C, D).astype(np.float32)
+    for r, g in enumerate(got):
+        assert g[2][2] == pytest.approx(float(bufs[r].sum()), rel=1e-5)

@@ -168,16 +168,40 @@ def test_train_step_matches_reference_composition(setup, backend,
             jax.tree_util.keystr(path)
 
 
-def test_train_step_rejects_what_needs_expert_parallelism():
-    cfg = get_config("gpt2-moe-smoke")
-    for kw in (dict(schedule="priority"), dict(grad_compression="bf16")):
-        with pytest.raises(NotImplementedError,
-                           match="expert parallelism and the §4 "
-                                 "schedule"):
-            make_train_step(cfg, **kw)
+def test_train_step_takes_the_schedule_compression_and_shortcut():
+    """What used to need expert parallelism runs on one rank: a schedule
+    with bf16 compression gives the plain step's gradients rounded to bf16
+    (no rank to reduce over), and the ScMoE shortcut (the shared FFN run
+    inside the MoE layer, summed into the combine) gives the loss of the
+    same weights as a shared expert added after the layer."""
+    cfg = _with_backend(get_config("gpt2-moe-smoke"), "xla")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                  global_batch=4))
+    batch = {k: torch.from_numpy(v) for k, v in data.batch(0).items()}
     sc = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
                                                           shortcut=True))
-    with pytest.raises(NotImplementedError,
-                       match="expert parallelism and the §4 "
-                             "schedule"):
-        make_train_step(sc)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    from repro_torch.models.lm import init_params
+    from repro_torch.tree import tree_leaves
+    params = init_params(sc, gen, device="cpu")
+    plain, loss, _, _ = make_train_step(sc).reduced_grads(params, batch)
+    got, loss16, _, _ = make_train_step(
+        sc, schedule="priority", grad_compression="bf16").reduced_grads(
+            params, batch)
+    for g, p in zip(tree_leaves(got), tree_leaves(plain)):
+        torch.testing.assert_close(g, p.to(torch.bfloat16).float(),
+                                   rtol=0, atol=0)
+    shared = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, shared_expert=True))
+    _, loss_shared, _, _ = make_train_step(shared).reduced_grads(params,
+                                                                 batch)
+    assert float(loss) == pytest.approx(float(loss_shared), rel=1e-6)
+    assert float(loss16) == float(loss)
+    assert tree_leaves(got)[-1].abs().sum() > 0
+
+
+def test_grad_compression_without_a_schedule_raises():
+    with pytest.raises(ValueError, match="requires an explicit schedule"):
+        make_train_step(get_config("gpt2-moe-smoke"),
+                        grad_compression="bf16")

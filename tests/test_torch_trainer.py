@@ -207,12 +207,50 @@ def test_train_driver_runs_on_the_cpu_when_asked(tmp_path, capsys):
     assert len(json.load(open(tmp_path / "m.json"))) == 12
 
 
-@pytest.mark.parametrize("flags", [["--schedule", "priority"],
-                                   ["--grad-compression", "bf16"],
-                                   ["--n-microops", "2"], ["--pipeline-ffn"],
-                                   ["--no-shortcut"], ["--mesh", "2x2"]])
-def test_train_driver_rejects_expert_parallel_flags(flags):
-    with pytest.raises(NotImplementedError,
-                       match="expert parallelism and the §4 "
-                             "schedule"):
-        train.parse_args(["--arch", "gpt2-moe-smoke", *flags])
+# each expert-parallel flag of the driver, and where it lands
+FLAG_CASES = {
+    "schedule": (["--schedule", "priority"],
+                 lambda t, tr: t.schedule == "priority"
+                 and tr.obs.tracer.roots[0].attrs["schedule"] == "priority"),
+    "grad_compression": (["--schedule", "priority+partition",
+                          "--grad-compression", "int8_ef"],
+                         lambda t, tr: t.grad_compression == "int8_ef"
+                         and tr.stateful_reduce),
+    "n_microops": (["--n-microops", "2"],
+                   lambda t, tr: tr.model_cfg.moe.n_microops == 2),
+    "pipeline_ffn": (["--no-pipeline-ffn"],
+                     lambda t, tr: t.pipeline_ffn is False
+                     and tr.model_cfg.moe.pipeline_ffn is False),
+    "shortcut": (["--shortcut"],
+                 lambda t, tr: tr.model_cfg.moe.shortcut is True),
+    "lina": (["--no-lina"], lambda t, tr: t.lina is False),
+}
+
+
+@pytest.mark.parametrize("name", list(FLAG_CASES))
+def test_train_driver_flag_reaches_the_trainer(name, tmp_path):
+    flags, check = FLAG_CASES[name]
+    args = train.parse_args(["--arch", "gpt2-moe-smoke", "--device", "cpu",
+                             "--steps", "1", "--batch", "4", "--seq", "16",
+                             "--ckpt-dir", str(tmp_path), *flags])
+    cfg, dcfg, ocfg, tcfg = train.configs(args)
+    tr = Trainer(cfg, dcfg, ocfg, tcfg, obs=ObsContext.enabled())
+    state = tr.run()
+    assert len(tr.metrics_log) == 1 and np.isfinite(tr.metrics_log[0]["loss"])
+    assert check(tcfg, tr), name
+    assert ("reduce_state" in state) == tr.stateful_reduce
+
+
+def test_train_driver_spawns_a_rank_for_each_mesh_cell(monkeypatch):
+    calls = []
+    monkeypatch.setattr(train, "spawn", lambda *a: calls.append(a))
+    argv = ["--arch", "gpt2-moe-smoke", "--device", "cpu", "--mesh", "2x2"]
+    assert train.main(argv) == 0
+    assert calls == [(argv, 4, "cpu")]
+
+
+def test_serve_driver_still_refuses_the_micro_op_flags():
+    from repro_torch.launch import serve
+    for flag in (["--n-microops", "2"], ["--pipeline-ffn"]):
+        with pytest.raises(SystemExit):
+            serve.parse_args(["--arch", "gpt2-moe-smoke", *flag])
