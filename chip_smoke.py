@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 1r,5 [--src DIR]
     python3 chip_smoke.py --phases 1m [--src DIR]
     python3 chip_smoke.py --phases 3,7
+    python3 chip_smoke.py --phases 2,8
 
 With no arguments every phase runs, as below.  ``--phases`` runs phase 0
 and a subset (``1r``: phase 1's two recurrences alone; ``1m``: its five
@@ -177,6 +178,23 @@ Phase 7  drives expert parallelism and Lina's §4 schedule on a one-rank
          single-rank steps bit for bit (the first 5 losses of phase 3 and
          of the 2-microbatch run, in ``float.hex``); it prints the step
          medians, busy and NCCL time beside phase 3's, and the loss gap.
+
+Phase 8  serves on a one-rank NCCL mesh (``--mesh 1x1``; no multi-GPU
+         number is taken).  gpt2-moe at full width and depth is served by
+         a ``MoEServer`` on the mesh and one without a mesh, the same
+         weights and profile, on the same fixed batches (``serve_batch``,
+         ``prefill_batch`` and 8 ``decode_batch`` steps of 4 x 64 tokens):
+         logits, path ids and generated tokens bitwise equal.  Counters
+         zeroed just before and read just after, phase 2's trace is served
+         through ``launch.serve --mesh 1x1``: every serve kernel must
+         launch and every request complete with finite logits; its TTFT
+         and TPOT p50 print beside phase 2's.  A decode step of each server
+         prints its host wall time, the host time of the layer's exchanges,
+         and under the profiler its busy and NCCL device time.  Then the
+         transformer branch of ``models.lm`` through ``launch.steps``
+         (stacked plan, fsdp): a 4 x 64 prefill and 8 decode steps on the
+         mesh bitwise against ``mesh=None``, and the kernel route against
+         the plain route by ``compare_whole`` (phase 2's limits).
 
 Prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit).
@@ -1583,21 +1601,34 @@ DRIFT_REL = 2e-2       # hidden-state drift allowed where no gate flipped
 
 
 @contextlib.contextmanager
-def tap_layers(log: list):
-    """Record every ``serve_moe_layer`` call the server makes, with its
-    arguments and its outputs, in ``log``."""
-    from repro_torch.runtime import server as server_mod
-    real = server_mod.serve_moe_layer
+def tap_layers(log: list, module=None):
+    """Record every ``serve_moe_layer`` call the server makes (or, with
+    ``module``, that module makes), with its arguments, its outputs and
+    its routing's per-choice drop mask [T, k], in ``log``."""
+    from repro_torch.core import serving
+    if module is None:
+        from repro_torch.runtime import server as module
+    real, real_route = module.serve_moe_layer, serving._route
 
     def tapped(x, params, cfg, plan, **kw):
-        out = real(x, params, cfg, plan, **kw)
-        log.append((x, params, cfg, plan, kw, out))
+        seen = []
+
+        def route(*a, **k):
+            out = real_route(*a, **k)
+            seen.append(out[2])
+            return out
+        serving._route = route
+        try:
+            out = real(x, params, cfg, plan, **kw)
+        finally:
+            serving._route = real_route
+        log.append((x, params, cfg, plan, kw, out, seen[0]))
         return out
-    server_mod.serve_moe_layer = tapped
+    module.serve_moe_layer = tapped
     try:
         yield log
     finally:
-        server_mod.serve_moe_layer = real
+        module.serve_moe_layer = real
 
 
 def ulp_margins(logits, probs, k: int):
@@ -1734,7 +1765,8 @@ def replay_plain(calls, what: str, tag: str = "phase 2") -> None:
     import torch
     from repro_torch.core.serving import serve_moe_layer, slot_capacity
     report = []
-    for li, (x, params, mcfg, plan, kw, (yk, ik, pk)) in enumerate(calls):
+    for li, (x, params, mcfg, plan, kw, (yk, ik, pk), _) in \
+            enumerate(calls):
         yp, ip, pp = serve_moe_layer(
             x, params, dataclasses.replace(mcfg, compute_backend="xla"), plan,
             **kw)
@@ -1765,7 +1797,7 @@ def replay_plain(calls, what: str, tag: str = "phase 2") -> None:
                 f"share of a margin {share:.2f}), "
                 f"{int(wide.sum())} flips beyond the margin, max rel err "
                 f"{rel:.3e}")
-    x, _, _, _, kw, _ = calls[0]
+    x, _, _, _, kw, _, _ = calls[0]
     print(f"{tag}: {what}, each MoE layer's kernel route replayed through "
           f"the plain route (T={x.shape[0]}, cap {kw['cap_override']}, "
           f"slot_cap {slot_capacity(kw['cap_override'], kw['min_replicas'])} "
@@ -1806,20 +1838,24 @@ def compare_whole(kcalls, pcalls, shape, device, what: str,
     b, s = shape
     dirty = torch.zeros(b, s, dtype=torch.bool, device=device)
     own = torch.zeros(b, s, dtype=torch.bool, device=device)
-    report, worst = [], 0.0
+    flipped = torch.zeros(b, s, dtype=torch.bool, device=device)
+    report, worst, worst_drop = [], 0.0, 0.0
     for li, (kc, pc) in enumerate(zip(kcalls, pcalls)):
         xk, xp = kc[0].float(), pc[0].float()
-        (yk, ik, _), (yp, ip, _) = kc[5], pc[5]
+        ik, ip = kc[5][1], pc[5][1]
         clean = ~dirty.reshape(-1)
         drift = (xk - xp).norm(dim=-1) / xp.norm(dim=-1)
         if clean.any():
             worst = max(worst, drift[clean].max().item())
+        by_drop = (dirty & ~flipped).reshape(-1)
+        if by_drop.any():
+            worst_drop = max(worst_drop, drift[by_drop].max().item())
         if clean.any() and drift[clean].max().item() > DRIFT_REL:
             raise AssertionError(
                 f"{what} layer {li}: clean tokens drifted "
                 f"{drift[clean].max().item():.3e} > {DRIFT_REL}")
         flip = (ik != ip).any(-1)
-        drop = (yk == 0).all(-1) != (yp == 0).all(-1)
+        drop = (kc[6] != pc[6]).any(-1)
         router = kc[1].router.float()
         lp = xp @ router
         a, c = ip[:, 0].long(), ik[:, 0].long()
@@ -1836,14 +1872,19 @@ def compare_whole(kcalls, pcalls, shape, device, what: str,
                 f"flips beyond the bf16 margin (max gap "
                 f"{gap[wide].max().item():.3e})")
         report.append(f"L{li}:{int((flip & clean).sum())}c+"
-                      f"{int((flip & ~clean).sum())}")
+                      f"{int((flip & ~clean).sum())}"
+                      f"/{int((drop & ~flip & clean).sum())}d")
         event = (flip | drop).reshape(b, s)
         own |= event
         dirty |= torch.cummax(event.int(), dim=1).values.bool()
+        flipped |= torch.cummax(flip.reshape(b, s).int(), dim=1).values \
+            .bool()
         del xk, xp, drift, lp
     print(f"{tag}: {what} ({b} x {s} tokens): gate ids that differ per "
-          f"layer, at clean + at already-diverged tokens: {' '.join(report)};"
-          f" max clean drift {worst:.3e} (limit {DRIFT_REL})", flush=True)
+          f"layer, at clean + at already-diverged tokens / clean tokens whose "
+          f"drops alone differ: {' '.join(report)};"
+          f" max clean drift {worst:.3e} (limit {DRIFT_REL}); max drift "
+          f"where only drops differed before {worst_drop:.3e}", flush=True)
     return ~dirty.any(1).cpu().numpy(), ~own[:, -1].cpu().numpy()
 
 
@@ -1885,15 +1926,20 @@ def compare_routes(srv, toks) -> None:
                              "logits")
 
 
+# phase 2's summary, kept for phase 8's comparison
+PHASE2: dict = {}
+SERVE_ARGV = ["--arch", "gpt2-moe", "--requests", "8", "--seq", "64",
+              "--max-new-tokens", "8"]
+
+
 def phase2(dev) -> dict:
     import numpy as np
     import torch
     from repro_torch.kernels import COUNTERS, reset_counters
     from repro_torch.launch import serve
 
-    argv = ["--arch", "gpt2-moe", "--requests", "8", "--seq", "64",
-            "--max-new-tokens", "8", "--device", str(dev),
-            "--trace-dir", str(ROOT / "build" / "serve_trace")]
+    argv = SERVE_ARGV + ["--device", str(dev),
+                         "--trace-dir", str(ROOT / "build" / "serve_trace")]
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counters()
     t0 = time.perf_counter()
@@ -1922,6 +1968,7 @@ def phase2(dev) -> dict:
         if r.tokens.shape != (8,) or r.tokens.min() < 0 or \
                 r.tokens.max() >= cfg.vocab_size:
             raise AssertionError(f"request {r.rid}: bad tokens")
+    PHASE2.update(m)
     print(f"phase 2: latency p50 {m['latency_p50'] * 1e3:.3f} ms p95 "
           f"{m['latency_p95'] * 1e3:.3f} ms  TTFT p50 "
           f"{m['ttft_p50'] * 1e3:.3f} ms p95 {m['ttft_p95'] * 1e3:.3f} ms  "
@@ -2953,7 +3000,311 @@ def phase7(dev) -> dict:
     return launches
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7")
+# ---------------------------------------------------------------------------
+# phase 8: serving on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+SERVE_EP_STEPS = 8       # decode steps of the fixed batches and the steps
+
+
+def fixed_batches(srv, toks, steps: int) -> list:
+    """``serve_batch``, ``prefill_batch`` (cache_len S + steps) and
+    ``steps`` greedy ``decode_batch`` steps of ``srv`` on ``toks``: every
+    logits array, path-id array and the generated tokens, named."""
+    import numpy as np
+    s = toks.shape[1]
+    r = srv.serve_batch(toks)
+    out = [("serve logits", r.logits), ("serve path ids", r.path_ids)]
+    pre = srv.prefill_batch(toks, cache_len=s + steps)
+    out += [("prefill logits", pre.logits),
+            ("prefill path ids", pre.path_ids)]
+    cache, state, nxt = pre.cache, pre.path_ids[:, -1], \
+        pre.logits.argmax(-1)
+    gen = []
+    for i in range(steps):
+        d = srv.decode_batch(nxt, cache, state)
+        out += [(f"decode {i} logits", d.logits),
+                (f"decode {i} path state", d.path_state)]
+        cache, state, nxt = d.cache, d.path_state, d.logits.argmax(-1)
+        gen.append(nxt)
+    return out + [("generated tokens", np.stack(gen, 1))]
+
+
+def decode_costs(servers: dict, toks, reps: int = 5) -> dict:
+    """A decode step of each server after a prefill of ``toks``, ``reps``
+    times in turns (the order flipped each round): its host wall time and
+    the host time spent in the serve layer's exchanges
+    (``core.serving.exchange``, timed around each call), medians; then one
+    more step of each under torch.profiler: busy and NCCL kernels' device
+    time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import serving as serving_mod
+    steps = {}
+    for tag, srv in servers.items():
+        pre = srv.prefill_batch(toks, cache_len=toks.shape[1] + 8)
+
+        def step(srv=srv, pre=pre):
+            srv.decode_batch(pre.logits.argmax(-1), pre.cache,
+                             pre.path_ids[:, -1])
+            torch.cuda.synchronize()
+        step()
+        steps[tag] = step
+    real, spent = serving_mod.exchange, [0.0, 0]
+
+    def timed(x, mesh):
+        t0 = time.perf_counter()
+        out = real(x, mesh)
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return out
+    walls = {tag: [] for tag in steps}
+    exch = {tag: [] for tag in steps}
+    serving_mod.exchange = timed
+    try:
+        for r in range(reps):
+            for tag in (list(steps) if r % 2 == 0 else list(steps)[::-1]):
+                spent[:] = [0.0, 0]
+                t0 = time.perf_counter()
+                steps[tag]()
+                walls[tag].append(time.perf_counter() - t0)
+                exch[tag].append((spent[0], spent[1]))
+    finally:
+        serving_mod.exchange = real
+    out = {}
+    for tag, step in steps.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+        nccl_ms, names, copy_ms, busy = nccl_split(prof)
+        wall = float(np.median(walls[tag]))
+        ex = float(np.median([e for e, _ in exch[tag]]))
+        out[tag] = {"wall": wall, "exchange": ex, "nccl_ms": nccl_ms,
+                    "busy": busy}
+        print(f"phase 8 decode step ({tag}): host wall median "
+              f"{wall * 1e3:.3f} ms of {reps} (min "
+              f"{min(walls[tag]) * 1e3:.3f}, max "
+              f"{max(walls[tag]) * 1e3:.3f}), of it {exch[tag][0][1]} "
+              f"exchanges {ex * 1e3:.3f} ms; under the profiler busy "
+              f"{busy:.3f} ms, NCCL kernels {nccl_ms:.3f} ms "
+              f"{json.dumps(names)}, memcpy {copy_ms:.3f} ms", flush=True)
+    return out
+
+
+def phase8_fixed(dev, mesh):
+    """gpt2-moe at full width and depth profiled and served by a
+    ``MoEServer`` on the 1 x 1 mesh and one without a mesh (the same
+    weights; the two profiles must be bitwise equal) on the same fixed
+    batches: every logits array, path id and generated token bitwise
+    equal.  Returns (the server without a mesh, the mesh
+    server, the fp32 master weights, the batch's tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.runtime.server import MoEServer, profile_from_training
+    cfg = get_config("gpt2-moe")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init_params(cfg, gen, device=dev)
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                global_batch=4, seed=0))
+    prof = profile_from_training(cfg, params,
+                                 (ds.batch(i) for i in range(5)), device=dev)
+    prof_ep = profile_from_training(cfg, params,
+                                    (ds.batch(i) for i in range(5)),
+                                    mesh=mesh)
+    same_prof = np.array_equal(prof.counts, prof_ep.counts)
+    print(f"phase 8 profile (5 x 4 x 64 tokens): the 1 x 1 mesh's Psi "
+          f"tables bitwise those without a mesh {same_prof}", flush=True)
+    if not same_prof:
+        raise AssertionError("phase 8: the 1 x 1 mesh's profile differs "
+                             "from the profile without a mesh")
+    plain = MoEServer(cfg, params, prof, device=dev)
+    ep = MoEServer(cfg, params, prof_ep, mesh=mesh)
+    toks = np.random.RandomState(11).randint(0, cfg.vocab_size, (4, 64))
+    with torch.inference_mode():
+        a = fixed_batches(plain, toks, SERVE_EP_STEPS)
+        b = fixed_batches(ep, toks, SERVE_EP_STEPS)
+    differ = [n for (n, x), (_, y) in zip(a, b) if not np.array_equal(x, y)]
+    finite = all(np.isfinite(x).all() for n, x in a if "logits" in n)
+    print(f"phase 8 fixed batches (gpt2-moe, 12 layers, d 768, E 16; 4 x 64"
+          f" tokens: serve_batch, prefill_batch, {SERVE_EP_STEPS} decode "
+          f"steps): 1 x 1 mesh against no mesh, {len(a)} arrays, bitwise "
+          f"equal {not differ}{'' if not differ else ' ' + str(differ)}; "
+          f"logits finite {finite}; generated "
+          f"{a[-1][1].tolist()}", flush=True)
+    if differ or not finite:
+        raise AssertionError(f"phase 8: the 1 x 1 mesh server differs from "
+                             f"the server without a mesh: {differ}")
+    return plain, ep, params, toks
+
+
+def by_layer(calls, n_layers: int) -> list:
+    """Tapped decode-step calls (step-major, a call a layer) -> one call a
+    layer over [B * steps] tokens in (row, step) order, the layout
+    ``compare_whole`` reads as B rows of ``steps`` causal positions."""
+    import torch
+    out = []
+    for li in range(n_layers):
+        cs = calls[li::n_layers]
+
+        def cat(get):
+            return torch.stack([get(c) for c in cs], 1).flatten(0, 1)
+        x = cat(lambda c: c[0])
+        y, ids, probs = (cat(lambda c, i=i: c[5][i]) for i in range(3))
+        _, params, mcfg, plan, kw, _, _ = cs[0]
+        out.append((x, params, mcfg, plan, kw, (y, ids, probs),
+                    cat(lambda c: c[6])))
+    return out
+
+
+def phase8_steps(dev, mesh, params) -> None:
+    """The transformer branch of ``models.lm`` through ``launch.steps``
+    at full width and depth under a stacked plan (a placement plan a MoE
+    layer over the server's 16 logical devices) and the config's top-k:
+    a 4 x 64 prefill and
+    SERVE_EP_STEPS decode steps (the prompt fed a token at a time from
+    ``init_cache``) on the 1 x 1 mesh against ``mesh=None``, bitwise; and
+    the kernel route against the plain route with ``compare_whole``
+    (clean tokens within DRIFT_REL, gate flips within the bf16 margin)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import shard_params
+    from repro_torch.core.placement import plan_placement
+    from repro_torch.core.serving import stack_plan_arrays
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import lm
+    cfg = get_config("gpt2-moe")
+    rng = np.random.RandomState(5)
+    plan = stack_plan_arrays(
+        [plan_placement(rng.dirichlet(np.full(E, 0.5)), E, MAX_PACK)
+         for _ in range(cfg.n_moe_layers)], device=dev)
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (4, 64)),
+                           device=dev)
+
+    def run(m, c):
+        ps = shard_params(params, m, fsdp=True)
+        pre = make_prefill_step(c, m, serve_plan=plan)
+        dec = make_decode_step(c, m, serve_plan=plan)
+        pcalls, dcalls, steps = [], [], []
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            with tap_layers(pcalls, lm):
+                logits = pre(ps, {"tokens": toks})
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cache = lm.init_cache(c, 4, 64 + SERVE_EP_STEPS, device=dev)
+            with tap_layers(dcalls, lm):
+                for i in range(SERVE_EP_STEPS):
+                    lg, cache, ex = dec(ps, cache, toks[:, i])
+                    steps.append((lg, ex))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        return {"logits": logits, "steps": steps, "pcalls": pcalls,
+                "dcalls": dcalls, "prefill_s": t1 - t0,
+                "decode_s": (t2 - t1) / SERVE_EP_STEPS}
+
+    base = run(None, cfg)
+    on = run(mesh, cfg)
+    same = torch.equal(base["logits"], on["logits"]) and all(
+        torch.equal(a, b) and torch.equal(x, y) for (a, x), (b, y) in
+        zip(base["steps"], on["steps"]))
+    finite = bool(torch.isfinite(base["logits"]).all())
+    print(f"phase 8 steps (gpt2-moe, stacked plan of 12 placement plans "
+          f"over 16 logical devices, top-{cfg.moe.top_k}, fsdp): prefill 4 x 64 "
+          f"{base['prefill_s'] * 1e3:.3f} ms without a mesh, "
+          f"{on['prefill_s'] * 1e3:.3f} ms on the 1 x 1 mesh; decode step "
+          f"{base['decode_s'] * 1e3:.3f} / {on['decode_s'] * 1e3:.3f} ms; "
+          f"logits, expert choices of {SERVE_EP_STEPS} decode steps and "
+          f"the prefill bitwise equal {same}; finite {finite}", flush=True)
+    if not same or not finite:
+        raise AssertionError("phase 8: the transformer branch on the 1 x 1 "
+                             "mesh differs from mesh=None")
+    plain = run(None, dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, compute_backend="xla")))
+    compare_whole(base["pcalls"], plain["pcalls"], (4, 64), dev,
+                  "transformer branch prefill, kernel vs plain route",
+                  tag="phase 8")
+    compare_whole(by_layer(base["dcalls"], cfg.n_moe_layers),
+                  by_layer(plain["dcalls"], cfg.n_moe_layers),
+                  (4, SERVE_EP_STEPS), dev,
+                  "transformer branch decode steps, kernel vs plain route",
+                  tag="phase 8")
+
+
+def phase8(dev) -> dict:
+    """Serving on a one-rank NCCL mesh (the all-to-alls self-exchanges;
+    this machine has one GPU, so no multi-GPU number is taken): the fixed
+    batches bitwise against the server without a mesh, phase 2's trace
+    through ``launch.serve --mesh 1x1`` (counters zeroed just before, read
+    just after: every serve kernel must launch, every request complete
+    with finite logits; TTFT and TPOT beside phase 2's), a decode step's
+    exchange cost, and the transformer branch's steps."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import COUNTERS, reset_counters
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh((1, 1), device=str(dev))
+    print(f"phase 8: {mesh}", flush=True)
+    plain, ep, params, toks = phase8_fixed(dev, mesh)
+    vocab = plain.cfg.vocab_size
+    dtoks = np.random.RandomState(7).randint(0, vocab, (4, 32))
+    with torch.inference_mode():
+        cost = decode_costs({"no mesh": plain, "1 x 1 mesh": ep}, dtoks)
+    a, b = cost["no mesh"], cost["1 x 1 mesh"]
+    print(f"phase 8: the 1 x 1 mesh's decode step (the same weights, "
+          f"profile and plans) costs {(b['wall'] - a['wall']) * 1e3:.3f} ms "
+          f"more host wall ({b['wall'] / a['wall']:.3f}x), its exchanges "
+          f"{b['exchange'] * 1e3:.3f} ms of host time and "
+          f"{b['nccl_ms']:.3f} ms of NCCL device time; busy "
+          f"{b['busy']:.3f} against {a['busy']:.3f} ms", flush=True)
+    del plain, ep
+    gc.collect()
+    reset_counters()
+    t0 = time.perf_counter()
+    out = serve.run(SERVE_ARGV + ["--device", str(dev), "--mesh", "1x1",
+                                  "--trace-dir",
+                                  str(ROOT / "build" / "serve_ep_trace")])
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {n: c.count for n, c in COUNTERS.items()}
+    print("phase 8 launches: " + json.dumps(launches), flush=True)
+    missing = [n for n, c in launches.items()
+               if c == 0 and n not in TRAIN_ONLY | RECURRENT]
+    if missing:
+        raise AssertionError(f"kernels never launched on the mesh's serve "
+                             f"path: {missing}")
+    m, results = out["summary"], out["results"]
+    if m["n"] != 8 or m["gen_tokens"] != 64 or not all(
+            np.isfinite(r.logits).all() and r.logits.shape == (vocab,)
+            for r in results):
+        raise AssertionError(f"phase 8: expected 8 requests x 8 tokens with "
+                             f"finite logits, got {m}")
+    p2 = (f"phase 2's TTFT p50 {PHASE2['ttft_p50'] * 1e3:.3f} ms, TPOT p50 "
+          f"{PHASE2['tpot_p50'] * 1e3:.3f} ms" if PHASE2
+          else "phase 2 not run")
+    print(f"phase 8: launch.serve --mesh 1x1 served in {wall:.2f} s wall "
+          f"(profiling included): TTFT p50 {m['ttft_p50'] * 1e3:.3f} ms, "
+          f"TPOT p50 {m['tpot_p50'] * 1e3:.3f} ms ({p2}); "
+          f"{m['gen_tok_s']:.3f} gen tok/s", flush=True)
+    del out
+    gc.collect()
+    phase8_steps(dev, mesh, params)
+    dist.destroy_process_group()
+    print(f"phase 8: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return launches
+
+
+PHASES = ("1", "2", "3", "4", "5", "6", "7", "8")
 # phase 3's profile: a part of a CUDA kernel's name -> its wrapper
 WATCH_TRAIN = {"gmm_": "grouped_matmul", "gating_kernel": "topk_gating_fused",
                "positions_kernel": "topk_positions",
@@ -2968,7 +3319,7 @@ def main(argv=None) -> int:
                                  "phase, as the module docstring says.")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of the phases to run after phase 0 "
-                    "(1-7; 1r: phase 1's two recurrences alone; 1m: its "
+                    "(1-8; 1r: phase 1's two recurrences alone; 1m: its "
                     "five MoE routing kernels alone); the "
                     "kernels line is printed only when all run")
     ap.add_argument("--src", default=str(SRC),
@@ -3002,6 +3353,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda", 0)
+    # the context and allocator up before any phase (a subset without
+    # phase 1 starts with phase 2's memory-stat reset)
+    torch.zeros((), device=dev)
     smi = smi_line()
     print(f"phase 0: {smi}", flush=True)
     print(f"phase 0: torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3045,6 +3399,7 @@ def main(argv=None) -> int:
     zamba = phase_recurrent(dev, "zamba2-1.2b", "phase 6") \
         if "6" in phases else None
     ep_train = phase7(dev) if "7" in phases else None
+    serve_ep = phase8(dev) if "8" in phases else None
 
     print(smi, flush=True)
     if sorted(phases) == list(PHASES):
@@ -3053,7 +3408,8 @@ def main(argv=None) -> int:
             r = rows[name]
             paths = {"serve": serve[name], "train": train_launches[name],
                      "mixtral": mixtral[name], "rwkv": rwkv[name],
-                     "zamba": zamba[name], "ep_train": ep_train[name]}
+                     "zamba": zamba[name], "ep_train": ep_train[name],
+                     "serve_ep": serve_ep[name]}
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": sum(paths.values()),

@@ -2,6 +2,8 @@
 a2a <-> expert-FFN pipeline, and the prioritised gradient reduction
 (the reference's ``src/repro/core/microop.py``).
 
+  * ``exchange`` — blocks of dim 0 to the ranks of the mesh's `model`
+    group (``dist.all_to_all_single``), the serve layer's all-to-all;
   * ``all_to_all_ec`` / ``all_to_all_ec_inverse`` — the expert-parallel
     exchange over the mesh's `model` group (``dist.all_to_all_single``),
     one ``torch.autograd.Function`` whose backward is the inverse exchange;
@@ -52,6 +54,12 @@ def _exchange(x: torch.Tensor, mesh, async_op: bool = False):
     work = dist.all_to_all_single(out, x, group=mesh.group(axes.EP_AXIS),
                                   async_op=async_op)
     return out, work
+
+
+def exchange(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``_exchange`` waited for, without autograd (the serve layer's
+    all-to-all to slot owners and back)."""
+    return _exchange(x, mesh)[0]
 
 
 class _AllToAll(torch.autograd.Function):

@@ -79,6 +79,15 @@ def all_gather_rows(out, x, group):
     fn(out, x, group=group)
 
 
+def gather_axis(t, mesh, axis: str, dim: int = 0):
+    """``t``'s shards along ``dim`` gathered over the mesh's ``axis``
+    group, in rank order (no autograd)."""
+    tm = t.movedim(dim, 0).contiguous()
+    out = tm.new_empty((mesh.size(axis) * tm.shape[0], *tm.shape[1:]))
+    all_gather_rows(out, tm, mesh.group(axis))
+    return out.movedim(0, dim)
+
+
 def reduce_scatter_rows(out, x, group):
     """``out`` [x0 / n, ...] = this rank's block of the group's summed
     ``x`` (``reduce_scatter_single``, ``reduce_scatter_tensor`` before)."""

@@ -1,5 +1,5 @@
 """Serving-side MoE layer with Lina placement (replicated/packed experts),
-in PyTorch on one rank.
+in PyTorch.
 
 Serving dispatch routes a token to one of its expert's replica slots per
 the ``PlacementPlan``, and every slot computes the expert packed into it.
@@ -13,9 +13,17 @@ Replica selection (§5/§6.2) has two modes:
   * ``"round_robin"`` — positional round-robin over replicas with a
     per-slot capacity recount (the ablation baseline).
 
-This slice serves expert parallelism of 1: the reference's all-to-all to
-slot owners and back are the identity, and all ``n_dev`` logical devices'
-slots are computed here.
+Without a mesh the layer runs on one rank: all ``n_dev`` logical devices'
+slots are computed here.  With a mesh (``launch.mesh``, the reference's
+``shard_map`` body) the plan's ``n_dev`` logical devices map onto the ep
+ranks of the `model` group, ``n_dev / ep`` each.  ``x`` is the global token
+batch on every rank (the server runs attention and gating replicated);
+each rank routes its `data` index's share of it over the global slot grid,
+sends each slot owner its rows in one all-to-all, computes the experts its
+logical devices host, sends the rows back and combines.  The ep ranks of
+one `data` index route the same tokens, so each owner computes ep equal
+copies of its rows, as the reference's layer does.  Every rank returns
+the global outputs (all-gathered over `data`).
 """
 from __future__ import annotations
 
@@ -25,20 +33,49 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core import axes
 from repro_torch.core.gating import (capacity, kept_counts,
                                      router_top_k_gating)
-from repro_torch.core.moe import MoEParams, expert_ffn
+from repro_torch.core.microop import exchange
+from repro_torch.core.moe import MoEParams, expert_ffn, gather_axis
+from repro_torch.devices import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref
 from repro_torch.kernels.dispatch import invert_slots
 
 
 class PlanArrays(NamedTuple):
-    """Tensor (or, for the host mirror, numpy) form of a PlacementPlan."""
-    slot_expert: torch.Tensor   # [n_dev, S] int32
-    replica_of: torch.Tensor    # [E, R] int32 flat slot ids
-    n_replicas: torch.Tensor    # [E] int32
-    route_weight: Optional[torch.Tensor] = None  # [E, R] f32
+    """Tensor (or, for the host mirror, numpy) form of a PlacementPlan.
+
+    A *stacked* PlanArrays carries one plan per MoE layer with a leading
+    layer dim on every leaf (``slot_expert.ndim == 3``): the transformer
+    serve entry points (``models.lm``) give each layer its own plan."""
+    slot_expert: torch.Tensor   # [n_dev, S] int32    (stacked: [L, n_dev, S])
+    replica_of: torch.Tensor    # [E, R] int32 flat slot ids  ([L, E, R])
+    n_replicas: torch.Tensor    # [E] int32                   ([L, E])
+    route_weight: Optional[torch.Tensor] = None  # [E, R] f32 ([L, E, R])
+
+    @classmethod
+    def from_plan(cls, plan, device="cuda") -> "PlanArrays":
+        """A ``PlacementPlan`` on ``device`` (the card by default), with its
+        route-weight fractions (``placement.route_weights``)."""
+        from repro_torch.core.placement import route_weights
+        dev = resolve_device(device)
+
+        def t(a, dtype):
+            return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+        return cls(t(plan.slot_expert, torch.int32),
+                   t(plan.replica_of, torch.int32),
+                   t(plan.n_replicas, torch.int32),
+                   t(route_weights(plan), torch.float32))
+
+    @property
+    def stacked(self) -> bool:
+        return self.slot_expert.ndim == 3
+
+    def layer(self, i: int) -> "PlanArrays":
+        """Layer ``i``'s plan of a stacked PlanArrays."""
+        return PlanArrays(*(None if a is None else a[i] for a in self))
 
 
 def uniform_route_weight(replica_of, n_replicas):
@@ -68,6 +105,39 @@ def mask_dead_route_weights(route_weight, replica_of, s_pack, dead_devices):
                  np.asarray(route_weight, np.float32))
     tot = np.sum(w, axis=-1, keepdims=True)
     return np.where(tot > 0, w / np.maximum(tot, 1e-9), 0.0)
+
+
+def stack_plan_arrays(plans, device="cuda") -> PlanArrays:
+    """Stack per-layer plans (``PlacementPlan`` or ``PlanArrays``) into one
+    stacked PlanArrays with a leading layer dim.  All plans must agree on
+    device count and sub-slot count; replica tables are right-padded to the
+    widest plan (-1 slot ids, 0.0 route weights) so the stack is
+    rectangular.  ``PlacementPlan``s go to ``device`` (the card by
+    default)."""
+    arrs = [p if isinstance(p, PlanArrays) else PlanArrays.from_plan(
+        p, device) for p in plans]
+    if not arrs:
+        raise ValueError("stack_plan_arrays needs at least one plan")
+    shapes = {tuple(a.slot_expert.shape) for a in arrs}
+    if len(shapes) != 1:
+        raise ValueError(f"plans disagree on device layout: {shapes}")
+    r = max(a.replica_of.shape[1] for a in arrs)
+
+    def pad(a, fill):
+        w = r - a.shape[1]
+        return a if not w else torch.nn.functional.pad(a, (0, w),
+                                                       value=fill)
+
+    def rweight(a):
+        if a.route_weight is not None:
+            return a.route_weight
+        return uniform_route_weight(a.replica_of, a.n_replicas)
+
+    return PlanArrays(
+        torch.stack([a.slot_expert for a in arrs]),
+        torch.stack([pad(a.replica_of, -1) for a in arrs]),
+        torch.stack([a.n_replicas for a in arrs]),
+        torch.stack([pad(rweight(a).float(), 0.0) for a in arrs]))
 
 
 def route_to_slots(expert_idx, position, plan: PlanArrays):
@@ -237,34 +307,65 @@ def slot_rows(rows, n_slots: int, slot_cap: int):
         0, slot, top, "amax")[:n_slots]
 
 
-def serve_moe_layer(x, params: MoEParams, cfg: MoEConfig, plan: PlanArrays,
-                    *, ffn_type: str = "swiglu", top_k: int | None = None,
-                    min_replicas: int = 1, cap_override: int = 0,
-                    route_mode: str = "weighted"):
-    """Inference MoE layer honoring a placement plan.  x: [T, d].
+def dp_shard_count(mesh, n_tokens: int) -> int:
+    """The data-parallel factor ``serve_moe_layer`` shards tokens by (1
+    without a mesh, or when the token count does not tile the dp axes)."""
+    if mesh is None:
+        return 1
+    sizes = axes.axis_sizes(mesh)
+    dp_n = sizes.get(axes.POD, 1) * sizes.get(axes.DATA, 1)
+    return dp_n if n_tokens % dp_n == 0 else 1
 
-    ``min_replicas`` is the minimum live replica count across experts in
-    ``plan`` (it shrinks per-slot buffers to ceil(cap / min_replicas));
-    ``cap_override`` pins the per-expert gating capacity (sized from the
-    valid token count by callers serving right-padded batches).
-    Returns (y [T, d], expert_idx [T, k], router_probs [T, E])."""
-    if route_mode not in ("weighted", "round_robin"):
-        raise ValueError(f"unknown route_mode {route_mode!r}")
-    k = top_k if top_k is not None else max(cfg.top_k, 1)
-    if plan.route_weight is None:
-        plan = plan._replace(route_weight=uniform_route_weight(
-            plan.replica_of, plan.n_replicas))
-    t, d_model = x.shape
+
+class HostedWeights(NamedTuple):
+    """The expert weights one rank's logical devices host under a plan,
+    one per hosted slot (an empty slot holds expert 0's, and computes
+    zeros): [S_h, d, f] / [S_h, f, d] with S_h = n_dev / ep * s_pack."""
+    wi: torch.Tensor
+    wu: Optional[torch.Tensor]
+    wo: torch.Tensor
+
+
+def hosted_slots(plan: PlanArrays, mesh) -> torch.Tensor:
+    """[S_h] expert id of each slot this rank's logical devices host (-1
+    empty): the plan's rows m * group .. (m + 1) * group, m the rank's
+    `model` index and group = n_dev / ep (all of them without a mesh)."""
+    n_dev, s_pack = plan.slot_expert.shape
+    if mesh is None:
+        return plan.slot_expert.reshape(n_dev * s_pack)
+    ep = mesh.size(axes.EP_AXIS)
+    if n_dev % ep:
+        raise ValueError(f"the plan's {n_dev} devices do not tile the "
+                         f"expert-parallel group of {ep}")
+    group = n_dev // ep
+    m = mesh.index(axes.EP_AXIS)
+    return plan.slot_expert[m * group:(m + 1) * group].reshape(group
+                                                               * s_pack)
+
+
+def fetch_hosted(params: MoEParams, plan: PlanArrays, mesh) -> HostedWeights:
+    """The §6.2 weight swap: this rank's expert shard ([E / ep, ...],
+    ``convert.shard_params``) all-gathered over the `model` group into the
+    whole stack, then the hosted slots' experts selected (the reference's
+    gather-then-select)."""
+    safe = torch.clamp(hosted_slots(plan, mesh), min=0).long()
+
+    def gather(w):
+        return None if w is None else gather_axis(w, mesh, axes.EP_AXIS)[safe]
+    return HostedWeights(gather(params.wi), gather(params.wu),
+                         gather(params.wo))
+
+
+def _route(x, router, cfg: MoEConfig, plan: PlanArrays, k: int, cap: int,
+           slot_cap: int, backend: str, route_mode: str):
+    """Gating and the replica split over the plan's whole slot grid:
+    (GatingResult, rows [T, k] flat buffer rows with -1 dropped,
+    dropped [T, k])."""
     e = cfg.n_experts
     n_dev, s_pack = plan.slot_expert.shape
-    cap = cap_override or capacity(t, e, k, cfg.capacity_factor)
-    slot_cap = slot_capacity(cap, min_replicas)
-    backend = kernel_ops.resolve_backend(cfg.compute_backend)
-    g = router_top_k_gating(x, params.router, k, cap, cfg.aux_loss_weight,
-                            compute_backend=backend)
-
-    # --- route to replica slots instead of home experts -------------------
     n_slots = n_dev * s_pack
+    g = router_top_k_gating(x, router, k, cap, cfg.aux_loss_weight,
+                            compute_backend=backend)
     if route_mode == "weighted":
         # kept positions of expert e are exactly 0..counts_e-1, so
         # position < sum(w_int) IS the capacity rule
@@ -283,70 +384,167 @@ def serve_moe_layer(x, params: MoEParams, cfg: MoEConfig, plan: PlanArrays,
         else:
             rows = ref.ref_weighted_route(idx_kept, g.position, cumw,
                                           plan.replica_of.int(), slot_cap)
-        dropped = rows < 0
-    else:
-        slots = route_to_slots(g.expert_idx, g.position, plan)     # [T, k]
-        # position within the slot: recount capacity per slot (every row,
-        # gating-dropped ones included, as the reference does)
-        oh = (slots.long()[..., None] == torch.arange(
-            n_slots, device=x.device)).to(torch.int32)
-        flat = oh.reshape(-1, n_slots)
-        pos = torch.cumsum(flat, dim=0, dtype=torch.int32) - flat
-        pos = torch.sum(pos.reshape(*slots.shape, n_slots) * oh, dim=-1,
-                        dtype=torch.int32)
-        dropped = g.dropped | (pos >= slot_cap) | (slots < 0)
-        rows = torch.where(dropped, torch.full_like(pos, -1),
-                           (slots * slot_cap + pos).to(torch.int32))
-    if backend == "pallas":
-        src_tok, _ = invert_slots(rows, n_slots * slot_cap)
-        buf = kernel_ops.dispatch_op(x, src_tok, rows)
-    else:
-        flat_idx = torch.where(rows < 0, torch.full_like(rows, n_slots
-                                                         * slot_cap), rows)
-        buf = torch.zeros((n_slots * slot_cap + 1, d_model), dtype=x.dtype,
-                          device=x.device)
-        src = x[:, None, :].expand(*rows.shape, d_model).reshape(-1, d_model)
-        buf = buf.index_copy(0, flat_idx.reshape(-1).long(), src)[:-1]
+        return g, rows, rows < 0
+    slots = route_to_slots(g.expert_idx, g.position, plan)        # [T, k]
+    # position within the slot: recount capacity per slot (every row,
+    # gating-dropped ones included, as the reference does)
+    oh = (slots.long()[..., None] == torch.arange(
+        n_slots, device=x.device)).to(torch.int32)
+    flat = oh.reshape(-1, n_slots)
+    pos = torch.cumsum(flat, dim=0, dtype=torch.int32) - flat
+    pos = torch.sum(pos.reshape(*slots.shape, n_slots) * oh, dim=-1,
+                    dtype=torch.int32)
+    dropped = g.dropped | (pos >= slot_cap) | (slots < 0)
+    rows = torch.where(dropped, torch.full_like(pos, -1),
+                       (slots * slot_cap + pos).to(torch.int32))
+    return g, rows, dropped
 
-    # --- compute packed experts (§6.2) -------------------------------------
-    toks = buf.reshape(n_slots, slot_cap, d_model)
-    hosted = plan.slot_expert.reshape(n_slots)
+
+def _dispatch(x, rows, n_rows: int, backend: str):
+    """[T, d] tokens into their [n_rows, d] slot-buffer rows (zeros where
+    nothing was routed)."""
+    if backend == "pallas":
+        src_tok, _ = invert_slots(rows, n_rows)
+        return kernel_ops.dispatch_op(x, src_tok, rows)
+    d_model = x.shape[1]
+    flat_idx = torch.where(rows < 0, torch.full_like(rows, n_rows), rows)
+    buf = torch.zeros((n_rows + 1, d_model), dtype=x.dtype, device=x.device)
+    src = x[:, None, :].expand(*rows.shape, d_model).reshape(-1, d_model)
+    return buf.index_copy(0, flat_idx.reshape(-1).long(), src)[:-1]
+
+
+def _ffn_in_place(params: MoEParams, toks, hosted, group_rows,
+                  ffn_type: str, backend: str):
+    """The experts of ``hosted`` [S] (-1 empty) on ``toks`` [S, n, d],
+    from the whole expert stack ``params``."""
     if backend == "pallas":
         # the kernel reads each slot's hosted expert in place (-1: an empty
         # slot, zeros) and skips the slot rows past the last one routed
-        out = expert_ffn(params.wi, params.wu, params.wo, toks, ffn_type,
-                         backend, group_expert=hosted.int(),
-                         group_rows=slot_rows(rows, n_slots, slot_cap))
-    else:
-        # the §6.2 weight swap as a gather of the hosted experts' weights
-        hosted = hosted.long()
-        safe = torch.clamp(hosted, min=0)
-        wu_h = params.wu[safe] if params.wu is not None else None
-        out = expert_ffn(params.wi[safe], wu_h, params.wo[safe], toks,
-                         ffn_type, backend)                    # [S, n, d]
-        out = out * (hosted >= 0).to(out.dtype)[:, None, None]
-    flat = out.reshape(n_slots * slot_cap, d_model)
+        return expert_ffn(params.wi, params.wu, params.wo, toks, ffn_type,
+                          backend, group_expert=hosted.int(),
+                          group_rows=group_rows)
+    # the §6.2 weight swap as a gather of the hosted experts' weights
+    hosted = hosted.long()
+    safe = torch.clamp(hosted, min=0)
+    wu_h = params.wu[safe] if params.wu is not None else None
+    out = expert_ffn(params.wi[safe], wu_h, params.wo[safe], toks,
+                     ffn_type, backend)                          # [S, n, d]
+    return out * (hosted >= 0).to(out.dtype)[:, None, None]
 
-    # --- combine ------------------------------------------------------------
+
+def _ffn_fetched(hw: HostedWeights, toks, hosted, ffn_type: str,
+                 backend: str):
+    """The experts of ``hosted`` [S_h] (-1 empty) on ``toks`` [S_h, n, d],
+    from the fetched per-slot weights ``hw``."""
+    if backend == "pallas":
+        ar = torch.arange(hosted.shape[0], dtype=torch.int32,
+                          device=hosted.device)
+        return expert_ffn(hw.wi, hw.wu, hw.wo, toks, ffn_type, backend,
+                          group_expert=torch.where(hosted >= 0, ar, -1))
+    out = expert_ffn(hw.wi, hw.wu, hw.wo, toks, ffn_type, backend)
+    return out * (hosted >= 0).to(out.dtype)[:, None, None]
+
+
+def _combine(flat, rows, g, dropped, backend: str, dtype):
     w = torch.where(dropped, torch.zeros_like(g.gate_weights),
                     g.gate_weights)
     if backend == "pallas":
-        y = kernel_ops.combine_op(flat, rows, w).to(x.dtype)
+        return kernel_ops.combine_op(flat, rows, w).to(dtype)
+    vals = flat[torch.clamp(rows, min=0).long()]
+    return torch.sum(vals.float() * w[..., None], dim=1).to(dtype)
+
+
+def serve_moe_layer(x, params: MoEParams, cfg: MoEConfig, plan: PlanArrays,
+                    *, ffn_type: str = "swiglu", top_k: int | None = None,
+                    min_replicas: int = 1, cap_override: int = 0,
+                    route_mode: str = "weighted", mesh=None,
+                    hosted: Optional[HostedWeights] = None):
+    """Inference MoE layer honoring a placement plan.  x: [T, d], the whole
+    batch (on every rank of a mesh).
+
+    ``min_replicas`` is the minimum live replica count across experts in
+    ``plan`` (it shrinks per-slot buffers to ceil(cap / min_replicas));
+    ``cap_override`` pins the per-expert gating capacity of one token
+    shard (sized from the valid token count by callers serving
+    right-padded batches).  With ``mesh`` (see the module doc) ``params``
+    hold this rank's E / ep experts; at ep > 1 the hosted experts'
+    weights are ``hosted`` when the caller fetched them for this plan
+    (``fetch_hosted``), else fetched here.  Returns (y [T, d],
+    expert_idx [T, k], router_probs [T, E])."""
+    if route_mode not in ("weighted", "round_robin"):
+        raise ValueError(f"unknown route_mode {route_mode!r}")
+    k = top_k if top_k is not None else max(cfg.top_k, 1)
+    if plan.route_weight is None:
+        plan = plan._replace(route_weight=uniform_route_weight(
+            plan.replica_of, plan.n_replicas))
+    t, d_model = x.shape
+    dp_n = dp_shard_count(mesh, t)
+    if dp_n > 1:
+        t_loc = t // dp_n
+        i = mesh.index(axes.DATA)
+        x = x[i * t_loc:(i + 1) * t_loc]
+    n_dev, s_pack = plan.slot_expert.shape
+    n_slots = n_dev * s_pack
+    cap = cap_override or capacity(x.shape[0], cfg.n_experts, k,
+                                   cfg.capacity_factor)
+    slot_cap = slot_capacity(cap, min_replicas)
+    backend = kernel_ops.resolve_backend(cfg.compute_backend)
+    g, rows, dropped = _route(x, params.router, cfg, plan, k, cap, slot_cap,
+                              backend, route_mode)
+    buf = _dispatch(x, rows, n_slots * slot_cap, backend)
+
+    # --- a2a to slot owners: block j to rank j, received block j from
+    # rank j (the source); no mesh is one rank and no exchange ------------
+    ep = 1 if mesh is None else mesh.size(axes.EP_AXIS)
+    hosted_ids = hosted_slots(plan, mesh)
+    s_h = hosted_ids.shape[0]
+    buf = buf.reshape(ep, s_h * slot_cap, d_model)
+    if mesh is not None:
+        buf = exchange(buf, mesh)
+    toks = buf.reshape(ep, s_h, slot_cap, d_model).transpose(0, 1) \
+        .reshape(s_h, ep * slot_cap, d_model)
+
+    # --- compute packed experts (§6.2) --------------------------------------
+    if ep == 1:
+        # every slot is this rank's own: the weights are read in place and
+        # each slot's routed rows bound the kernel's work
+        out = _ffn_in_place(params, toks, hosted_ids,
+                            slot_rows(rows, n_slots, slot_cap)
+                            if backend == "pallas" else None,
+                            ffn_type, backend)
     else:
-        vals = flat[torch.clamp(rows, min=0).long()]
-        y = torch.sum(vals.float() * w[..., None], dim=1).to(x.dtype)
-    return y, g.expert_idx, g.router_probs
+        # the received rows are ep prefixes (one a source), which one count
+        # a slot cannot bound: no group_rows
+        hw = hosted if hosted is not None else \
+            fetch_hosted(params, plan, mesh)
+        out = _ffn_fetched(hw, toks, hosted_ids, ffn_type, backend)
+    out = out.reshape(s_h, ep, slot_cap, d_model).transpose(0, 1) \
+        .reshape(ep, s_h * slot_cap, d_model)
+    # --- a2a back -----------------------------------------------------------
+    if mesh is not None:
+        out = exchange(out, mesh)
+    flat = out.reshape(n_slots * slot_cap, d_model)
+
+    # --- combine ------------------------------------------------------------
+    y = _combine(flat, rows, g, dropped, backend, x.dtype)
+    eidx, probs = g.expert_idx, g.router_probs
+    if dp_n > 1:
+        y, eidx, probs = (gather_axis(a, mesh, axes.DATA)
+                          for a in (y, eidx, probs))
+    return y, eidx, probs
 
 
 def replica_token_counts(expert_idx, plan: PlanArrays, cap: int,
-                         slot_cap: int, *, valid=None,
+                         slot_cap: int, *, valid=None, dp_shards: int = 1,
                          route_mode: str = "weighted") -> np.ndarray:
     """Host-side mirror of the device routing: realized *valid* token count
     per (device, sub-slot) under ``plan`` (numpy leaves).  expert_idx: [T, k]
-    host ints over the full padded batch; valid: optional [T] bool.  The
-    float steps of the weighted split run in numpy, operation for operation
-    as the reference's mirror; the integer steps reuse the plain versions
-    on CPU tensors.  Returns [n_slots] int64."""
+    host ints over the full padded batch; valid: optional [T] bool;
+    dp_shards: the data-parallel factor ``serve_moe_layer`` used (each
+    token shard routes on its own; the counts are summed).  The float steps
+    of the weighted split run in numpy, operation for operation as the
+    reference's mirror; the integer steps reuse the plain versions on CPU
+    tensors.  Returns [n_slots] int64."""
     idx = np.asarray(expert_idx, np.int32)
     se = np.asarray(plan.slot_expert)
     ro = np.asarray(plan.replica_of, np.int32)
@@ -359,7 +557,22 @@ def replica_token_counts(expert_idx, plan: PlanArrays, cap: int,
     e, r_w = ro.shape
     n_slots = int(se.size)
     t = idx.shape[0]
-    vc = np.ones(t, bool) if valid is None else np.asarray(valid, bool)
+    v = np.ones(t, bool) if valid is None else np.asarray(valid, bool)
+    shards = max(1, int(dp_shards))
+    if t % shards:
+        shards = 1
+    out = np.zeros(n_slots, np.int64)
+    for chunk, vc in zip(np.split(idx, shards), np.split(v, shards)):
+        out += _shard_counts(chunk, vc, se, ro, nr, rw_tab, cap, slot_cap,
+                             route_mode)
+    return out
+
+
+def _shard_counts(idx, vc, se, ro, nr, rw_tab, cap, slot_cap,
+                  route_mode) -> np.ndarray:
+    """``replica_token_counts`` of one token shard."""
+    e, r_w = ro.shape
+    n_slots = int(se.size)
     pos = ref.ref_topk_positions(torch.tensor(idx), e).numpy()
     dropped = (idx < 0) | (pos >= cap)
     counts = np.bincount(idx[~dropped].reshape(-1),

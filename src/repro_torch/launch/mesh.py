@@ -15,14 +15,19 @@ streams; its groups take no options.
 
 ``init_distributed`` joins the job's group (``torchrun``'s environment, or
 an explicit ``init_method``) or starts a one-rank group; NCCL on the card,
-gloo on the CPU.  Nothing falls back: a mesh that needs more GPUs than the
-machine has raises, and so does a failed NCCL init.
+gloo on the CPU.  ``spawn_ranks`` is ``launch.train`` and
+``launch.serve``'s ``--mesh DxE``: under ``torchrun`` nothing (each process
+joins the job's group), else for D * E > 1 it starts D * E local ranks that
+each run the command's ``main``.
+Nothing falls back: a mesh that needs more GPUs than the machine has
+raises, and so does a failed NCCL init.
 """
 from __future__ import annotations
 
 import math
 import os
-from typing import Optional
+import tempfile
+from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -209,3 +214,45 @@ def ep_size(mesh) -> int:
 def tp_axes(mesh):
     """The tensor-parallel axes: `model` plus `tp` when present."""
     return axes.mp_axes(mesh)
+
+
+def _spawned(rank, main, argv, world, init_method, device):
+    """One spawned rank: join the group, then run ``main``."""
+    if device == "cpu":              # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    init_distributed(f"cuda:{rank}" if device == "cuda" else device,
+                     init_method=init_method, rank=rank, world_size=world)
+    try:
+        main(argv, _child=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(main: Callable, argv, mesh_spec: Optional[str], device,
+                child: bool = False) -> bool:
+    """Start the local ranks of ``--mesh mesh_spec`` when the command must
+    (see the module doc): each runs ``main(argv, _child=True)`` after
+    joining a group of D * E ranks (gloo on the CPU, NCCL with one GPU a
+    rank; too few GPUs raise).  Returns whether it spawned (the caller's
+    process then has nothing left to do)."""
+    if not mesh_spec or child or "WORLD_SIZE" in os.environ:
+        return False
+    dp_n, ep_n = parse_mesh(mesh_spec)
+    if dp_n * ep_n == 1:
+        return False
+    spawn(main, argv, dp_n * ep_n, str(device))
+    return True
+
+
+def spawn(main: Callable, argv, world: int, device: str) -> None:
+    """Run ``main(argv, _child=True)`` on ``world`` local ranks."""
+    import torch.multiprocessing as mp
+    if device.startswith("cuda"):
+        gpus = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if world > gpus:
+            raise RuntimeError(f"--mesh needs {world} GPUs; this machine has "
+                               f"{gpus}")
+        device = "cuda"
+    tmp = tempfile.mkdtemp(prefix="repro_torch_rdzv_")
+    mp.spawn(_spawned, args=(main, argv, world, f"file://{tmp}/rdzv",
+                             device), nprocs=world, join=True)

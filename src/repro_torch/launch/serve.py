@@ -1,17 +1,26 @@
 """Serving driver of the port: profile expert-selection paths, then serve a
 Poisson request trace through the continuous-batching engine with Lina's
-two-phase popularity scheduling, on one card.
+two-phase popularity scheduling, on one card or an expert-parallel mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-moe \\
-        --requests 8 --seq 64 --max-new-tokens 8 [--device cuda|cpu]
+        --requests 8 --seq 64 --max-new-tokens 8 [--device cuda|cpu] \\
+        [--mesh DxE] [--n-microops 4] [--pipeline-ffn]
 
-Flags follow ``repro.launch.serve``, less those of code not ported yet:
-``--workload`` and ``--autoscale`` (the reference's ``sched/`` package) and
-``--n-microops`` / ``--pipeline-ffn`` (the all-to-all micro-op pipeline of
-the multi-rank serve layer, which comes with serving on an
-expert-parallel mesh: ROADMAP queue 1 item 1).  ``--device``
-defaults to ``cuda`` and raises without a card; ``--device cpu`` runs the
-kernels' plain versions.
+Flags follow ``repro.launch.serve``, less ``--workload`` and
+``--autoscale`` (the reference's ``sched/`` package, not ported yet).
+``--device`` defaults to ``cuda`` and raises without a card; ``--device
+cpu`` runs the kernels' plain versions.
+
+``--mesh DxE`` serves on D x E ranks (``launch.mesh``: data x model, the
+experts split over E), as ``launch.train`` does: under ``torchrun`` each
+process joins the job's group; otherwise, for D * E > 1, it spawns
+D * E local ranks (gloo with ``--device cpu``, NCCL with one GPU a rank,
+raising when the machine has too few GPUs), and at ``1x1`` it runs
+in-process on a one-rank group.  Every rank serves the same trace
+(``runtime.engine``); rank 0 prints.
+
+``--n-microops`` and ``--pipeline-ffn`` only keep the reference's command
+lines working: they reach the ``lina=False`` profiling forward alone, as there.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.devices import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.obs import ObsContext
 from repro_torch.runtime.engine import (EngineConfig, ServingEngine, simulate,
@@ -64,6 +74,17 @@ def parse_args(argv=None):
                     help="allocate the dense shortcut (ScMoE) branch and add "
                          "it beside every MoE layer")
     ap.add_argument("--no-shortcut", dest="shortcut", action="store_false")
+    ap.add_argument("--n-microops", type=int, default=None,
+                    help="kept for the reference's command lines (see the "
+                         "module doc)")
+    ap.add_argument("--pipeline-ffn", dest="pipeline_ffn", default=None,
+                    action="store_true",
+                    help="kept for the reference's command lines")
+    ap.add_argument("--no-pipeline-ffn", dest="pipeline_ffn",
+                    action="store_false")
+    ap.add_argument("--mesh", default=None,
+                    help="data x model mesh DxE, e.g. 2x2 (see the module "
+                         "doc)")
     ap.add_argument("--warmup", action="store_true",
                     help="build and launch every kernel before serving")
     ap.add_argument("--trace-dir", default=None,
@@ -79,7 +100,6 @@ def run(argv=None) -> dict:
     """Profile, build the server and engine, replay the trace.  Returns
     {"summary", "engine", "results", "obs", "args"}."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_config(args.arch)
@@ -87,58 +107,77 @@ def run(argv=None) -> dict:
         raise ValueError("the serve driver targets MoE archs")
     moe_over = {k: v for k, v in (
         ("compute_backend", args.compute_backend),
+        ("n_microops", args.n_microops),
+        ("pipeline_ffn", args.pipeline_ffn),
         ("shortcut", args.shortcut)) if v is not None}
     if moe_over:
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, **moe_over))
-    print(f"moe knobs: shortcut={cfg.moe.shortcut} "
-          f"compute_backend={cfg.moe.compute_backend} device={dev}",
-          flush=True)
+    mesh = None
+    if args.mesh:
+        mesh = mesh_mod.make_mesh(mesh_mod.parse_mesh(args.mesh),
+                                  device=args.device)
+        dev = mesh.device
+    else:
+        dev = resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
+
+    def say(msg):
+        if lead:
+            print(msg, flush=True)
+    say(f"moe knobs: n_microops={cfg.moe.n_microops} "
+        f"pipeline_ffn={cfg.moe.pipeline_ffn} shortcut={cfg.moe.shortcut} "
+        f"compute_backend={cfg.moe.compute_backend} device={dev}"
+        + (f" mesh={args.mesh}" if mesh is not None else ""))
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = lm_mod.init_params(cfg, gen, device=dev)
     ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                 global_batch=4, seed=args.seed))
 
-    print("profiling expert-selection paths ...", flush=True)
+    say("profiling expert-selection paths ...")
     prof = profile_from_training(
         cfg, params, (ds.batch(i) for i in range(args.profile_batches)),
-        path_len=args.path_len, device=dev)
+        path_len=args.path_len, device=dev, mesh=mesh)
 
     obs = ObsContext.enabled() if args.trace_dir else ObsContext.disabled()
     server = MoEServer(cfg, params, prof,
                        ServerConfig(path_len=args.path_len,
                                     schedule_policy=args.policy,
                                     plan_cache=not args.no_plan_cache),
-                       obs=obs, device=dev)
+                       obs=obs, device=dev, mesh=mesh)
+    del params
     engine = ServingEngine(server,
                            EngineConfig(max_batch_tokens=args.batch_tokens,
                                         max_batch_requests=args.batch_requests))
     if args.warmup:
-        print("warming up (building and launching every kernel) ...",
-              flush=True)
+        say("warming up (building and launching every kernel) ...")
         n = engine.warmup(seqs=(args.seq,),
                           max_new_tokens=args.max_new_tokens)
-        print(f"warm-up ran {n} calls", flush=True)
+        say(f"warm-up ran {n} calls")
 
     rng = np.random.RandomState(1000 + args.seed)
     t, trace = 0.0, []
     for _ in range(args.requests):
         t += rng.exponential(1.0 / args.rate)
         trace.append((rng.randint(0, cfg.vocab_size, (args.seq,)), t))
-    print(f"serving {args.requests} requests (stationary-poisson, rate "
-          f"{args.rate}/s, {args.max_new_tokens} new tokens each) ...",
-          flush=True)
+    say(f"serving {args.requests} requests (stationary-poisson, rate "
+        f"{args.rate}/s, {args.max_new_tokens} new tokens each) ...")
     with torch.inference_mode():
         results = simulate(engine, trace, max_new_tokens=args.max_new_tokens)
     return {"summary": summarize_results(results), "engine": engine,
-            "results": results, "obs": obs, "args": args}
+            "results": results, "obs": obs, "args": args, "mesh": mesh}
 
 
-def main(argv=None):
+def main(argv=None, _child: bool = False):
+    args = parse_args(argv)
+    if mesh_mod.spawn_ranks(main, argv, args.mesh, args.device, _child):
+        return 0
     out = run(argv)
     m, engine, args, obs = out["summary"], out["engine"], out["args"], \
         out["obs"]
+    if out["mesh"] is not None and out["mesh"].rank != 0:
+        return 0
     stats = engine.layer_stats
     loads = np.stack([s.device_load for s in stats])
     print(f"policy={args.policy}  completed {m['n']} requests")

@@ -11,6 +11,13 @@ named schedules are Lina's.  The global gradient norm adds the squares of
 the expert shards over the `model` group (over the world with ``fsdp``),
 and the loss and aux metrics are averaged over the world, so every rank
 logs the global step.
+
+``make_prefill_step``, ``make_decode_step`` and ``make_serve_plan`` are the
+reference's serve steps: the transformer branch of ``models.lm``'s serve
+entry points on a mesh (or none), under an identity plan sized to the
+mesh's expert-parallel group.  Their ``params`` are this rank's
+(``convert.shard_params``, with ``fsdp`` also cut over `data`), and each
+call fetches the hosted experts' weights anew, as the reference's does.
 """
 from __future__ import annotations
 
@@ -21,6 +28,9 @@ import torch.distributed as dist
 
 from repro_torch.core.moe import expert_leaf_flags
 from repro_torch.core import axes
+from repro_torch.core.placement import identity_plan
+from repro_torch.core.serving import PlanArrays
+from repro_torch.launch.mesh import ep_size
 from repro_torch.models import lm as lm_mod
 from repro_torch.optim import reduce as reduce_mod
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -168,3 +178,42 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, *,
 
     train_step.reduced_grads = reduced_grads
     return train_step
+
+
+def make_prefill_step(cfg, mesh, *, serve_plan=None, serve_top_k=None,
+                      fsdp: bool = True):
+    """(params, batch) -> last-position logits [B, V]
+    (``lm.forward_prefill``)."""
+    def prefill_step(params, batch):
+        return lm_mod.forward_prefill(cfg, params, batch, mesh=mesh,
+                                      serve_plan=serve_plan,
+                                      serve_top_k=serve_top_k,
+                                      fsdp=fsdp).logits
+    return prefill_step
+
+
+def make_decode_step(cfg, mesh, *, serve_plan=None, serve_top_k=None,
+                     fsdp: bool = True):
+    """(params, cache, token) -> (logits, cache, expert_choices)
+    (``lm.decode_step``)."""
+    def decode_step(params, cache, token):
+        return lm_mod.decode_step(cfg, params, cache, token, mesh=mesh,
+                                  serve_plan=serve_plan,
+                                  serve_top_k=serve_top_k, fsdp=fsdp)
+    return decode_step
+
+
+def make_serve_plan(cfg, mesh, device="cuda") -> Optional[PlanArrays]:
+    """Identity plan sized to the mesh's expert-parallel group (popularity
+    plans replace it at run time through the server), on the mesh's
+    device (else ``device``, the card by default); None for a dense
+    config or experts that do not split over the group."""
+    if not cfg.moe.enabled:
+        return None
+    ep = ep_size(mesh)
+    if cfg.moe.n_experts % ep:
+        return None
+    pack = max(1, cfg.moe.n_experts // ep)
+    return PlanArrays.from_plan(
+        identity_plan(cfg.moe.n_experts, ep, max_pack=max(pack, 2)),
+        device=mesh.device if mesh is not None else device)

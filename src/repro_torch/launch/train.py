@@ -24,7 +24,6 @@ import argparse
 import dataclasses
 import json
 import os
-import tempfile
 
 import torch
 
@@ -104,33 +103,6 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _spawned(rank, argv, world, init_method, device):
-    """One spawned rank: join the group, then run the driver."""
-    if device == "cpu":              # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
-    mesh_mod.init_distributed(
-        f"cuda:{rank}" if device == "cuda" else device,
-        init_method=init_method, rank=rank, world_size=world)
-    try:
-        main(argv, _child=True)
-    finally:
-        torch.distributed.destroy_process_group()
-
-
-def spawn(argv, world: int, device: str) -> None:
-    """Run the driver on ``world`` local ranks (see the module doc)."""
-    import torch.multiprocessing as mp
-    if device.startswith("cuda"):
-        gpus = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if world > gpus:
-            raise RuntimeError(f"--mesh needs {world} GPUs; this machine has "
-                               f"{gpus}")
-        device = "cuda"
-    tmp = tempfile.mkdtemp(prefix="repro_torch_rdzv_")
-    mp.spawn(_spawned, args=(argv, world, f"file://{tmp}/rdzv", device),
-             nprocs=world, join=True)
-
-
 def configs(args) -> tuple:
     """Parsed flags -> (model config, DataConfig, AdamWConfig,
     TrainerConfig)."""
@@ -185,11 +157,8 @@ def run(argv=None) -> dict:
 
 def main(argv=None, _child: bool = False):
     args = parse_args(argv)
-    if args.mesh and not _child and "WORLD_SIZE" not in os.environ:
-        dp_n, ep_n = mesh_mod.parse_mesh(args.mesh)
-        if dp_n * ep_n > 1:
-            spawn(argv, dp_n * ep_n, args.device)
-            return 0
+    if mesh_mod.spawn_ranks(main, argv, args.mesh, args.device, _child):
+        return 0
     out = run(argv)
     trainer, args, obs = out["trainer"], out["args"], out["obs"]
     if trainer.rank != 0:

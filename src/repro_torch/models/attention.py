@@ -134,11 +134,14 @@ def decode_attention(p: AttnParams, x, cache: KVCache, pos, cfg):
     rows = torch.arange(b, device=x.device)
     k = cache.k.clone()
     v = cache.v.clone()
-    k[rows, slot.long()] = k_new[:, 0]
-    v[rows, slot.long()] = v_new[:, 0]
+    # a cache may be kept in another dtype than the model computes in
+    # (``lm.init_cache`` defaults to bf16): stored in its own, read in x's
+    k[rows, slot.long()] = k_new[:, 0].to(k.dtype)
+    v[rows, slot.long()] = v_new[:, 0].to(v.dtype)
 
     rep = cfg.n_heads // cfg.n_kv_heads
-    kk, vv = _repeat_kv(k, rep), _repeat_kv(v, rep)
+    kk = _repeat_kv(k, rep).to(q.dtype)
+    vv = _repeat_kv(v, rep).to(q.dtype)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() / hd ** 0.5
     kpos = torch.arange(s_max, device=x.device)[None, :]
     if cfg.sliding_window:

@@ -9,16 +9,26 @@ leaf of a transformer ``LMParams.stack`` carries a leading layer-group dim G
 ``every`` dim); the hybrid and RWKV stacks carry a leading layer dim L.
 ``forward_train`` is the transformer family's training forward (loss plus
 per-layer top-1 expert choices, differentiable in the params) that the
-train step and the profiling stage run; the transformer family is served
-layer by layer in ``runtime.server``.  The hybrid and RWKV families are
-served here, through the reference's model entry points
-``forward_prefill`` (last-position logits), ``init_cache`` and
-``decode_step``; their recurrences run the WKV and SSD kernels and the
-shared block's prefill attention the flash kernel on the kernel route
+train step runs.  Every family is served through the reference's model
+entry points ``forward_prefill`` (last-position logits), ``init_cache``
+and ``decode_step``; the transformer family also layer by layer in
+``runtime.server``.  Their recurrences run the WKV and SSD kernels and
+their prefill attention the flash kernel on the kernel route
 (``cfg.moe.compute_backend`` "auto"/"pallas"), the plain versions on the
-"xla" route.  Training them needs backward kernels for WKV and SSD
-(ROADMAP: "training of the RWKV6 and hybrid Mamba2 families"), so
-``forward_train`` refuses them.
+"xla" route.
+
+The transformer serve entry points take the reference's keywords: with a
+``serve_plan`` (one ``PlanArrays`` for every MoE layer, or a stacked one,
+a plan a layer) each MoE layer is ``core.serving.serve_moe_layer``, else
+``core.moe.moe_layer``.  With a ``mesh`` the batch is the whole batch on
+every rank and ``params`` hold this rank's experts
+(``convert.shard_params``, with ``fsdp`` also cut over `data`): a
+plan-honoring layer shards the tokens itself, and ``moe_layer`` gets the
+reference's token shard (batch over `data` where B tiles it, sequence over
+`model` where S tiles it), its outputs all-gathered back.  Training the
+hybrid and RWKV families needs backward kernels for WKV and SSD (ROADMAP:
+"training of the RWKV6 and hybrid Mamba2 families"), so ``forward_train``
+refuses them.
 """
 from __future__ import annotations
 
@@ -27,7 +37,10 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.moe import MoEParams, moe_layer
+from repro_torch.core import axes
+from repro_torch.core.moe import (MoEOutput, MoEParams, gather_axis,
+                                  gather_hidden, moe_layer)
+from repro_torch.core.serving import serve_moe_layer
 from repro_torch.devices import resolve_device
 from repro_torch.kernels.ops import kernel_route
 from repro_torch.models import rwkv as rwkv_mod
@@ -119,10 +132,6 @@ def _check_family(cfg, serve: bool = False) -> None:
 
 def _check_served_here(cfg) -> None:
     _check_family(cfg, serve=True)
-    if not (cfg.layer_pattern or cfg.attention_free):
-        raise NotImplementedError(
-            f"{cfg.name}: the transformer family is served by "
-            f"runtime.server.MoEServer")
 
 
 # ---------------------------------------------------------------------------
@@ -253,38 +262,139 @@ def chunked_ce_loss(x, w_unembed, labels, loss_mask, chunk=CE_CHUNK,
 
 
 # ---------------------------------------------------------------------------
-# forward
+# the transformer family's layer groups
 # ---------------------------------------------------------------------------
 
-def _group_apply(cfg, gp: GroupParams, x, dispatch_backend: str,
-                 mesh=None, lina: bool = True, fsdp: bool = False):
+def _moe_whole_batch(h, moe_p: MoEParams, cfg, *, mesh, lina: bool,
+                     fsdp: bool, top_k=None, shortcut=None,
+                     dispatch_backend: str = "scatter") -> MoEOutput:
+    """``moe_layer`` on the whole batch h [B, S, d].  With a mesh this rank
+    takes the reference's token shard (batch over `data` if B tiles it,
+    sequence over `model` if S tiles it, else the whole dim), and y and
+    the ids come back all-gathered: [B, S, d] and [B * S, k] in (b, s)
+    order (the reference keeps its ids in shard order).  Without one,
+    ``lina`` and ``fsdp`` have nothing to act on, as on the reference's
+    one-device default mesh."""
+    if mesh is None:
+        return moe_layer(h, moe_p, cfg.moe, ffn_type=cfg.ffn_type,
+                         dispatch_backend=dispatch_backend, top_k=top_k,
+                         shortcut_params=shortcut)
+    b, s, d = h.shape
+    dp_n, ep = mesh.size(axes.DATA), mesh.size(axes.EP_AXIS)
+    bq, sq = b % dp_n == 0, s % ep == 0
+    if bq:
+        i, n = mesh.index(axes.DATA), b // dp_n
+        h = h[i * n:(i + 1) * n]
+    if sq:
+        i, n = mesh.index(axes.EP_AXIS), s // ep
+        h = h[:, i * n:(i + 1) * n]
+    out = moe_layer(h, moe_p, cfg.moe, ffn_type=cfg.ffn_type,
+                    dispatch_backend=dispatch_backend, top_k=top_k,
+                    mesh=mesh, lina=lina, fsdp=fsdp,
+                    shortcut_params=shortcut)
+    bl, sl = h.shape[:2]
+    y = out.y
+    eidx = out.expert_idx.reshape(bl, sl, -1)
+    for go, axis, dim in ((sq, axes.EP_AXIS, 1), (bq, axes.DATA, 0)):
+        if go:
+            y, eidx = (gather_axis(a, mesh, axis, dim) for a in (y, eidx))
+    return MoEOutput(y, out.aux_loss, eidx.reshape(b * s, -1), None)
+
+
+def _plan_of(serve_plan, gi: int):
+    if serve_plan is None or not serve_plan.stacked:
+        return serve_plan
+    return serve_plan.layer(gi)
+
+
+def _moe_sublayer(cfg, gp: GroupParams, h, plan, *, mesh, lina: bool,
+                  fsdp: bool, serve_top_k, fuse_shortcut: bool,
+                  dispatch_backend: str, replicated: bool):
+    """The MoE sublayer on h [B, S, d] -> (moe_y, aux, top-1 id per token
+    [B * S]).  Under ``plan`` it is the plan-honoring layer; else
+    ``moe_layer``, with ``fuse_shortcut`` taking the ScMoE shortcut into
+    it.  ``replicated``: h is the whole batch on every rank of the mesh
+    (the serve entry points), not this rank's own (training).  The shared
+    expert is added outside the plan dispatch."""
+    b, s, d = h.shape
+    moe_p = gp.moe
+    sc = gp.shared if fuse_shortcut and cfg.moe.shortcut else None
+    if plan is not None:
+        if fsdp and mesh is not None:
+            moe_p = moe_p._replace(
+                wi=gather_hidden(moe_p.wi, mesh, 2),
+                wu=None if moe_p.wu is None else gather_hidden(moe_p.wu,
+                                                               mesh, 2),
+                wo=gather_hidden(moe_p.wo, mesh, 1))
+        y2, eidx, _ = serve_moe_layer(h.reshape(b * s, d), moe_p, cfg.moe,
+                                      plan, ffn_type=cfg.ffn_type,
+                                      top_k=serve_top_k, mesh=mesh)
+        moe_y, aux, sc = y2.reshape(b, s, d), torch.zeros(
+            (), device=h.device), None
+    elif replicated:
+        out = _moe_whole_batch(h, moe_p, cfg, mesh=mesh, lina=lina,
+                               fsdp=fsdp, top_k=serve_top_k, shortcut=sc,
+                               dispatch_backend=dispatch_backend)
+        moe_y, aux, eidx = out.y, out.aux_loss, out.expert_idx
+    else:
+        out = moe_layer(h, moe_p, cfg.moe, ffn_type=cfg.ffn_type,
+                        dispatch_backend=dispatch_backend, top_k=serve_top_k,
+                        mesh=mesh, lina=lina, fsdp=fsdp, shortcut_params=sc)
+        moe_y, aux, eidx = out.y, out.aux_loss, out.expert_idx
+    if gp.shared is not None and sc is None:
+        moe_y = moe_y + _ffn_apply(gp.shared, h, cfg.ffn_type)
+    return moe_y, aux, eidx[:, 0].to(torch.int32)
+
+
+def _group_apply(cfg, gp: GroupParams, x, *, plan=None, serve_top_k=None,
+                 dispatch_backend: str = "scatter", mesh=None,
+                 lina: bool = True, fsdp: bool = False,
+                 use_kernel: bool = False, replicated: bool = False):
     """One layer group (``moe.every`` blocks) on [B, S, d] ->
-    (x, aux loss, top-1 expert per token or None).  With
-    ``cfg.moe.shortcut`` the shared FFN is the ScMoE shortcut, run inside
-    the MoE layer under the dispatch all-to-all and summed into its
-    combine; otherwise a shared expert is added after."""
+    (x, aux loss, top-1 expert per token or None).  ``use_kernel`` runs
+    the flash kernel for attention (no backward); the rest is
+    ``_moe_sublayer``'s, the ScMoE shortcut fused into ``moe_layer``."""
     every = cfg.moe.every if cfg.moe.enabled else 1
     aux = torch.zeros((), device=x.device)
     top1 = None
     for j in range(every):
         h = rms_norm(x, gp.ln1[j], cfg.norm_eps)
-        y, _ = attention(tree_idx(gp.attn, j), h, cfg)
+        y, _ = attention(tree_idx(gp.attn, j), h, cfg, use_kernel=use_kernel)
         x = x + y
         h = rms_norm(x, gp.ln2[j], cfg.norm_eps)
         if not (cfg.moe.enabled and j == every - 1):
             x = x + _ffn_apply(tree_idx(gp.ffn, j), h, cfg.ffn_type)
             continue
-        sc = gp.shared if cfg.moe.shortcut else None
-        out = moe_layer(h, gp.moe, cfg.moe, ffn_type=cfg.ffn_type,
-                        dispatch_backend=dispatch_backend, mesh=mesh,
-                        lina=lina, fsdp=fsdp, shortcut_params=sc)
-        moe_y = out.y
-        if gp.shared is not None and sc is None:
-            moe_y = moe_y + _ffn_apply(gp.shared, h, cfg.ffn_type)
+        moe_y, a, top1 = _moe_sublayer(
+            cfg, gp, h, plan, mesh=mesh, lina=lina, fsdp=fsdp,
+            serve_top_k=serve_top_k, fuse_shortcut=True,
+            dispatch_backend=dispatch_backend, replicated=replicated)
         x = x + moe_y
-        aux = aux + out.aux_loss
-        top1 = out.expert_idx[:, 0]
+        aux = aux + a
     return x, aux, top1
+
+
+def run_stack(cfg, stack: GroupParams, x, *, serve_plan=None,
+              remat: bool = False, **kw):
+    """The transformer stack on x [B, S, d] -> (x, aux, expert choices
+    [n_moe_layers, B * S] or None).  ``kw`` are ``_group_apply``'s; a
+    stacked ``serve_plan`` gives MoE layer g its plan g.  With ``remat``
+    each group runs under ``torch.utils.checkpoint`` (non-reentrant)."""
+    every = cfg.moe.every if cfg.moe.enabled else 1
+    aux = torch.zeros((), device=x.device)
+    top1s = []
+    for gi in range(cfg.n_layers // every):
+        gp = tree_idx(stack, gi)
+        plan = _plan_of(serve_plan, gi)
+        if remat:
+            x, a, top1 = checkpoint(_group_apply, cfg, gp, x, plan=plan,
+                                    use_reentrant=False, **kw)
+        else:
+            x, a, top1 = _group_apply(cfg, gp, x, plan=plan, **kw)
+        aux = aux + a
+        if top1 is not None:
+            top1s.append(top1)
+    return x, aux, torch.stack(top1s) if top1s else None
 
 
 def forward_train(cfg, params: LMParams, batch: dict, *,
@@ -306,30 +416,15 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
     scan body."""
     _check_family(cfg)
     p = cast_for_compute(cfg, params)
-    dtype = DTYPES[cfg.dtype]
-    tokens = batch["tokens"].long()
     labels = batch["labels"]
-    x = p.embed[tokens].to(dtype)
-    every = cfg.moe.every if cfg.moe.enabled else 1
-    aux = torch.zeros((), device=x.device)
-    top1s = []
-    for gi in range(cfg.n_layers // every):
-        gp = tree_idx(p.stack, gi)
-        if cfg.remat:
-            x, a, top1 = checkpoint(_group_apply, cfg, gp, x,
-                                    dispatch_backend, mesh, lina, fsdp,
-                                    use_reentrant=False)
-        else:
-            x, a, top1 = _group_apply(cfg, gp, x, dispatch_backend, mesh,
-                                      lina, fsdp)
-        aux = aux + a
-        if top1 is not None:
-            top1s.append(top1)
+    x = p.embed[batch["tokens"].long()].to(DTYPES[cfg.dtype])
+    x, aux, experts = run_stack(cfg, p.stack, x, remat=cfg.remat,
+                                dispatch_backend=dispatch_backend, mesh=mesh,
+                                lina=lina, fsdp=fsdp)
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
     loss = chunked_ce_loss(x, unembed_weight(p), labels,
                            torch.ones(labels.shape, device=x.device),
                            remat=cfg.remat)
-    experts = torch.stack(top1s) if top1s else None
     return ModelOutput(loss + aux, aux, experts)
 
 
@@ -375,44 +470,65 @@ def _run_rwkv(cfg, st: RWKVStack, x):
     return x
 
 
-def forward_prefill(cfg, params: LMParams, batch: dict) -> ModelOutput:
-    """Serving prefill of the hybrid and RWKV families: last-position
-    logits [B, V] in ``cfg.dtype`` (``ModelOutput.logits``).  ``batch``
-    holds ``tokens`` [B, S] on the params' device.  Builds no cache, as
-    the reference's (decode starts from ``init_cache``).  The WKV / SSD
-    and flash kernels have no backward: call it under
-    ``torch.inference_mode`` when the params require grad."""
+def forward_prefill(cfg, params: LMParams, batch: dict, *, mesh=None,
+                    lina: bool = False, serve_plan=None, serve_top_k=None,
+                    fsdp: bool = False) -> ModelOutput:
+    """Serving prefill: last-position logits [B, V] in ``cfg.dtype``
+    (``ModelOutput.logits``), the aux loss and, for the transformer
+    family, the per-MoE-layer top-1 expert choices [n_moe_layers, B * S].
+    ``batch`` holds ``tokens`` [B, S] on the params' device (the whole
+    batch on every rank of a mesh).  The transformer keywords are the
+    reference's (see the module doc); a stacked ``serve_plan`` gives each
+    MoE layer its own plan (the reference's prefill takes one plan for
+    every layer).  Builds no cache, as the reference's (decode starts from
+    ``init_cache``).  The WKV / SSD and flash kernels have no backward:
+    call it under ``torch.inference_mode`` when the params require
+    grad."""
     _check_served_here(cfg)
     p = cast_for_compute(cfg, params)
     x = p.embed[batch["tokens"].long()].to(DTYPES[cfg.dtype])
+    aux = torch.zeros((), device=x.device)
+    experts = None
     if isinstance(p.stack, HybridParams):
         x = _run_hybrid(cfg, p.stack, x)
-    else:
+    elif isinstance(p.stack, RWKVStack):
         x = _run_rwkv(cfg, p.stack, x)
+    else:
+        x, aux, experts = run_stack(
+            cfg, p.stack, x, mesh=mesh, lina=lina, serve_plan=serve_plan,
+            serve_top_k=serve_top_k, fsdp=fsdp, use_kernel=kernel_route(cfg),
+            replicated=True)
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
     logits = x[:, -1] @ unembed_weight(p)
-    return ModelOutput(None, torch.zeros((), device=x.device), None, logits)
+    return ModelOutput(None, aux, experts, logits)
 
 
 def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
                device="cuda") -> LMCache:
-    """Empty decode state of the hybrid or RWKV family on ``device`` (the
-    card by default; raises without one): the shared block's KV cache
-    [n_taps, B, S_max, KV, hd] in ``dtype`` and the Mamba2 states, or the
-    RWKV states; recurrent states in float32, as the reference keeps
-    them."""
+    """Empty decode state on ``device`` (the card by default; raises
+    without one): the transformer's KV cache [n_groups, every, B, S_max,
+    KV, hd], or the hybrid's shared-block KV cache [n_taps, B, S_max, KV,
+    hd] and its Mamba2 states, or the RWKV states.  KV caches are in
+    ``dtype``, S_max = seq_len capped at the sliding window; recurrent
+    states in float32, as the reference keeps them."""
     _check_served_here(cfg)
     device = resolve_device(device)
     pos = torch.zeros((batch,), dtype=torch.int32, device=device)
+    s = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
+    kv_row = (batch, s, cfg.n_kv_heads, cfg.resolved_head_dim)
 
     def per_layer(state):
         return tree_map(lambda a: a.expand(cfg.n_layers, *a.shape)
                         .contiguous(), state)
+    if not (cfg.layer_pattern or cfg.attention_free):
+        every = cfg.moe.every if cfg.moe.enabled else 1
+        shape = (cfg.n_layers // every, every, *kv_row)
+        return LMCache(kv=KVCache(
+            torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device)), mamba=None,
+            rwkv=None, pos=pos)
     if cfg.layer_pattern:
-        s = min(seq_len, cfg.sliding_window) if cfg.sliding_window \
-            else seq_len
-        shape = (sum(_taps(cfg)), batch, s, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
+        shape = (sum(_taps(cfg)), *kv_row)
         kv = KVCache(torch.zeros(shape, dtype=dtype, device=device),
                      torch.zeros(shape, dtype=dtype, device=device))
         ms = per_layer(ssm_mod.init_mamba_state(cfg, batch, device=device))
@@ -421,11 +537,53 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     return LMCache(kv=None, mamba=None, rwkv=rs, pos=pos)
 
 
-def decode_step(cfg, params: LMParams, cache: LMCache, token) -> tuple:
-    """One decode step of the hybrid or RWKV family.  token: [B] on the
-    params' device.  Returns (logits [B, V], cache, None): no expert
-    choices, as the reference returns for non-MoE stacks.  Mamba2 layers
-    run ``mamba_decode`` (plain), the shared block the plain
+def _decode_groups(cfg, stack: GroupParams, cache: LMCache, x, *, mesh,
+                   lina, serve_plan, serve_top_k, fsdp):
+    """The transformer's decode step on x [B, 1, d] -> (x, new cache,
+    expert choices [n_moe_layers, B] or None)."""
+    every = cfg.moe.every if cfg.moe.enabled else 1
+    ks, vs, top1s = [], [], []
+    for gi in range(cfg.n_layers // every):
+        gp = tree_idx(stack, gi)
+        ks_g, vs_g = [], []
+        for j in range(every):
+            h = rms_norm(x, gp.ln1[j], cfg.norm_eps)
+            y, kv_new = decode_attention(
+                tree_idx(gp.attn, j), h,
+                KVCache(cache.kv.k[gi, j], cache.kv.v[gi, j]), cache.pos,
+                cfg)
+            ks_g.append(kv_new.k)
+            vs_g.append(kv_new.v)
+            x = x + y
+            h = rms_norm(x, gp.ln2[j], cfg.norm_eps)
+            if not (cfg.moe.enabled and j == every - 1):
+                x = x + _ffn_apply(tree_idx(gp.ffn, j), h, cfg.ffn_type)
+                continue
+            moe_y, _, top1 = _moe_sublayer(
+                cfg, gp, h, _plan_of(serve_plan, gi), mesh=mesh, lina=lina,
+                fsdp=fsdp, serve_top_k=serve_top_k, fuse_shortcut=False,
+                dispatch_backend="scatter", replicated=True)
+            x = x + moe_y
+            top1s.append(top1)
+        ks.append(torch.stack(ks_g))
+        vs.append(torch.stack(vs_g))
+    new_cache = LMCache(kv=KVCache(torch.stack(ks), torch.stack(vs)),
+                        mamba=None, rwkv=None, pos=cache.pos + 1)
+    return x, new_cache, torch.stack(top1s) if top1s else None
+
+
+def decode_step(cfg, params: LMParams, cache: LMCache, token, *, mesh=None,
+                lina: bool = False, serve_plan=None, serve_top_k=None,
+                fsdp: bool = False) -> tuple:
+    """One decode step.  token: [B] on the params' device (the whole batch
+    on every rank of a mesh).  Returns (logits [B, V], cache,
+    expert_choices): the per-MoE-layer top-1 expert of each row
+    [n_moe_layers, B] for the transformer family (callers roll path-ID
+    state with it), None for the hybrid and RWKV stacks, as the reference
+    returns.  The transformer keywords are the reference's (see the module
+    doc; a stacked ``serve_plan`` gives each MoE layer its own plan); its
+    attention is the plain ``decode_attention``.  Mamba2 layers run
+    ``mamba_decode`` (plain), the shared block the plain
     ``decode_attention``; each RWKV6 layer runs the WKV op at T = 1 from
     its cached state (the kernel on the kernel route)."""
     _check_served_here(cfg)
@@ -433,6 +591,12 @@ def decode_step(cfg, params: LMParams, cache: LMCache, token) -> tuple:
     x = p.embed[token.long()][:, None].to(DTYPES[cfg.dtype])     # [B,1,d]
     pos = cache.pos
     eps = cfg.norm_eps
+    if isinstance(p.stack, GroupParams):
+        x, new_cache, experts = _decode_groups(
+            cfg, p.stack, cache, x, mesh=mesh, lina=lina,
+            serve_plan=serve_plan, serve_top_k=serve_top_k, fsdp=fsdp)
+        x = rms_norm(x, p.final_norm, eps)
+        return x[:, 0] @ unembed_weight(p), new_cache, experts
     if isinstance(p.stack, HybridParams):
         hp = p.stack
         states, ks, vs = [], [], []

@@ -28,7 +28,11 @@ of still-active (mid-decode) requests are pinned and never evicted.
 Latency accounting supports both wall-clock serving (``submit`` stamps
 arrivals from the engine clock) and open-loop trace replay (``simulate``):
 virtual arrival times drive queueing delay while the measured wall time of
-each step drives service time.  Per-request TTFT (time of the first
+each step drives service time.  On a server with a multi-rank mesh every
+rank runs the same engine on the same trace; a step's service time is the
+max over the ranks (what one SPMD step that waits on every device
+measures), so every rank stamps the same completions.  Wall-clock serving
+there needs a request router and raises.  Per-request TTFT (time of the first
 generated token) and completion times support time-per-output-token
 reporting.
 """
@@ -47,7 +51,7 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.lm import LMCache
 from repro_torch.obs import ObsContext
 from repro_torch.obs.tracer import Span
-from repro_torch.runtime.server import LayerStats, MoEServer
+from repro_torch.runtime.server import LayerStats, MoEServer, agree_max
 
 
 @dataclass
@@ -333,6 +337,12 @@ class ServingEngine:
         completions are stamped ``now + wall_service * time_scale``
         (virtual-clock replay); otherwise from the engine clock."""
         ecfg = self.ecfg
+        mesh = self.server.mesh
+        if now is None and mesh is not None and mesh.world > 1:
+            raise NotImplementedError(
+                "wall-clock serving on a multi-rank mesh needs a request "
+                "router that feeds every rank the same requests; replay a "
+                "trace with simulate()")
         self.step_idx += 1
         t_now = self.clock() if now is None else now
         self._shed_expired(t_now)
@@ -367,7 +377,9 @@ class ServingEngine:
                 out.extend(self._finish_decodes(decodes, dec_res, pending))
             for group, res in pre_parts:
                 out.extend(self._finish_prefills(group, res, pending))
-        service = sw_dec.dt + sw_pre.dt + sw_ins.dt
+        # on a mesh the step ends when its slowest rank does: every rank
+        # stamps that, so the virtual clock, admission and shedding agree
+        service = agree_max(mesh, sw_dec.dt + sw_pre.dt + sw_ins.dt)
         if now is None:
             completion = self.clock()
         else:

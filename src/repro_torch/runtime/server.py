@@ -1,4 +1,5 @@
-"""Two-phase MoE serving runtime (paper §5/§6.2), in PyTorch on one card.
+"""Two-phase MoE serving runtime (paper §5/§6.2), in PyTorch, on one card
+or an expert-parallel mesh.
 
 Per MoE layer the server:
   phase 1: estimates the layer's expert popularity from each token's
@@ -11,14 +12,23 @@ Per MoE layer the server:
            the actual popularity (the blocking fine-tune) and refreshes
            the cache;
   dispatch: runs ``core.serving.serve_moe_layer`` under the final plan —
-           weighted replica split, packed experts — through the kernels on
-           a CUDA tensor.
+           weighted replica split, packed experts, and on a mesh the
+           all-to-all to the slot owners — through the kernels on a CUDA
+           tensor.
 
 Entry points: ``serve_batch`` (full sequence, no cache), ``prefill_batch``
 (full sequence + KV cache), ``decode_batch`` (one token per request against
 the cache).  Logits come back as float32 numpy arrays, so every call ends
 after the card has finished (the engine's service-time stopwatch relies on
 that).
+
+On a mesh (``launch.mesh``) every rank runs the same server on the same
+requests: attention, gating and the planner are replicated, and only the
+MoE dispatch is sharded (this rank's experts, from the full params every
+rank builds).  The ranks' host decisions must agree or they would issue
+different collectives: the phase-2 watchdog's stopwatch is the max over
+the world, and each new plan's tables are checked equal across the ranks
+once (``PlanMismatch`` otherwise).
 """
 from __future__ import annotations
 
@@ -28,16 +38,20 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.convert import shard_params
+from repro_torch.core import axes
 from repro_torch.core.gating import capacity
 from repro_torch.core.placement import (PlacementPlan, PlanCache,
                                         identity_plan, needs_finetune,
                                         plan_from_replicas, plan_placement,
                                         route_weights)
 from repro_torch.core.popularity import PathProfile
-from repro_torch.core.serving import (PlanArrays, mask_dead_route_weights,
+from repro_torch.core.serving import (PlanArrays, dp_shard_count,
+                                      fetch_hosted, mask_dead_route_weights,
                                       replica_token_counts, serve_moe_layer,
                                       slot_capacity)
 from repro_torch.devices import resolve_device
@@ -112,16 +126,45 @@ def _host(t) -> np.ndarray:
     return t.cpu().numpy()
 
 
+class PlanMismatch(RuntimeError):
+    """The ranks of a mesh hold different plans for a layer."""
+
+
+def agree_max(mesh, value: float) -> float:
+    """``value``'s max over every rank of ``mesh`` (itself without one)."""
+    if mesh is None or mesh.world == 1:
+        return value
+    t = torch.tensor([value], dtype=torch.float64, device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
+
+
+def _plan_checksum(plan: PlacementPlan) -> np.ndarray:
+    """[3] int64: a position-weighted sum of each of slot_expert,
+    replica_of and n_replicas (entries are >= -1)."""
+    out = []
+    for a in (plan.slot_expert, plan.replica_of, plan.n_replicas):
+        a = np.asarray(a, np.int64).reshape(-1)
+        out.append(int(((a + 2) * np.arange(1, a.size + 1)).sum()))
+    return np.asarray(out, np.int64)
+
+
 class MoEServer:
     def __init__(self, cfg: ModelConfig, params, profile: PathProfile,
                  scfg: Optional[ServerConfig] = None,
-                 obs: Optional[ObsContext] = None, device="cuda"):
+                 obs: Optional[ObsContext] = None, device="cuda", mesh=None):
+        """``params``: the full model (every rank builds it from the seed);
+        with ``mesh`` the server keeps this rank's experts and runs on the
+        mesh's device."""
         if not cfg.moe.enabled:
             raise ValueError("MoEServer serves MoE architectures")
         scfg = scfg or ServerConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         self.cfg = cfg
-        self.params = tree_map(lambda a: a.to(self.device), params)
+        self.params = shard_params(
+            tree_map(lambda a: a.to(self.device), params), mesh)
         self.profile = profile
         self.scfg = scfg
         self.obs = obs or ObsContext.disabled()
@@ -136,6 +179,7 @@ class MoEServer:
         self._dtype = lm_mod.DTYPES[cfg.dtype]
         self._gp_cache: dict = {}
         self._plan_arrays: dict = {}
+        self._hosted_of: dict = {}
         self._plan_override: dict = {}
         self._override_fresh: set = set()
         self.dead_devices: set = set()
@@ -229,7 +273,7 @@ class MoEServer:
         combos = set()
         for n_valid in sorted(set(int(r) for r in rows)):
             bucket = 1 << (n_valid - 1).bit_length()
-            cap = self._valid_capacity(n_valid)
+            cap = self._valid_capacity(n_valid, bucket)
             for r in min_replicas_grid:
                 r = max(1, int(min(r, (self.n_dev * self.scfg.max_pack)
                                    // cfg.moe.n_experts, self.n_dev)))
@@ -273,23 +317,26 @@ class MoEServer:
         return probs, idx
 
     def _dispatch(self, moe_p, h2, plan: PlanArrays, min_replicas: int,
-                  cap: int):
-        """The MoE layer under the final plan (``serve_moe_layer``)."""
+                  cap: int, hosted=None):
+        """The MoE layer under the final plan (``serve_moe_layer``, on the
+        mesh when there is one; ``hosted``: the plan's fetched experts)."""
         y, _, _ = serve_moe_layer(h2, moe_p, self.cfg.moe, plan,
                                   ffn_type=self.cfg.ffn_type,
                                   top_k=self.scfg.top_k,
                                   min_replicas=min_replicas,
                                   cap_override=cap,
-                                  route_mode=self.scfg.route_mode)
+                                  route_mode=self.scfg.route_mode,
+                                  mesh=self.mesh, hosted=hosted)
         return y
 
-    def _valid_capacity(self, n_valid: int) -> int:
-        """Per-expert gating capacity sized from the *valid* token count so
-        batch padding rows cannot change real tokens' dispatch (pad rows
-        sort after real rows; with capacity fixed they can only be
-        dropped)."""
-        return capacity(n_valid, self.cfg.moe.n_experts, self.scfg.top_k,
-                        self.cfg.moe.capacity_factor)
+    def _valid_capacity(self, n_valid: int, n_total: int) -> int:
+        """Per-expert gating capacity of one token shard, sized from the
+        *valid* token count so batch padding rows cannot change real
+        tokens' dispatch (pad rows sort after real rows; with capacity
+        fixed they can only be dropped)."""
+        shards = dp_shard_count(self.mesh, n_total)
+        return capacity(-(-n_valid // shards), self.cfg.moe.n_experts,
+                        self.scfg.top_k, self.cfg.moe.capacity_factor)
 
     # --- planning ----------------------------------------------------------
     def _plan_layer(self, li: int, est: np.ndarray, actual: np.ndarray):
@@ -373,8 +420,9 @@ class MoEServer:
                     np.full((e,), 1.0 / e), np.ones((e,), np.int64),
                     self.n_dev, max_pack=scfg.max_pack,
                     dead_devices=self.dead_devices)
+        # the ranks' stopwatches differ; one slow rank decides for all
         if phase2 and scfg.phase2_timeout_s > 0 and \
-                sw.dt > scfg.phase2_timeout_s:
+                agree_max(self.mesh, sw.dt) > scfg.phase2_timeout_s:
             self.degrade_stats["phase2_timeouts"] += 1
             met.counter("server_degrade_total", kind="phase2_timeout").inc()
             self._phase2_suppress = scfg.phase2_backoff
@@ -414,14 +462,16 @@ class MoEServer:
                                                                  actual)
 
             with tr.span("dispatch"):
-                cap = self._valid_capacity(int(valid.sum()))
+                n_total = h2.shape[0]
+                cap = self._valid_capacity(int(valid.sum()), n_total)
                 min_rep = int(plan.n_replicas.min())
-                y = self._dispatch(gp.moe, h2, self._plan_device(plan),
-                                   min_rep, cap)
+                _, dev_plan, host_plan = self._plan_entry(plan, li)
+                y = self._dispatch(gp.moe, h2, dev_plan, min_rep, cap,
+                                   self._hosted(plan, li, gp.moe))
                 # host mirror of the replica split (telemetry)
                 rep_load = replica_token_counts(
-                    idx_host, self._host_plan(plan), cap,
-                    slot_capacity(cap, min_rep), valid=valid,
+                    idx_host, host_plan, cap, slot_capacity(cap, min_rep),
+                    valid=valid, dp_shards=dp_shard_count(self.mesh, n_total),
                     route_mode=scfg.route_mode)
             lsp.set(finetuned=finetuned, reused=reused, accurate=accurate)
 
@@ -444,14 +494,16 @@ class MoEServer:
                 self.dead_devices), np.float32)
         return host_rw
 
-    def _plan_entry(self, plan: PlacementPlan):
+    def _plan_entry(self, plan: PlacementPlan, layer=None):
         """(plan, device PlanArrays, host PlanArrays), cached per plan
         object: the host->device upload and the route-weight IPF happen
-        once per (layer, popularity regime)."""
+        once per (layer, popularity regime); so does, on a mesh, the check
+        that every rank holds this plan."""
         ent = self._plan_arrays.get(id(plan))
         if ent is None or ent[0] is not plan:
             if len(self._plan_arrays) > 256:
                 self._plan_arrays.clear()
+            self._check_plan_agrees(plan, layer)
             host_rw = self._plan_host_rw(plan)
 
             def t(a):
@@ -465,11 +517,38 @@ class MoEServer:
             self._plan_arrays[id(plan)] = ent
         return ent
 
+    def _check_plan_agrees(self, plan: PlacementPlan, layer) -> None:
+        """Raise ``PlanMismatch`` unless every rank of the mesh holds the
+        same tables (one all-reduce of the checksums and their negation
+        under MAX: the max and the min)."""
+        if self.mesh is None or self.mesh.world == 1:
+            return
+        c = torch.as_tensor(_plan_checksum(plan), device=self.device)
+        both = torch.cat([c, -c])
+        dist.all_reduce(both, op=dist.ReduceOp.MAX)
+        hi, lo = both[:3], -both[3:]
+        if not torch.equal(hi, lo):
+            raise PlanMismatch(
+                f"rank {self.mesh.rank}: the ranks hold different plans for "
+                f"MoE layer {layer if layer is not None else '(warm-up)'}")
+
+    def _hosted(self, plan: PlacementPlan, li: int, moe_p):
+        """Layer ``li``'s hosted experts under ``plan`` on this rank; None
+        where the layer reads the weights in place (no mesh, ep 1).  The
+        weights are static while serving, so a layer's stack is fetched
+        when its plan changes and kept for that plan only: one stack a
+        layer at most."""
+        if self.mesh is None or self.mesh.size(axes.EP_AXIS) == 1:
+            return None
+        ent = self._hosted_of.get(li)
+        if ent is None or ent[0] is not plan:
+            ent = (plan, fetch_hosted(moe_p, self._plan_device(plan),
+                                      self.mesh))
+            self._hosted_of[li] = ent
+        return ent[1]
+
     def _plan_device(self, plan: PlacementPlan) -> PlanArrays:
         return self._plan_entry(plan)[1]
-
-    def _host_plan(self, plan: PlacementPlan) -> PlanArrays:
-        return self._plan_entry(plan)[2]
 
     def _group_params(self, g):
         gp = self._gp_cache.get(g)
@@ -624,16 +703,25 @@ class MoEServer:
 
 
 def profile_from_training(cfg: ModelConfig, params, batches,
-                          path_len: int = 3, device="cuda") -> PathProfile:
+                          path_len: int = 3, device="cuda",
+                          mesh=None) -> PathProfile:
     """Profiling stage (§5.2): replay data through the model, collect
-    per-layer top-1 expert choices, accumulate Ψ tables."""
-    dev = resolve_device(device)
+    per-layer top-1 expert choices, accumulate Ψ tables.  The replay is
+    the training stack's forward with ``lina=False`` (``lm.run_stack``,
+    plain attention, no loss).  With ``mesh`` (``params`` the full model,
+    as ``MoEServer`` takes it) every rank replays the whole batch, the
+    MoE layers expert parallel on the reference's token shard, so every
+    rank gets the same profile."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     prof = PathProfile(n_layers=cfg.n_moe_layers,
                        n_experts=cfg.moe.n_experts, path_len=path_len)
+    p = lm_mod.cast_for_compute(cfg, shard_params(
+        tree_map(lambda a: a.to(dev), params), mesh))
     with torch.inference_mode():
         for batch in batches:
-            bt = {k: torch.as_tensor(np.asarray(v), device=dev)
-                  for k, v in batch.items()}
-            choices = lm_mod.forward_train(cfg, params, bt).expert_choices
+            tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=dev)
+            x = p.embed[tokens.long()].to(lm_mod.DTYPES[cfg.dtype])
+            choices = lm_mod.run_stack(cfg, p.stack, x, mesh=mesh,
+                                       lina=False, replicated=True)[2]
             prof.profile_batch(choices.cpu().numpy())
     return prof

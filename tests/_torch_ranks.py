@@ -409,3 +409,227 @@ def one_rank_body(rank, flags):
             losses.append(float(m["loss"]))
         out.append((losses, [t.numpy() for t in tree_leaves(st)]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh (test_torch_serve_ep, test_torch_serve_steps)
+# ---------------------------------------------------------------------------
+
+# the layer-parity cases of test_torch_serve_ep on a (2, 4) mesh: name ->
+# (route_mode, top_k, ffn_type, compute_backend, n_dev, tokens, replicas
+# (None: plan_placement; r: r of every expert), cap_override, dead devices)
+SERVE_CASES = {
+    "weighted_top1_gelu_xla": ("weighted", 1, "gelu", "xla", 4, 64, None,
+                               0, ()),
+    "round_robin_top2_swiglu_pallas_group2": (
+        "round_robin", 2, "swiglu", "pallas", 8, 64, None, 0, ()),
+    "weighted_top2_pallas_min_replicas2": (
+        "weighted", 2, "gelu", "pallas", 8, 64, 2, 0, ()),
+    "weighted_63_tokens_swiglu_xla": ("weighted", 1, "swiglu", "xla", 4, 63,
+                                      None, 0, ()),
+    "round_robin_cap_override_xla": ("round_robin", 1, "gelu", "xla", 8, 64,
+                                     None, 8, ()),
+    "weighted_dead_device_swiglu_pallas": (
+        "weighted", 2, "swiglu", "pallas", 8, 64, None, 0, (3,)),
+}
+# capacity factor of the layer cases: tight enough that a token shard
+# drops tokens, so sharding the tokens changes the numbers
+SERVE_CF = 0.5
+
+
+def serve_layer_body(rank, inp_path, shape):
+    """Every case of SERVE_CASES through ``serve_moe_layer`` on a mesh of
+    ``shape``: the global y, ids and probs this rank returns, whether a
+    pre-fetched hosted stack gives the same bits, whether ``fetch_hosted``
+    is the whole stack's hosted rows, and ``dp_shard_count``."""
+    import numpy as np
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.convert import shard_params
+    from repro_torch.core import serving
+    from repro_torch.core.moe import MoEParams
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, device="cpu")
+    inp = np.load(inp_path)
+    t = {k: torch.from_numpy(inp[k]) for k in inp.files}
+    out = {"dp_shard_count": [serving.dp_shard_count(mesh, n)
+                              for n in (64, 63, 2)]}
+    for name, (route, k, ffn, backend, n_dev, n_tok, _, cap,
+               _) in SERVE_CASES.items():
+        cfg = MoEConfig(n_experts=t["wi"].shape[0], top_k=2,
+                        d_ff=t["wi"].shape[2], capacity_factor=SERVE_CF,
+                        compute_backend=backend)
+        full = MoEParams(t["router"], t["wi"],
+                         t["wu"] if ffn == "swiglu" else None, t["wo"])
+        ps = shard_params(full, mesh)
+        plan = serving.PlanArrays(*(t[f"{name}/{f}"] for f in (
+            "slot_expert", "replica_of", "n_replicas", "route_weight")))
+        kw = dict(ffn_type=ffn, top_k=k,
+                  min_replicas=int(plan.n_replicas.min()), cap_override=cap,
+                  route_mode=route, mesh=mesh)
+        x = t["x"][:n_tok]
+        y, eidx, probs = serving.serve_moe_layer(x, ps, cfg, plan, **kw)
+        hw = serving.fetch_hosted(ps, plan, mesh)
+        y2, _, _ = serving.serve_moe_layer(x, ps, cfg, plan, hosted=hw, **kw)
+        safe = torch.clamp(serving.hosted_slots(plan, mesh), min=0).long()
+        fetched_exact = all(
+            torch.equal(a, w[safe]) for a, w in
+            zip(hw, (full.wi, full.wu, full.wo)) if w is not None)
+        out[name] = {"y": y.numpy(), "eidx": eidx.numpy(),
+                     "probs": probs.numpy(),
+                     "prefetched_bitwise": torch.equal(y, y2),
+                     "fetched_exact": fetched_exact}
+    return out
+
+
+def params_from_npz(cfg, path):
+    """The port's ``LMParams`` of ``cfg`` with the leaves of an ``.npz``
+    keyed by ``tree_items`` path (the reference's params, converted)."""
+    import numpy as np
+    from repro_torch.tree import tree_items, tree_unflatten_like
+    like = full_params(cfg)
+    arrs = np.load(path)
+    return tree_unflatten_like(like, [torch.from_numpy(arrs[p])
+                                      for p, _ in tree_items(like)])
+
+
+def _stats(stats):
+    return [{"layer": s.layer, "finetuned": s.finetuned,
+             "est_accurate": s.est_accurate, "plan_reused": s.plan_reused,
+             "n_tokens": s.n_tokens, "replica_load": s.replica_load,
+             "est_pop": s.est_pop, "actual_pop": s.actual_pop,
+             "device_load": s.device_load} for s in stats]
+
+
+SLOW_RANK, SLOW_S = 1, 0.02     # the simulate check's slowed rank and sleep
+
+
+def serve_server_body(rank, params_path, inp_path):
+    """``MoEServer`` on a (2, 2) mesh with the reference's weights: the
+    profile, serve_batch, prefill and two decode steps; then ``simulate``
+    with rank SLOW_RANK sleeping SLOW_S in every dispatch."""
+    import time
+    import numpy as np
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.engine import (EngineConfig, ServingEngine,
+                                            simulate)
+    from repro_torch.runtime.server import MoEServer, profile_from_training
+    mesh = make_mesh((2, 2), device="cpu")
+    cfg = _smoke()
+    params = params_from_npz(cfg, params_path)
+    inp = np.load(inp_path)
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                global_batch=4, seed=0))
+    prof = profile_from_training(cfg, params,
+                                 (ds.batch(i) for i in range(3)), mesh=mesh)
+    srv = MoEServer(cfg, params, prof, mesh=mesh)
+    out = {"counts": prof.counts}
+    with torch.inference_mode():
+        r = srv.serve_batch(inp["serve_tokens"])
+        out["serve"] = (r.logits, r.path_ids, _stats(r.stats))
+        pre = srv.prefill_batch(inp["tokens"], lengths=inp["lengths"],
+                                path_init=inp["path_init"],
+                                cache_len=inp["tokens"].shape[1] + 2)
+        out["prefill"] = (pre.logits, pre.path_ids, _stats(pre.stats))
+        lengths = inp["lengths"]
+        b = lengths.shape[0]
+        state = pre.path_ids[np.arange(b), np.maximum(lengths - 1, 0)]
+        cache, nxt, valid = pre.cache, inp["next"], lengths > 0
+        out["decode"] = []
+        for _ in range(2):
+            d = srv.decode_batch(nxt, cache, state, valid=valid)
+            out["decode"].append((d.logits, d.path_state, _stats(d.stats)))
+            cache, state = d.cache, d.path_state
+            nxt = np.argmax(d.logits, axis=-1)
+        if rank == SLOW_RANK:
+            real = srv._dispatch
+
+            def slow(*a, **kw):
+                time.sleep(SLOW_S)
+                return real(*a, **kw)
+            srv._dispatch = slow
+        eng = ServingEngine(srv, EngineConfig(max_batch_tokens=64,
+                                              max_batch_requests=4))
+        trace = [(inp["trace_tokens"][i], float(inp["trace_at"][i]))
+                 for i in range(inp["trace_at"].shape[0])]
+        res = simulate(eng, trace, max_new_tokens=2)
+    out["simulate"] = sorted((r.rid, r.tokens.tolist(), r.arrival,
+                              r.completion, r.ttft) for r in res)
+    out["hosted"] = (sorted(srv._hosted_of), len(srv._plan_arrays))
+    return out
+
+
+STEP_PLANS = ("none", "single", "stacked")
+
+
+def serve_steps(cfg, params, mesh, inp, device="cpu"):
+    """``make_prefill_step`` / ``make_decode_step`` under no plan, the
+    identity plan of ``make_serve_plan`` and the stacked plan of ``inp``
+    (params: the full model; each step gets this rank's fsdp shard): the
+    prefill logits, and two decode steps' logits, expert choices and the
+    final cache."""
+    from repro_torch.convert import shard_params
+    from repro_torch.core.serving import PlanArrays
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step, make_serve_plan)
+    from repro_torch.models import lm
+    tag = "none" if mesh is None else "x".join(map(str, mesh.shape))
+    stacked = PlanArrays(*(torch.from_numpy(inp[f"{tag}/stacked/{f}"])
+                           for f in PlanArrays._fields))
+    plans = {"none": None, "single": make_serve_plan(cfg, mesh, device),
+             "stacked": stacked}
+    ps = shard_params(params, mesh, fsdp=True)
+    tokens = torch.from_numpy(inp["tokens"])
+    out = {"plan": [a.numpy() for a in plans["single"]]}
+    with torch.inference_mode():
+        for name, plan in plans.items():
+            pre = make_prefill_step(cfg, mesh, serve_plan=plan)
+            dec = make_decode_step(cfg, mesh, serve_plan=plan)
+            cache = lm.init_cache(cfg, tokens.shape[0], 12,
+                                  dtype=torch.float32, device=device)
+            steps = []
+            for i in range(2):
+                logits, cache, experts = dec(ps, cache, tokens[:, i])
+                steps.append((logits.numpy(), experts.numpy()))
+            out[name] = {"prefill": pre(ps, {"tokens": tokens}).numpy(),
+                         "decode": steps, "cache_k": cache.kv.k.numpy()}
+    return out
+
+
+def decode_matches_prefill(cfg, params, mesh, tokens, device="cpu"):
+    """Max |prefill's last logits - the logits of decoding the prompt a
+    token at a time|, with no plan and under the identity plan."""
+    from repro_torch.convert import shard_params
+    from repro_torch.launch.steps import make_serve_plan
+    from repro_torch.models import lm
+    ps = shard_params(params, mesh)
+    out = []
+    with torch.inference_mode():
+        for plan in (None, make_serve_plan(cfg, mesh, device)):
+            want = lm.forward_prefill(cfg, ps, {"tokens": tokens},
+                                      mesh=mesh, serve_plan=plan).logits
+            cache = lm.init_cache(cfg, tokens.shape[0], tokens.shape[1],
+                                  dtype=torch.float32, device=device)
+            for i in range(tokens.shape[1]):
+                got, cache, _ = lm.decode_step(cfg, ps, cache, tokens[:, i],
+                                               mesh=mesh, serve_plan=plan)
+            out.append(float((got - want).abs().max()))
+    return out
+
+
+def serve_steps_body(rank, params_path, inp_path, shape):
+    """``serve_steps`` and ``decode_matches_prefill`` on a mesh of
+    ``shape`` (no token dropped: capacity factor 4)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, device="cpu")
+    cfg = _smoke()
+    params = params_from_npz(cfg, params_path)
+    inp = np.load(inp_path)
+    out = serve_steps(cfg, params, mesh, inp)
+    roomy = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=4.0))
+    out["decode_vs_prefill"] = decode_matches_prefill(
+        roomy, params, mesh, torch.from_numpy(inp["tokens"]))
+    return out

@@ -24,7 +24,10 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 need = {"repro_torch.core.axes", "repro_torch.core.microop",
         "repro_torch.launch.mesh", "repro_torch.optim.reduce",
-        "repro_torch.optim.compression"}
+        "repro_torch.optim.compression", "repro_torch.core.serving",
+        "repro_torch.runtime.server", "repro_torch.runtime.engine",
+        "repro_torch.launch.serve", "repro_torch.launch.steps",
+        "repro_torch.models.lm"}
 missing = sorted(need - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 20 else 0)

@@ -225,15 +225,22 @@ def test_plain_route_matches_kernel_route(models):
 
 
 def test_training_and_the_transformer_entry_points_refuse(models):
+    """Training refuses this family; the transformer family's serve entry
+    points, which refused before, now take it (its cache below)."""
     _, cfg, _, params = models
     toks = torch.zeros((2, 8), dtype=torch.long)
     with pytest.raises(NotImplementedError,
                        match="training of the RWKV6 and hybrid Mamba2 "
                              "families"):
         lm.forward_train(cfg, params, {"tokens": toks, "labels": toks})
+
+
+def test_transformer_init_cache_has_the_reference_shape():
     moe = get_config("gpt2-moe-smoke")
-    with pytest.raises(NotImplementedError, match="MoEServer"):
-        lm.init_cache(moe, 2, 8, device="cpu")
+    got = lm.init_cache(moe, 2, 8, device="cpu")
+    want = jlm.init_cache(j_get_config("gpt2-moe-smoke"), 2, 8)
+    assert got.kv.k.shape == got.kv.v.shape == want.kv.k.shape
+    assert got.kv.k.dtype == torch.bfloat16 and not got.kv.k.any()
 
 
 def _bf16_drift(jcfg, cfg, toks):

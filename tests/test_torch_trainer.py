@@ -243,14 +243,31 @@ def test_train_driver_flag_reaches_the_trainer(name, tmp_path):
 
 def test_train_driver_spawns_a_rank_for_each_mesh_cell(monkeypatch):
     calls = []
-    monkeypatch.setattr(train, "spawn", lambda *a: calls.append(a))
+    monkeypatch.setattr(train.mesh_mod, "spawn", lambda *a: calls.append(a))
     argv = ["--arch", "gpt2-moe-smoke", "--device", "cpu", "--mesh", "2x2"]
     assert train.main(argv) == 0
-    assert calls == [(argv, 4, "cpu")]
+    assert calls == [(train.main, argv, 4, "cpu")]
 
 
-def test_serve_driver_still_refuses_the_micro_op_flags():
+def test_serve_micro_op_flags_reach_the_config_not_the_profile(
+        capsys):
+    """``--n-microops`` and ``--pipeline-ffn`` / ``--no-pipeline-ffn`` set
+    ``cfg.moe`` and print in the knob line; the profiling forward runs
+    with ``lina=False`` (as the reference's), so its profile does not
+    move."""
     from repro_torch.launch import serve
-    for flag in (["--n-microops", "2"], ["--pipeline-ffn"]):
-        with pytest.raises(SystemExit):
-            serve.parse_args(["--arch", "gpt2-moe-smoke", *flag])
+    argv = ["--arch", "gpt2-moe-smoke", "--device", "cpu", "--requests",
+            "2", "--seq", "8", "--max-new-tokens", "1", "--profile-batches",
+            "2"]
+    base = serve.run(argv)["engine"].server
+    for flags, n, pipe in ((["--n-microops", "2", "--pipeline-ffn"], 2,
+                            True),
+                           (["--n-microops", "3", "--no-pipeline-ffn"], 3,
+                            False)):
+        capsys.readouterr()
+        srv = serve.run(argv + flags)["engine"].server
+        assert (srv.cfg.moe.n_microops, srv.cfg.moe.pipeline_ffn) == (n, pipe)
+        assert f"moe knobs: n_microops={n} pipeline_ffn={pipe} " in \
+            capsys.readouterr().out
+        np.testing.assert_array_equal(srv.profile.counts,
+                                      base.profile.counts)
