@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 1m [--src DIR]
     python3 chip_smoke.py --phases 3,7
     python3 chip_smoke.py --phases 2,8
+    python3 chip_smoke.py --phases 9,10
 
 With no arguments every phase runs, as below.  ``--phases`` runs phase 0
 and a subset (``1r``: phase 1's two recurrences alone; ``1m``: its five
@@ -36,16 +37,23 @@ Phase 1  first times the launch floor: ``csrc/launch_floor.cu``'s empty
          place) and each slot's routed rows (the rest skipped): gpt2-moe's
          serve prefill and decode (16 experts in 64 slots), mixtral-8x22b's
          prefill (2048 tokens top-2 into 32 slots of 640 rows, ~128 a slot)
-         and decode (4 x 2), swiglu at d 6144 / F 16384, and slots of -1 and
-         of 0 rows; each case within 2e-2 of max |plain|, repeated bitwise,
-         zeros past each count.  It holds
-         ``flash_attention`` against ``ref_attention`` at seven shapes
+         and decode (4 x 2), swiglu at d 6144 / F 16384, slots of -1 and
+         of 0 rows, llama4-maverick's serve prefill at 512 slots
+         (``kMaxGroups``: 128 experts x 4, the routed rows of a 4 x 2048
+         top-1 prefill, swiglu d 5120 / f 8192, 32 GB of weights read in
+         place; the plain version gathers slot block by slot block,
+         ``ffn_plain``, and the composition is not timed) and 513 slots
+         (the index-order walk, f 1024); each case within 2e-2 of max
+         |plain|, repeated bitwise, zeros past each count.  It holds
+         ``flash_attention`` against ``ref_attention`` at nine shapes
          (a, b: gpt2-moe's prefill 4 x 64 and 8 x 1024, 12 heads, hd 64,
          causal; c, d: mixtral-8x22b's 1 x 2048 and 1 x 6144, 48 / 8 heads,
          hd 128, causal, window 4096; e: bert-large-moe's 8 x 512, 16 heads,
          hd 64, bidirectional; f: zamba2-1.2b's shared block, 4 x 2048, 32
          heads, hd 64, causal; g: a ragged 2 x 1000, 48 / 8 heads, hd 128,
-         window 256), norm-wise, each call repeated bitwise, timed beside
+         window 256; h, i: llama4-maverick's 40 / 8 and granite-34b's MQA
+         48 / 1, 1 x 2048, hd 128, causal), norm-wise, each call repeated
+         bitwise, timed beside
          ``scaled_dot_product_attention`` (the yardstick only).
 Phase 2  zeroes the launch counters, serves 8 requests x 8 new tokens of
          gpt2-moe at full width through ``repro_torch.launch.serve``,
@@ -195,6 +203,32 @@ Phase 8  serves on a one-rank NCCL mesh (``--mesh 1x1``; no multi-GPU
          (stacked plan, fsdp): a 4 x 64 prefill and 8 decode steps on the
          mesh bitwise against ``mesh=None``, and the kernel route against
          the plain route by ``compare_whole`` (phase 2's limits).
+
+Phase 9  serves llama4-maverick-400b-a17b at full width (d 5120, 40 / 8
+         heads, hd 128, 128 swiglu experts of 8192, top-1, a shared
+         expert, vocab 202,048, bf16 parameters) and depth 2 (a dense block
+         and an MoE block: 18.7 B parameters, 34.8 GiB) through
+         ``MoEServer`` and ``ServingEngine`` at ``ServerConfig`` defaults
+         (512 slots), kernel route: profiling on 2 batches of 2 x 2048, 4
+         requests of 2048 prompt tokens x 16 new tokens.  Counters zeroed
+         just before, read just after; every serve-path kernel and
+         ``flash_attention`` must launch.  It prints TTFT, TPOT, tokens/s,
+         peak memory while initialising and while serving, the server's
+         host spans, each kernel's launches in a prefill and a decode
+         step, the card's busy share of each, and replays the MoE layer
+         call of a prefill and a decode step through the plain route on
+         the same input, plan, cap and slot_cap (as phase 2), the plain
+         FFN run slot block by slot block (``plain_ffn_by_slot_block``:
+         gathering all 512 slots' weights would take 129 GB).
+Phase 10 serves the four dense configs (no MoE: a dense FFN in every block)
+         at full width as phases 5 and 6 do: qwen3-8b (qk_norm, 32 / 8
+         heads) and qwen1.5-0.5b (MHA at hd 64, QKV bias, tied embeddings)
+         at full depth, qwen2-72b (64 / 8, QKV bias) and granite-34b (MQA
+         48 / 1, gelu) cut to 8 layers.  ``flash_attention`` must launch
+         once a layer a prefill, and every call is replayed against
+         ``ref_attention`` (1e-2); decode attention is plain.  Then the
+         plain route in float32 shows decode-matches-prefill and the kernel
+         route drifts from it no further than the bf16 plain route does.
 
 Prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit).
@@ -801,8 +835,14 @@ def cold_ms(fn, tag: str, flush, iters: int = 20) -> tuple:
 # case; then gpt2-moe's serve prefill and decode with 16 experts in 64
 # slots, mixtral-8x22b's (8 swiglu experts of 16384 at d 6144 in 32 slots
 # of 640 rows: a 2048-token prefill top-2, ~128 rows a slot, and a decode
-# of 4 x 2), and the empty slots
+# of 4 x 2), and the empty slots; then llama4-maverick's serve prefill at a
+# default ServerConfig's 512 slots (128 experts x max_pack 4: csrc/
+# moe_ffn.cu's kMaxGroups, the last count its sorted walk takes), every
+# expert in 4 slots, the routed rows of a 4 x 2048-token top-1 prefill (cap
+# 88, slot_cap 22), swiglu d 5120 / f 8192, weights read in place (32 GB);
+# and the same at 513 slots (one empty: the index-order walk) at f 1024
 MIX_D, MIX_F, MIX_E, MIX_SLOTS = 6144, 16384, 8, 32
+L4_D, L4_F, L4_E, L4_SLOTS, L4_SLOT_CAP = 5120, 8192, 128, 512, 22
 FFN_CASES = (("prefill", N_SLOTS, 24, D, F, "gelu", None, 20),
              ("decode", N_SLOTS, 8, D, F, "gelu", None, 20),
              ("profile", E, 48, D, F, "gelu", None, 20),
@@ -815,7 +855,14 @@ FFN_CASES = (("prefill", N_SLOTS, 24, D, F, "gelu", None, 20),
               (MIX_E, 2048, 2, MAX_PACK), 10),
              ("mixtral decode", MIX_SLOTS, 8, MIX_D, MIX_F, "swiglu",
               (MIX_E, 4, 2, MAX_PACK), 10),
-             ("empty slot", 4, 200, 512, 1024, "swiglu", "empty", 20))
+             ("empty slot", 4, 200, 512, 1024, "swiglu", "empty", 20),
+             ("llama4 prefill", L4_SLOTS, L4_SLOT_CAP, L4_D, L4_F, "swiglu",
+              (L4_E, 8192, 1, MAX_PACK), 5),
+             ("llama4 513", L4_SLOTS + 1, L4_SLOT_CAP, L4_D, 1024, "swiglu",
+              (L4_E, 8192, 1, MAX_PACK), 10))
+# the plain version gathers each slot's weights: past this many bytes it
+# goes slot block by slot block (llama4's 512 slots would gather 129 GB)
+GATHER_MAX = 8 << 30
 
 
 def ffn_fp32(x, wi, wu, wo, act, group_expert=None, group_rows=None):
@@ -835,6 +882,30 @@ def ffn_fp32(x, wi, wu, wo, act, group_expert=None, group_rows=None):
             if act == "swiglu" else ref.gelu(h)
         out[g, :n] = h @ wo[e].float()
     return out
+
+
+def gather_block(*weights) -> int:
+    """Slots whose gathered expert weights (``weights``: [E, ...] stacks,
+    None skipped) fit in GATHER_MAX bytes."""
+    per_slot = sum(w[0].numel() * w.element_size()
+                   for w in weights if w is not None)
+    return max(1, GATHER_MAX // per_slot)
+
+
+def ffn_plain(x, wi, wu, wo, act, group_expert, group_rows):
+    """``ref_grouped_ffn`` over blocks of slots whose gathered weights stay
+    within GATHER_MAX bytes: the same function (a slot's rows meet only its
+    own expert's weights), with at most one block's weights gathered."""
+    import torch
+    from repro_torch.kernels import ref
+    g, n = x.shape[0], gather_block(wi, wu, wo)
+    if group_expert is None or g <= n:
+        return ref.ref_grouped_ffn(x, wi, wu, wo, act, group_expert,
+                                   group_rows)
+    return torch.cat([ref.ref_grouped_ffn(
+        x[i:i + n], wi, wu, wo, act, group_expert[i:i + n],
+        None if group_rows is None else group_rows[i:i + n])
+        for i in range(0, g, n)])
 
 
 def ffn_case(g, t, d, f, act, route, gen, dev, weights):
@@ -936,14 +1007,17 @@ def phase1_grouped_ffn(dev, hw, gen, record) -> None:
               f"{slots * w_bytes / 1e6:.1f} MB once a slot (bound "
               f"{b_slot:.4f} ms, {by_slot})", flush=True)
         sel = torch.clamp(ge, min=0).long() if ge is not None else None
-        wg = [None if a is None or sel is None else a[sel]
+        # the yardstick's weights gathered beforehand, where they fit
+        fits = sel is None or slots <= gather_block(wi, wu, wo)
+        wg = [None if a is None or sel is None or not fits else a[sel]
               for a in (wi, wu, wo)]
         record("grouped_ffn", case, err,
                lambda: grouped_ffn(x, wi, wu, wo, **kw),
-               lambda: ref.ref_grouped_ffn(x, wi, wu, wo, act, ge, gr),
+               lambda: ffn_plain(x, wi, wu, wo, act, ge, gr),
                io_bytes + hosted * w_bytes, n_ops, iters=iters,
-               library_fn=lambda: ref.ref_grouped_ffn(
+               library_fn=(lambda: ref.ref_grouped_ffn(
                    x, *(wi, wu, wo) if sel is None else wg, act))
+               if fits else None)
         del x, got, again, want, wg
     weights.clear()
     torch.cuda.empty_cache()
@@ -1140,7 +1214,9 @@ FLASH_CASES = (("a gpt2 prefill", 4, 64, 12, 12, 64, True, 0, 50),
                ("d mixtral 6144", 1, 6144, 48, 8, 128, True, 4096, 10),
                ("e bert non-causal", 8, 512, 16, 16, 64, False, 0, 20),
                ("f zamba2 shared", 4, 2048, 32, 32, 64, True, 0, 10),
-               ("g ragged gqa", 2, 1000, 48, 8, 128, True, 256, 20))
+               ("g ragged gqa", 2, 1000, 48, 8, 128, True, 256, 20),
+               ("h llama4 40/8", 1, 2048, 40, 8, 128, True, 0, 20),
+               ("i granite mqa 48/1", 1, 2048, 48, 1, 128, True, 0, 20))
 FLASH_ROW_CASE = "d mixtral 6144"     # the kernels line's row
 # norm-wise ||kernel - plain|| / ||plain||: the kernel rounds P to bf16
 # before P.V (2**-9 relative per element) and its output to bf16
@@ -1926,6 +2002,23 @@ def compare_routes(srv, toks) -> None:
                              "logits")
 
 
+def print_spans(tracer, tag: str) -> None:
+    """Where the host wall time of the served layers went: each server
+    span's count and total ms (the "gate" span holds the device->host copy
+    that waits for the card)."""
+    spans = {}
+    for root in tracer.roots:
+        for sp in root.walk():
+            if sp.name in ("server.layer", "phase1.estimate", "gate",
+                           "plan.lookup", "plan.build", "phase2.finetune",
+                           "dispatch"):
+                n, tot = spans.get(sp.name, (0, 0.0))
+                spans[sp.name] = (n + 1, tot + sp.duration)
+    print(f"{tag} host spans (count, total ms): " + json.dumps(
+        {k: [n, round(t * 1e3, 3)] for k, (n, t) in spans.items()}),
+        flush=True)
+
+
 # phase 2's summary, kept for phase 8's comparison
 PHASE2: dict = {}
 SERVE_ARGV = ["--arch", "gpt2-moe", "--requests", "8", "--seq", "64",
@@ -1977,19 +2070,7 @@ def phase2(dev) -> dict:
           f"plan reuse {engine.plan_reuse_rate:.4f}  fine-tune rate "
           f"{engine.finetune_rate:.4f}", flush=True)
 
-    # where the host wall time of a served layer goes (server spans; the
-    # "gate" span holds the device->host copy that waits for the card)
-    spans = {}
-    for root in out["obs"].tracer.roots:
-        for sp in root.walk():
-            if sp.name in ("server.layer", "phase1.estimate", "gate",
-                           "plan.lookup", "plan.build", "phase2.finetune",
-                           "dispatch"):
-                n, tot = spans.get(sp.name, (0, 0.0))
-                spans[sp.name] = (n + 1, tot + sp.duration)
-    print("phase 2 host spans (count, total ms): " + json.dumps(
-        {k: [n, round(t * 1e3, 3)] for k, (n, t) in spans.items()}),
-        flush=True)
+    print_spans(out["obs"].tracer, "phase 2")
 
     srv = engine.server
     rng = np.random.RandomState(7)
@@ -2142,7 +2223,172 @@ def phase4(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 5 and 6: rwkv6-1.6b and zamba2-1.2b served at full width and depth
+# phase 9: llama4-maverick served at full width
+# ---------------------------------------------------------------------------
+
+L4_LAYERS = 2              # depth cut: one dense block and one MoE block
+L4_PROFILE = (2, 2, 2048)  # profiling batches, rows, tokens
+L4_GEN = (4, 2048, 16)     # requests, prompt tokens, new tokens
+
+
+@contextlib.contextmanager
+def plain_ffn_by_slot_block():
+    """For the duration, the plain route's expert FFN
+    (``core.serving._ffn_in_place``) runs over blocks of slots whose
+    gathered weights stay within GATHER_MAX, as ``ffn_plain`` does: the
+    same function (a slot's rows meet only its hosted expert's weights;
+    the blocks are cut on the slot dim and put back in order), with at most
+    one block's weights gathered.  At llama4's 512 slots the whole gather
+    would be 3 x 512 x 5120 x 8192 x 2 B = 129 GB.  The kernel route is
+    untouched."""
+    import torch
+    from repro_torch.core import serving
+    real = serving._ffn_in_place
+
+    def blocked(params, toks, hosted, group_rows, ffn_type, backend):
+        if backend == "pallas":
+            return real(params, toks, hosted, group_rows, ffn_type, backend)
+        n = gather_block(params.wi, params.wu, params.wo)
+        return torch.cat([real(params, toks[i:i + n], hosted[i:i + n], None,
+                               ffn_type, backend)
+                          for i in range(0, hosted.shape[0], n)])
+    serving._ffn_in_place = blocked
+    try:
+        yield
+    finally:
+        serving._ffn_in_place = real
+
+
+def phase9(dev) -> dict:
+    """llama4-maverick-400b-a17b at full width and depth 2 (a dense block
+    and an MoE block of 128 experts, top-1, with the shared expert; bf16
+    parameters), random weights from a seed, served through the port's
+    ``MoEServer`` and ``ServingEngine`` at ``ServerConfig`` defaults (512
+    slots) on the kernel route: profiling on L4_PROFILE, then L4_GEN
+    requests.  Counters zeroed just before and read just after: every
+    serve-path kernel and ``flash_attention`` must launch.  Prints TTFT,
+    TPOT, tokens/s, peak memory (while initialising, and while serving),
+    the server's host spans, each kernel's launches in a prefill and a
+    decode step, the card's busy share of each, and replays the MoE layer call of a prefill and a decode
+    step through the plain route on the same input, plan, cap and
+    slot_cap, its FFN slot block by slot block
+    (``plain_ffn_by_slot_block``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import COUNTERS, reset_counters
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.obs import ObsContext
+    from repro_torch.runtime.engine import (ServingEngine, simulate,
+                                            summarize_results)
+    from repro_torch.runtime.server import (MoEServer, ServerConfig,
+                                            profile_from_training)
+    from repro_torch.tree import tree_leaves
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama4-maverick-400b-a17b"),
+                              n_layers=L4_LAYERS)
+    n_prof, rows, seq = L4_PROFILE
+    n_gen, gen_len, new_tok = L4_GEN
+    gc.collect()                  # the earlier phases' tensors
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    params = lm_mod.init_params(cfg, gen, device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.synchronize(dev)
+    print(f"phase 9: {cfg.name} at depth {cfg.n_layers} (a dense block of "
+          f"{cfg.d_ff} and an MoE block: d {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, hd {cfg.head_dim}, "
+          f"{cfg.moe.n_experts} {cfg.ffn_type} experts of {cfg.moe.d_ff}, "
+          f"top-{cfg.moe.top_k}, shared expert {cfg.moe.shared_expert}, "
+          f"vocab {cfg.vocab_size}, {cfg.param_dtype}): {n_params} params "
+          f"({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB), "
+          f"initialised in {time.perf_counter() - t0:.2f} s; peak device "
+          f"memory while initialising "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+          flush=True)
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                global_batch=rows, seed=0))
+    rng = np.random.RandomState(13)
+    trace = [(rng.randint(0, cfg.vocab_size, (gen_len,)), 0.05 * i)
+             for i in range(n_gen)]
+    obs = ObsContext.enabled()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counters()
+    t0 = time.perf_counter()
+    prof = profile_from_training(
+        cfg, params, (ds.batch(i) for i in range(n_prof)), device=dev)
+    t_prof = time.perf_counter() - t0
+    srv = MoEServer(cfg, params, prof, ServerConfig(), obs=obs, device=dev)
+    del params
+    engine = ServingEngine(srv)
+    with torch.inference_mode():
+        res = simulate(engine, trace, max_new_tokens=new_tok)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {n: c.count for n, c in COUNTERS.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    n_slots = len(engine.layer_stats[-1].replica_load)
+    print(f"phase 9: profiled ({n_prof} x {rows} x {seq} tokens, "
+          f"{t_prof:.2f} s) and served on {srv.n_dev} devices x "
+          f"{srv.scfg.max_pack} = {n_slots} slots in {wall:.2f} s wall; "
+          f"peak device memory {peak:.2f} GiB", flush=True)
+    print("phase 9 launches: " + json.dumps(launches), flush=True)
+    if n_slots != cfg.moe.n_experts * ServerConfig().max_pack:
+        raise AssertionError(f"phase 9: {n_slots} slots")
+    missing = [n for n, c in launches.items()
+               if c == 0 and n not in TRAIN_ONLY | RECURRENT]
+    if missing:
+        raise AssertionError(f"kernels never launched serving {cfg.name}: "
+                             f"{missing}")
+    for r in res:
+        if not np.isfinite(r.logits).all() or r.logits.shape != \
+                (cfg.vocab_size,):
+            raise AssertionError(f"request {r.rid}: bad logits")
+        if r.tokens is None or r.tokens.shape != (new_tok,) or \
+                r.tokens.min() < 0 or r.tokens.max() >= cfg.vocab_size:
+            raise AssertionError(f"request {r.rid}: bad tokens")
+    if len(res) != n_gen:
+        raise AssertionError("phase 9: requests missing")
+    m = summarize_results(res)
+    print(f"phase 9: {n_gen} requests x {gen_len} prompt + {new_tok} new "
+          f"tokens: TTFT p50 {m['ttft_p50'] * 1e3:.3f} ms p95 "
+          f"{m['ttft_p95'] * 1e3:.3f} ms  TPOT p50 {m['tpot_p50'] * 1e3:.3f} "
+          f"ms p95 {m['tpot_p95'] * 1e3:.3f} ms  {m['gen_tok_s']:.3f} gen "
+          f"tok/s  latency p50 {m['latency_p50'] * 1e3:.3f} ms; plan reuse "
+          f"{engine.plan_reuse_rate:.4f}  fine-tune rate "
+          f"{engine.finetune_rate:.4f}", flush=True)
+    print_spans(obs.tracer, "phase 9")
+
+    toks = np.random.RandomState(7).randint(0, cfg.vocab_size, (2, gen_len))
+    # each kernel's launches in one prefill and one decode step (not the
+    # counted run's)
+    def launched():
+        return {n: c.count for n, c in COUNTERS.items() if c.count}
+    with torch.inference_mode():
+        reset_counters()
+        pre = srv.prefill_batch(toks, cache_len=gen_len + 8)
+        per_prefill = launched()
+        reset_counters()
+        srv.decode_batch(pre.logits.argmax(-1), pre.cache,
+                         pre.path_ids[:, -1])
+        per_step = launched()
+    print(f"phase 9 launches a prefill of 2 x {gen_len} / a decode step: "
+          f"{json.dumps(per_prefill)} / {json.dumps(per_step)}", flush=True)
+    device_busy(srv, toks, "phase 9", cache_len=gen_len + 8)
+    with plain_ffn_by_slot_block():
+        replay_prefill_decode(srv, toks, "phase 9")
+    print(f"phase 9: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 5, 6 and 10: rwkv6-1.6b, zamba2-1.2b and the dense configs served
+# at full width through the model entry points
 # ---------------------------------------------------------------------------
 
 SERVE_PROMPT = (4, 2048)   # prompts x tokens of the kernel-route prefill
@@ -2160,14 +2406,25 @@ DECODE_PROMPT, DECODE_NEW = 64, 32
 # times the bf16 plain route's own drift from float32, row by row.
 FP32_DECODE_REL = 1e-4
 DRIFT_RATIO = 1.25
-# kernel launches per prefill / per decode step of each model
-RECURRENT_PATHS = {
+# phase 10's dense configs, and the depth each is served at (None: full;
+# qwen2-72b's 80 layers and granite-34b's 88 cut to 8, ~19 GB and ~7 GB of
+# bf16 weights beside their fp32 masters)
+DENSE_DEPTH = {"qwen3-8b": None, "qwen1.5-0.5b": None, "qwen2-72b": 8,
+               "granite-34b": 8}
+# kernel launches per prefill / per decode step of each model (a dense
+# model's decode attention is the plain decode_attention)
+MODEL_PATHS = {
     "rwkv6-1.6b": ({"rwkv6_wkv": 24}, {"rwkv6_wkv": 24}),
     "zamba2-1.2b": ({"ssd_scan": 38, "flash_attention": 6}, {}),
+    "qwen3-8b": ({"flash_attention": 36}, {}),
+    "qwen1.5-0.5b": ({"flash_attention": 24}, {}),
+    "qwen2-72b": ({"flash_attention": 8}, {}),
+    "granite-34b": ({"flash_attention": 8}, {}),
 }
-# the recurrence kernels' names in a profile (csrc/rwkv6.cu's chunked and
-# step-loop kernels; csrc/ssd.cu's)
-RECURRENT_KERNELS = {"rwkv6-1.6b": "wkv_", "zamba2-1.2b": "ssd_kernel"}
+# the kernel whose device time a profile picks out (csrc/rwkv6.cu's chunked
+# and step-loop kernels; csrc/ssd.cu's; csrc/flash_attention.cu's)
+WATCH_KERNEL = {"rwkv6-1.6b": "wkv_", "zamba2-1.2b": "ssd_kernel",
+                **{arch: "flash_kernel" for arch in DENSE_DEPTH}}
 
 
 def replay_hooks(arch: str) -> list:
@@ -2175,11 +2432,13 @@ def replay_hooks(arch: str) -> list:
     the model of ``arch`` calls on the kernel route."""
     from repro_torch.kernels import ref
     from repro_torch.models import attention, rwkv, ssm
+    flash = (attention, "flash_attention_op", "flash_attention",
+             plain_attention, FLASH_REL)
     if arch.startswith("rwkv6"):
         return [(rwkv, "rwkv6_op", "rwkv6_wkv", ref.ref_rwkv6, REC_REL)]
-    return [(ssm, "ssd_op", "ssd_scan", ref.ref_ssd, REC_REL),
-            (attention, "flash_attention_op", "flash_attention",
-             plain_attention, FLASH_REL)]
+    if arch in DENSE_DEPTH:
+        return [flash]
+    return [(ssm, "ssd_op", "ssd_scan", ref.ref_ssd, REC_REL), flash]
 
 
 def replay_kernel_calls(tag: str, what: str, run, hooks: list,
@@ -2235,9 +2494,10 @@ def row_rel(got, want):
     return ((got - want).norm(dim=1) / want.norm(dim=1)).tolist()
 
 
-def phase_recurrent(dev, arch: str, tag: str) -> dict:
-    """``arch`` at full width and depth, random weights from a seed, on the
-    card, through the port's model entry points (``models.lm``): counters
+def phase_served(dev, arch: str, tag: str, depth=None) -> dict:
+    """``arch`` at full width and depth (``depth`` layers if given), random
+    weights from a seed, on the card, through the port's model entry
+    points (``models.lm``): counters
     zeroed, ``forward_prefill`` of 4 x 2048 prompt tokens, then
     ``init_cache`` + ``decode_step`` over a 64-token prompt fed one token
     at a time and 32 greedy new tokens; counters read, and each kernel's
@@ -2258,7 +2518,9 @@ def phase_recurrent(dev, arch: str, tag: str) -> dict:
     from repro_torch.models import lm
     from repro_torch.tree import tree_leaves
     cfg = get_config(arch)
-    per_prefill, per_step = RECURRENT_PATHS[arch]
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    per_prefill, per_step = MODEL_PATHS[arch]
     gc.collect()                  # the earlier phases' tensors
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2269,11 +2531,17 @@ def phase_recurrent(dev, arch: str, tag: str) -> dict:
     cparams = lm.cast_for_compute(cfg, params)
     n_params = sum(p.numel() for p in tree_leaves(params))
     torch.cuda.synchronize(dev)
-    print(f"{tag}: {cfg.name} at full depth ({cfg.n_layers} layers, d "
-          f"{cfg.d_model}, {cfg.ssm}, pattern {cfg.layer_pattern or 'none'},"
-          f" vocab {cfg.vocab_size}): {n_params} params, fp32 masters + the "
-          f"bf16 copy initialised in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    layout = f"{cfg.ssm}, pattern {cfg.layer_pattern or 'none'}" \
+        if cfg.ssm.enabled else \
+        (f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd "
+         f"{cfg.resolved_head_dim}, {cfg.ffn_type} FFN of {cfg.d_ff}, "
+         f"qk_norm {cfg.qk_norm}, qkv_bias {cfg.qkv_bias}, tied "
+         f"{cfg.tie_embeddings}")
+    print(f"{tag}: {cfg.name} at "
+          + (f"depth {depth} (cut)" if depth else "full depth")
+          + f" ({cfg.n_layers} layers, d {cfg.d_model}, {layout}, vocab "
+          f"{cfg.vocab_size}): {n_params} params, fp32 masters + the bf16 "
+          f"copy initialised in {time.perf_counter() - t0:.2f} s", flush=True)
     b, s = SERVE_PROMPT
     rng = np.random.RandomState(5)
     toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s)),
@@ -2343,10 +2611,10 @@ def phase_recurrent(dev, arch: str, tag: str) -> dict:
 
         profile_busy(lambda: prefill(cfg, toks),
                      f"{tag} prefill {b} x {s} under the profiler",
-                     RECURRENT_KERNELS[arch])
+                     WATCH_KERNEL[arch])
         profile_busy(lambda: lm.decode_step(cfg, cparams, cache, tok),
                      f"{tag} decode step under the profiler",
-                     RECURRENT_KERNELS[arch])
+                     WATCH_KERNEL[arch])
 
         # every kernel call of one prefill and one decode step (from the
         # state after the decode run) against its plain version, layer by
@@ -2421,6 +2689,25 @@ def phase_recurrent(dev, arch: str, tag: str) -> dict:
                                      f"bf16 route")
         print(f"{tag}: prefill of {pb} x {ps} tokens, wall: " + ", ".join(
             f"{n} {w * 1e3:.3f} ms" for n, w in walls.items()), flush=True)
+    return launches
+
+
+def phase10(dev) -> dict:
+    """The four dense configs served at full width (DENSE_DEPTH: two at
+    full depth, two cut to 8 layers), each by ``phase_served``: a 4 x 2048
+    prefill whose every ``flash_attention`` call (one a layer) is replayed
+    against its plain version, the decode steps, and the plain route in
+    float32 and bf16 against the kernel route.  Returns the launches
+    summed over the four."""
+    t_start = time.perf_counter()
+    launches = {}
+    for arch, depth in DENSE_DEPTH.items():
+        t0 = time.perf_counter()
+        for name, n in phase_served(dev, arch, "phase 10", depth).items():
+            launches[name] = launches.get(name, 0) + n
+        print(f"phase 10: {arch}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    print(f"phase 10: {time.perf_counter() - t_start:.1f} s", flush=True)
     return launches
 
 
@@ -3304,7 +3591,7 @@ def phase8(dev) -> dict:
     return launches
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7", "8")
+PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10")
 # phase 3's profile: a part of a CUDA kernel's name -> its wrapper
 WATCH_TRAIN = {"gmm_": "grouped_matmul", "gating_kernel": "topk_gating_fused",
                "positions_kernel": "topk_positions",
@@ -3319,7 +3606,7 @@ def main(argv=None) -> int:
                                  "phase, as the module docstring says.")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of the phases to run after phase 0 "
-                    "(1-8; 1r: phase 1's two recurrences alone; 1m: its "
+                    "(1-10; 1r: phase 1's two recurrences alone; 1m: its "
                     "five MoE routing kernels alone); the "
                     "kernels line is printed only when all run")
     ap.add_argument("--src", default=str(SRC),
@@ -3394,22 +3681,25 @@ def main(argv=None) -> int:
         train_launches = phase3_train(dev)
         phase3_resume(dev)
     mixtral = phase4(dev) if "4" in phases else None
-    rwkv = phase_recurrent(dev, "rwkv6-1.6b", "phase 5") \
+    rwkv = phase_served(dev, "rwkv6-1.6b", "phase 5") \
         if "5" in phases else None
-    zamba = phase_recurrent(dev, "zamba2-1.2b", "phase 6") \
+    zamba = phase_served(dev, "zamba2-1.2b", "phase 6") \
         if "6" in phases else None
     ep_train = phase7(dev) if "7" in phases else None
     serve_ep = phase8(dev) if "8" in phases else None
+    llama4 = phase9(dev) if "9" in phases else None
+    dense = phase10(dev) if "10" in phases else None
 
     print(smi, flush=True)
-    if sorted(phases) == list(PHASES):
+    if set(phases) == set(PHASES):
         kernels = []
         for name in REPLACES:
             r = rows[name]
             paths = {"serve": serve[name], "train": train_launches[name],
                      "mixtral": mixtral[name], "rwkv": rwkv[name],
                      "zamba": zamba[name], "ep_train": ep_train[name],
-                     "serve_ep": serve_ep[name]}
+                     "serve_ep": serve_ep[name], "llama4": llama4[name],
+                     "dense": dense[name]}
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": sum(paths.values()),

@@ -1,7 +1,9 @@
-"""The LM stack of the port's families, in PyTorch: the MoE transformer
-(the ``"moe"`` family: the paper's §7.1 models and mixtral-8x22b), the
-hybrid Mamba2 + shared-attention stack (zamba2) and the attention-free RWKV6
-stack.
+"""The LM stack of the port's families, in PyTorch: the transformer (the
+``"moe"`` family: the paper's §7.1 models, mixtral-8x22b and
+llama4-maverick, whose groups interleave a dense block with an MoE block
+and add a shared expert; and the ``"dense"`` family: qwen and granite, a
+dense FFN in every block and no expert choices), the hybrid Mamba2 +
+shared-attention stack (zamba2) and the attention-free RWKV6 stack.
 
 Parameters are NamedTuples of tensors in the reference's layout: every
 leaf of a transformer ``LMParams.stack`` carries a leading layer-group dim G
@@ -121,7 +123,8 @@ def _check_family(cfg, serve: bool = False) -> None:
     (``serve``) only."""
     if cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported")
+            f"{cfg.name}: the {cfg.frontend} frontend is not ported "
+            f"(ROADMAP: \"the modality frontends\")")
     if (cfg.layer_pattern or cfg.attention_free) and not serve:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family needs backward "

@@ -132,7 +132,8 @@ def test_tile_classes_match_the_dense_mask(causal, window, s):
 
 
 SHAPES = [(4, 64, 12), (8, 1024, 12), (1, 2048, 48), (1, 6144, 48),
-          (8, 512, 16), (4, 2048, 32), (2, 1000, 48), (3, 300, 5)]
+          (8, 512, 16), (4, 2048, 32), (2, 1000, 48), (3, 300, 5),
+          (1, 2048, 40), (4, 2048, 64), (4, 2048, 16)]
 
 
 @pytest.mark.parametrize("b,s,h", SHAPES)
@@ -164,6 +165,17 @@ def test_query_heads_of_a_kv_head_are_neighbours():
     kv_heads = [item_at(t, b, h, tiles_m)[1] // (h // kvh)
                 for t in range(b * h)]
     assert kv_heads == sorted(kv_heads)
+
+
+@pytest.mark.parametrize("h,kvh", [(40, 8), (48, 1), (32, 8), (64, 8)])
+def test_query_heads_of_a_kv_head_are_neighbours_at_odd_groups(h, kvh):
+    """The same at llama4's 40 / 8 (5 query heads a KV head), granite's
+    MQA 48 / 1, qwen3's 32 / 8 and qwen2-72b's 64 / 8: each KV head's
+    query heads are one run of H / KV consecutive items."""
+    b, tiles_m = 1, 16
+    kv_heads = [item_at(t, b, h, tiles_m)[1] // (h // kvh)
+                for t in range(b * h)]
+    assert kv_heads == [i // (h // kvh) for i in range(h)]
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +219,8 @@ def tma_store_4d(glob, smem, src, c0, h, r0, b):
 
 
 @pytest.mark.parametrize("heads,kvh,s", [(48, 8, 300), (12, 12, 64),
-                                         (4, 1, 129)])
+                                         (4, 1, 129), (40, 8, 300),
+                                         (48, 1, 129)])
 @pytest.mark.parametrize("hd", [64, 128])
 def test_tma_boxes_pick_rows_and_the_gqa_head(hd, heads, kvh, s):
     """The producer's boxes: Q at (64 c, h, q0, b), K / V at (64 c,
@@ -407,3 +420,17 @@ def test_masked_row_cancels_exactly():
     mc = np.float32(MASK * c)
     assert np.float32(MASK) * c - mc == 0.0
     assert np.exp2(np.float32((MASK - np.float32(3.0)) * c)) == 0.0
+
+
+@pytest.mark.parametrize("h,kvh", [(10, 2), (6, 1)])
+def test_kernel_model_matches_dense_attention_at_odd_groups(h, kvh):
+    """The kernel model at GQA groups of 5 (llama4's 40 / 8) and of all
+    heads (granite's MQA), hd 128, causal, a ragged last tile."""
+    rng = np.random.RandomState(h)
+    b, s, hd = 1, 150, 128
+    q = rng.randn(b, s, h, hd).astype(np.float32)
+    k = rng.randn(b, s, kvh, hd).astype(np.float32)
+    v = rng.randn(b, s, kvh, hd).astype(np.float32)
+    got = model_attention(q, k, v, True, 0)
+    np.testing.assert_allclose(got, dense_attention(q, k, v, True, 0),
+                               rtol=1e-4, atol=1e-5)
