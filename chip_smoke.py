@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 3,7
     python3 chip_smoke.py --phases 2,8
     python3 chip_smoke.py --phases 9,10
+    python3 chip_smoke.py --phases 11,12
 
 With no arguments every phase runs, as below.  ``--phases`` runs phase 0
 and a subset (``1r``: phase 1's two recurrences alone; ``1m``: its five
@@ -45,15 +46,18 @@ Phase 1  first times the launch floor: ``csrc/launch_floor.cu``'s empty
          ``ffn_plain``, and the composition is not timed) and 513 slots
          (the index-order walk, f 1024); each case within 2e-2 of max
          |plain|, repeated bitwise, zeros past each count.  It holds
-         ``flash_attention`` against ``ref_attention`` at nine shapes
+         ``flash_attention`` against ``ref_attention`` at twelve shapes
          (a, b: gpt2-moe's prefill 4 x 64 and 8 x 1024, 12 heads, hd 64,
          causal; c, d: mixtral-8x22b's 1 x 2048 and 1 x 6144, 48 / 8 heads,
          hd 128, causal, window 4096; e: bert-large-moe's 8 x 512, 16 heads,
          hd 64, bidirectional; f: zamba2-1.2b's shared block, 4 x 2048, 32
          heads, hd 64, causal; g: a ragged 2 x 1000, 48 / 8 heads, hd 128,
          window 256; h, i: llama4-maverick's 40 / 8 and granite-34b's MQA
-         48 / 1, 1 x 2048, hd 128, causal), norm-wise, each call repeated
-         bitwise, timed beside
+         48 / 1, 1 x 2048, hd 128, causal; j: hubert-xlarge's 4 x 2048,
+         16 heads, hd 80, bidirectional (the hd-80 instance); k: hd 80,
+         2 x 1000, 16 / 4 heads, causal, window 256; l: llava-next-34b's
+         4 x 2048, 56 / 8 heads, hd 128, causal), norm-wise, each call
+         repeated bitwise, timed beside
          ``scaled_dot_product_attention`` (the yardstick only).
 Phase 2  zeroes the launch counters, serves 8 requests x 8 new tokens of
          gpt2-moe at full width through ``repro_torch.launch.serve``,
@@ -229,6 +233,29 @@ Phase 10 serves the four dense configs (no MoE: a dense FFN in every block)
          ``ref_attention`` (1e-2); decode attention is plain.  Then the
          plain route in float32 shows decode-matches-prefill and the kernel
          route drifts from it no further than the bf16 plain route does.
+
+Phase 11 serves the two modality frontends as phase 10 serves the dense
+         configs: llava-next-34b at full width (d 7168, 56 / 8 heads, hd
+         128, swiglu 20480, vocab 64000) cut to 8 layers, its prefill 576
+         synthetic patch embeddings (``patch_proj``) + 1472 tokens = 4 x
+         2048 positions, its decode token-only; hubert-xlarge at full width
+         and depth (48 layers, d 1280, 16 heads of hd 80, bidirectional),
+         its encoder forward over 4 x 2048 synthetic frames of 512 (no
+         decode).  ``flash_attention`` must launch once a layer a prefill
+         and every call is replayed against ``ref_attention`` (1e-2); then
+         the plain route in float32 and bf16 against the kernel route.
+Phase 12 drives the serving control loop on gpt2-moe at full width and
+         depth (kernel route; counters zeroed just before, read just
+         after): (a) an ``AdaptiveScheduler`` (interval 1, no hysteresis,
+         capacity factor 16) publishing plans while 4 requests decode must
+         give the static run's greedy tokens; (b) ``fail_devices({1})``
+         after the second decode step must give the fault-free tokens and
+         leave no realized load on placement device 1; (c)
+         ``launch.serve --workload drift --autoscale --trace-dir D`` (two
+         engine steps under ``obs.StepProfiler``, whose kernels it prints)
+         and ``python -m repro_torch.obs validate --trace-dir D`` (exit 0),
+         TTFT / TPOT p50, swaps, churn and load imbalance printed beside
+         the same trace served without ``--autoscale``.
 
 Prints one ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit).
@@ -1207,7 +1234,11 @@ def phase1_grouped_matmul(dev, hw, gen) -> dict:
 # mixtral-8x22b within its 4096 window and past it (phase 4's score-only
 # prompts); bert-large-moe's bidirectional attention (the server's kernel
 # route for that model); zamba2-1.2b's shared attention block at its 4 x
-# 2048 prefill (phase 6); a ragged S with GQA and a window that cuts
+# 2048 prefill (phase 6); a ragged S with GQA and a window that cuts;
+# llama4's and granite's head groups; hubert-xlarge's bidirectional
+# encoder at head dim 80 (phase 11), and hd 80 causal, ragged, GQA and
+# windowed; llava-next-34b's 56 / 8 heads (a GQA group of 7) at its 4 x
+# 2048 prefill (phase 11)
 FLASH_CASES = (("a gpt2 prefill", 4, 64, 12, 12, 64, True, 0, 50),
                ("b gpt2 1024", 8, 1024, 12, 12, 64, True, 0, 20),
                ("c mixtral 2048", 1, 2048, 48, 8, 128, True, 4096, 20),
@@ -1216,7 +1247,10 @@ FLASH_CASES = (("a gpt2 prefill", 4, 64, 12, 12, 64, True, 0, 50),
                ("f zamba2 shared", 4, 2048, 32, 32, 64, True, 0, 10),
                ("g ragged gqa", 2, 1000, 48, 8, 128, True, 256, 20),
                ("h llama4 40/8", 1, 2048, 40, 8, 128, True, 0, 20),
-               ("i granite mqa 48/1", 1, 2048, 48, 1, 128, True, 0, 20))
+               ("i granite mqa 48/1", 1, 2048, 48, 1, 128, True, 0, 20),
+               ("j hubert hd80", 4, 2048, 16, 16, 80, False, 0, 20),
+               ("k hd80 causal window", 2, 1000, 16, 4, 80, True, 256, 20),
+               ("l llava 56/8", 4, 2048, 56, 8, 128, True, 0, 10))
 FLASH_ROW_CASE = "d mixtral 6144"     # the kernels line's row
 # norm-wise ||kernel - plain|| / ||plain||: the kernel rounds P to bf16
 # before P.V (2**-9 relative per element) and its output to bf16
@@ -2411,6 +2445,10 @@ DRIFT_RATIO = 1.25
 # bf16 weights beside their fp32 masters)
 DENSE_DEPTH = {"qwen3-8b": None, "qwen1.5-0.5b": None, "qwen2-72b": 8,
                "granite-34b": 8}
+# phase 11's frontends: llava-next-34b's 60 layers cut to 8 (5.38 B
+# parameters with patch_proj, ~32 GB as fp32 masters + the bf16 copy),
+# hubert-xlarge at full depth (48 layers, 0.945 B)
+FRONTEND_DEPTH = {"llava-next-34b": 8, "hubert-xlarge": None}
 # kernel launches per prefill / per decode step of each model (a dense
 # model's decode attention is the plain decode_attention)
 MODEL_PATHS = {
@@ -2420,11 +2458,14 @@ MODEL_PATHS = {
     "qwen1.5-0.5b": ({"flash_attention": 24}, {}),
     "qwen2-72b": ({"flash_attention": 8}, {}),
     "granite-34b": ({"flash_attention": 8}, {}),
+    "llava-next-34b": ({"flash_attention": 8}, {}),
+    "hubert-xlarge": ({"flash_attention": 48}, {}),
 }
 # the kernel whose device time a profile picks out (csrc/rwkv6.cu's chunked
 # and step-loop kernels; csrc/ssd.cu's; csrc/flash_attention.cu's)
 WATCH_KERNEL = {"rwkv6-1.6b": "wkv_", "zamba2-1.2b": "ssd_kernel",
-                **{arch: "flash_kernel" for arch in DENSE_DEPTH}}
+                **{arch: "flash_kernel"
+                   for arch in (*DENSE_DEPTH, *FRONTEND_DEPTH)}}
 
 
 def replay_hooks(arch: str) -> list:
@@ -2436,7 +2477,7 @@ def replay_hooks(arch: str) -> list:
              plain_attention, FLASH_REL)
     if arch.startswith("rwkv6"):
         return [(rwkv, "rwkv6_op", "rwkv6_wkv", ref.ref_rwkv6, REC_REL)]
-    if arch in DENSE_DEPTH:
+    if arch in DENSE_DEPTH or arch in FRONTEND_DEPTH:
         return [flash]
     return [(ssm, "ssd_op", "ssd_scan", ref.ref_ssd, REC_REL), flash]
 
@@ -2494,13 +2535,48 @@ def row_rel(got, want):
     return ((got - want).norm(dim=1) / want.norm(dim=1)).tolist()
 
 
+def served_inputs(cfg, dev, rng):
+    """(inputs(rows, n, prefix) -> the ``forward_prefill`` batch of ``rows``
+    requests of ``n`` positions past the prefix, the decode prompt tokens
+    [B, DECODE_PROMPT] or None, the text positions of the main prefill).
+    A token model's batch is ``tokens``; hubert's (``audio_stub``) is
+    ``frames`` [B, n, FRAME_DIM] of synthetic features; llava's
+    (``vision_stub``) is ``tokens`` after ``patches`` [B, 576, d] of
+    synthetic patch embeddings (``prefix`` False: no patches, so that the
+    token-only decode can be held to the prefill)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm
+    b, s = SERVE_PROMPT
+    if cfg.frontend == "audio_stub":
+        frames = torch.as_tensor(
+            rng.randn(b, s, lm.FRAME_DIM).astype(np.float32), device=dev)
+        return (lambda rows, n, prefix=True:
+                {"frames": frames[:rows, :n]}), None, s
+    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s)),
+                           device=dev)
+    if cfg.frontend != "vision_stub":
+        return (lambda rows, n, prefix=True:
+                {"tokens": toks[:rows, :n]}), toks[:, :DECODE_PROMPT], s
+    patches = torch.randn(b, cfg.n_patches, cfg.d_model, device=dev,
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(6))
+
+    def inputs(rows, n, prefix=True):
+        return {"tokens": toks[:rows, :n],
+                "patches": patches[:rows, :cfg.n_patches if prefix else 0]}
+    return inputs, toks[:, :DECODE_PROMPT], s - cfg.n_patches
+
+
 def phase_served(dev, arch: str, tag: str, depth=None) -> dict:
     """``arch`` at full width and depth (``depth`` layers if given), random
     weights from a seed, on the card, through the port's model entry
     points (``models.lm``): counters
-    zeroed, ``forward_prefill`` of 4 x 2048 prompt tokens, then
+    zeroed, ``forward_prefill`` of 4 x 2048 prompt positions (llava: 576
+    synthetic patches + 1472 tokens; hubert: 2048 synthetic frames), then
     ``init_cache`` + ``decode_step`` over a 64-token prompt fed one token
-    at a time and 32 greedy new tokens; counters read, and each kernel's
+    at a time and 32 greedy new tokens (none for hubert, an encoder);
+    counters read, and each kernel's
     launches held to the path's count per prefill and per decode step.
     Then (not counted) the card's busy share of a prefill and of a decode
     step, every kernel call of one prefill and one decode step replayed
@@ -2544,28 +2620,29 @@ def phase_served(dev, arch: str, tag: str, depth=None) -> dict:
           f"copy initialised in {time.perf_counter() - t0:.2f} s", flush=True)
     b, s = SERVE_PROMPT
     rng = np.random.RandomState(5)
-    toks = torch.as_tensor(rng.randint(0, cfg.vocab_size, (b, s)),
-                           device=dev)
-    prompt = toks[:, :DECODE_PROMPT]
-    n_steps = DECODE_PROMPT + DECODE_NEW
+    inputs, prompt, n_text = served_inputs(cfg, dev, rng)
+    full = inputs(b, n_text)
+    n_steps = DECODE_PROMPT + DECODE_NEW if prompt is not None else 0
 
-    def prefill(c, t):
-        return lm.forward_prefill(c, cparams, {"tokens": t}).logits
+    def prefill(c, batch, pp=None):
+        return lm.forward_prefill(c, cparams if pp is None else pp,
+                                  batch).logits
 
     with torch.inference_mode():
-        prefill(cfg, prompt)                          # warm-up
+        prefill(cfg, inputs(b, DECODE_PROMPT))        # warm-up
         torch.cuda.synchronize(dev)
         reset_counters()
         t0 = time.perf_counter()
-        logits = prefill(cfg, toks)
+        logits = prefill(cfg, full)
         torch.cuda.synchronize(dev)
         pre_wall = time.perf_counter() - t0
         pre_launch = {n: c.count for n, c in COUNTERS.items()}
-        cache = lm.init_cache(cfg, b, n_steps, lm.DTYPES[cfg.dtype],
-                              device=dev)
         step_s, new_tokens = [], []
-        at_prompt = None
-        tok = prompt[:, 0]
+        at_prompt = logits
+        if n_steps:
+            cache = lm.init_cache(cfg, b, n_steps, lm.DTYPES[cfg.dtype],
+                                  device=dev)
+            tok = prompt[:, 0]
         for i in range(n_steps):
             t1 = time.perf_counter()
             step_logits, cache, _ = lm.decode_step(cfg, cparams, cache, tok)
@@ -2593,35 +2670,47 @@ def phase_served(dev, arch: str, tag: str, depth=None) -> dict:
                     f"{tag}: {name} launched {pre_launch[name]} times in the "
                     f"prefill and {n - pre_launch[name]} in {n_steps} decode "
                     f"steps, expected {want_pre} and {want_all - want_pre}")
-        gen_toks = torch.stack(new_tokens, dim=1)
         if not (torch.isfinite(logits).all() and logits.shape ==
                 (b, cfg.vocab_size) and torch.isfinite(at_prompt).all()):
             raise AssertionError(f"{tag}: logits not finite / mis-shaped")
-        if gen_toks.shape != (b, DECODE_NEW) or gen_toks.min() < 0 or \
-                gen_toks.max() >= cfg.vocab_size:
-            raise AssertionError(f"{tag}: bad generated tokens")
-        st = np.array(step_s) * 1e3
-        gen_s = float(np.sum(step_s[DECODE_PROMPT:]))
-        print(f"{tag}: prefill {b} x {s} tokens in {pre_wall * 1e3:.3f} ms "
-              f"wall ({b * s / pre_wall:.1f} tokens/s); decode step (batch "
-              f"{b}) p50 {np.percentile(st, 50):.3f} ms p95 "
-              f"{np.percentile(st, 95):.3f} ms over {n_steps} steps; "
-              f"{b * DECODE_NEW / gen_s:.3f} generated tokens/s; peak device "
-              f"memory {peak:.2f} GiB", flush=True)
+        what = f"{b} x {s} positions" + (
+            f" ({cfg.n_patches} patches + {n_text} tokens)"
+            if cfg.frontend == "vision_stub" else
+            f" (frames of {lm.FRAME_DIM})" if cfg.frontend == "audio_stub"
+            else "")
+        print(f"{tag}: prefill {what} in {pre_wall * 1e3:.3f} ms wall "
+              f"({b * s / pre_wall:.1f} positions/s); peak device memory "
+              f"{peak:.2f} GiB", flush=True)
+        if n_steps:
+            gen_toks = torch.stack(new_tokens, dim=1)
+            if gen_toks.shape != (b, DECODE_NEW) or gen_toks.min() < 0 or \
+                    gen_toks.max() >= cfg.vocab_size:
+                raise AssertionError(f"{tag}: bad generated tokens")
+            st = np.array(step_s) * 1e3
+            gen_s = float(np.sum(step_s[DECODE_PROMPT:]))
+            print(f"{tag}: decode step (batch {b}) p50 "
+                  f"{np.percentile(st, 50):.3f} ms p95 "
+                  f"{np.percentile(st, 95):.3f} ms over {n_steps} steps; "
+                  f"{b * DECODE_NEW / gen_s:.3f} generated tokens/s",
+                  flush=True)
+        else:
+            print(f"{tag}: {cfg.name} is an encoder (causal=False): no "
+                  f"decode", flush=True)
 
-        profile_busy(lambda: prefill(cfg, toks),
+        profile_busy(lambda: prefill(cfg, full),
                      f"{tag} prefill {b} x {s} under the profiler",
                      WATCH_KERNEL[arch])
-        profile_busy(lambda: lm.decode_step(cfg, cparams, cache, tok),
-                     f"{tag} decode step under the profiler",
-                     WATCH_KERNEL[arch])
+        if n_steps:
+            profile_busy(lambda: lm.decode_step(cfg, cparams, cache, tok),
+                         f"{tag} decode step under the profiler",
+                         WATCH_KERNEL[arch])
 
         # every kernel call of one prefill and one decode step (from the
         # state after the decode run) against its plain version, layer by
         # layer, on the tensors the model passes it
         hooks = replay_hooks(arch)
         replay_kernel_calls(tag, f"prefill {b} x {s}",
-                            lambda: prefill(cfg, toks), hooks, per_prefill)
+                            lambda: prefill(cfg, full), hooks, per_prefill)
         if per_step:
             replay_kernel_calls(
                 tag, "decode step",
@@ -2633,45 +2722,48 @@ def phase_served(dev, arch: str, tag: str, depth=None) -> dict:
             cfg.moe, compute_backend="xla"))
         f32_cfg = dataclasses.replace(plain_cfg, dtype="float32")
         pb, ps = PLAIN_PROMPT
-        short = toks[:pb, :ps]
         routes = {"kernel bf16": (cfg, cparams),
                   "plain bf16": (plain_cfg, cparams),
                   "plain fp32": (f32_cfg, params)}
         got, walls = {}, {}
+        pre_key = f"prefill@{DECODE_PROMPT}"
+        dec_key = f"decode@{DECODE_PROMPT}"
         for name, (c, pp) in routes.items():
-            dcache = lm.init_cache(c, b, DECODE_PROMPT, lm.DTYPES[c.dtype],
-                                   device=dev)
-            for i in range(DECODE_PROMPT):
-                dec, dcache, _ = lm.decode_step(c, pp, dcache, prompt[:, i])
+            got[name] = {pre_key: prefill(c, inputs(b, DECODE_PROMPT, False),
+                                          pp).float()}
+            if n_steps:
+                dcache = lm.init_cache(c, b, DECODE_PROMPT,
+                                       lm.DTYPES[c.dtype], device=dev)
+                for i in range(DECODE_PROMPT):
+                    dec, dcache, _ = lm.decode_step(c, pp, dcache,
+                                                    prompt[:, i])
+                got[name][dec_key] = dec.float()
+                del dcache
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-            long_pre = lm.forward_prefill(c, pp, {"tokens": short}).logits
+            long_pre = prefill(c, inputs(pb, ps), pp)
             torch.cuda.synchronize(dev)
             walls[name] = time.perf_counter() - t0
-            got[name] = {
-                f"prefill@{DECODE_PROMPT}": lm.forward_prefill(
-                    c, pp, {"tokens": prompt}).logits.float(),
-                f"decode@{DECODE_PROMPT}": dec.float(),
-                f"prefill@{ps}": long_pre.float()}
-            del dcache
+            got[name][f"prefill@{ps}"] = long_pre.float()
         if not all(torch.isfinite(v).all() for g in got.values()
                    for v in g.values()):
             raise AssertionError(f"{tag}: non-finite logits")
 
         def fmt(rel):
             return [float(f"{r:.3e}") for r in rel]
-        pre_key = f"prefill@{DECODE_PROMPT}"
-        dec_key = f"decode@{DECODE_PROMPT}"
-        for name in routes:
+        for name in routes if n_steps else ():
             rel = row_rel(got[name][dec_key], got[name][pre_key])
             print(f"{tag}: {name}: decode logits after {DECODE_PROMPT} "
                   f"one-token steps vs forward_prefill of the {DECODE_PROMPT}"
                   f" tokens, norm-wise per row {fmt(rel)}"
                   + (f" (limit {FP32_DECODE_REL})" if name == "plain fp32"
                      else " (not held: bf16)"), flush=True)
-        rel = row_rel(got["plain fp32"][dec_key], got["plain fp32"][pre_key])
-        if max(rel) > FP32_DECODE_REL:
-            raise AssertionError(f"{tag}: decode does not match prefill")
+        if n_steps:
+            rel = row_rel(got["plain fp32"][dec_key],
+                          got["plain fp32"][pre_key])
+            if max(rel) > FP32_DECODE_REL:
+                raise AssertionError(f"{tag}: decode does not match "
+                                     f"prefill")
         truth = got["plain fp32"]
         for what in truth:
             rk = row_rel(got["kernel bf16"][what], truth[what])
@@ -2687,7 +2779,10 @@ def phase_served(dev, arch: str, tag: str, depth=None) -> dict:
                 raise AssertionError(f"{tag}: {what}: the kernel route drifts"
                                      f" further from float32 than the plain "
                                      f"bf16 route")
-        print(f"{tag}: prefill of {pb} x {ps} tokens, wall: " + ", ".join(
+        print(f"{tag}: prefill of {pb} x {ps} positions"
+              + (f" after {cfg.n_patches} patches"
+                 if cfg.frontend == "vision_stub" else "")
+              + ", wall: " + ", ".join(
             f"{n} {w * 1e3:.3f} ms" for n, w in walls.items()), flush=True)
     return launches
 
@@ -2708,6 +2803,239 @@ def phase10(dev) -> dict:
         print(f"phase 10: {arch}: {time.perf_counter() - t0:.1f} s",
               flush=True)
     print(f"phase 10: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return launches
+
+
+def phase11(dev) -> dict:
+    """The two modality frontends served at full width (FRONTEND_DEPTH:
+    llava-next-34b cut to 8 layers, hubert-xlarge at full depth), each by
+    ``phase_served``: llava's prefill of 576 synthetic patches + 1472
+    tokens (flash at 56 / 8 heads, hd 128, causal) and its token-only
+    decode; hubert's encoder forward over 2048 synthetic frames (flash at
+    hd 80, bidirectional), no decode; every flash call of a prefill
+    replayed against its plain version, and the plain route in float32 and
+    bf16 against the kernel route.  Returns the launches summed."""
+    t_start = time.perf_counter()
+    launches = {}
+    for arch, depth in FRONTEND_DEPTH.items():
+        t0 = time.perf_counter()
+        for name, n in phase_served(dev, arch, "phase 11", depth).items():
+            launches[name] = launches.get(name, 0) + n
+        print(f"phase 11: {arch}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    print(f"phase 11: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the serving control loop (sched / resilience / obs) on gpt2-moe
+# ---------------------------------------------------------------------------
+
+CTRL_PROMPTS = (4, 48, 8)     # requests, prompt tokens, new tokens
+CTRL_ARGV = ["--arch", "gpt2-moe", "--requests", "16", "--seq", "64",
+             "--max-new-tokens", "8", "--workload", "drift"]
+
+
+def ctrl_server(dev, cfg, params):
+    """A ``MoEServer`` of gpt2-moe on ``params`` with an empty path profile
+    (path length 2, the lina policy), as the reference's engine tests."""
+    from repro_torch.core.popularity import PathProfile
+    from repro_torch.runtime.server import MoEServer, ServerConfig
+    prof = PathProfile(n_layers=cfg.n_moe_layers,
+                       n_experts=cfg.moe.n_experts, path_len=2)
+    return MoEServer(cfg, params, prof,
+                     ServerConfig(path_len=2, schedule_policy="lina"),
+                     device=dev)
+
+
+def ctrl_run(srv, prompts, new: int, scheduler=None, on_step=None):
+    """Serve ``prompts`` through a ``ServingEngine`` on the virtual clock
+    (``now=0``), one ``step`` at a time, calling ``on_step(engine)`` after
+    each; returns ({rid: generated tokens}, engine)."""
+    from repro_torch.runtime.engine import EngineConfig, ServingEngine
+    eng = ServingEngine(srv, EngineConfig(max_batch_tokens=256),
+                        scheduler=scheduler)
+    for p in prompts:
+        eng.submit(p, arrival=0.0, max_new_tokens=new)
+    results = []
+    while eng.has_work():
+        results.extend(eng.step(now=0.0))
+        if on_step is not None:
+            on_step(eng)
+    return {r.rid: r.tokens.tolist() for r in results}, eng
+
+
+def phase12_swaps(dev, cfg, params, prompts, new, static) -> None:
+    """(a) An ``AdaptiveScheduler`` (interval 1, no hysteresis, no
+    migration weight) publishing plans between micro-batches while the
+    requests decode: the greedy tokens must be the static run's."""
+    from repro_torch.sched import AdaptiveScheduler, ControllerConfig
+    srv = ctrl_server(dev, cfg, params)
+    sch = AdaptiveScheduler(srv, ControllerConfig(
+        interval=1, min_swap_interval=1, min_observations=1,
+        hysteresis=0.0, migration_weight=0.0))
+    seen = {"published": 0, "mid_decode": 0, "swaps_mid_decode": 0}
+
+    def watch(eng):
+        ctl = sch.controller
+        published = ctl.swaps + ctl.bootstraps
+        if eng.active() and published > seen["published"]:
+            seen["mid_decode"] += published - seen["published"]
+            seen["swaps_mid_decode"] += ctl.swaps - seen.get("swaps", 0)
+        seen["published"], seen["swaps"] = published, ctl.swaps
+    got, eng = ctrl_run(srv, prompts, new, sch, watch)
+    rep = sch.report()
+    print(f"phase 12 (a): {rep['swaps']} swaps + {rep['bootstraps']} "
+          f"bootstraps over {rep['steps']} engine steps; plans published "
+          f"while requests decoded: {seen['mid_decode']} "
+          f"({seen['swaps_mid_decode']} of them swaps of a live plan); "
+          f"{len(srv._plan_override)} layers under controller plans; "
+          f"tokens equal to the static run: {got == static}", flush=True)
+    if not seen["mid_decode"] or not srv._plan_override:
+        raise AssertionError("phase 12 (a): no plan was published while "
+                             "requests decoded")
+    if got != static:
+        raise AssertionError(f"phase 12 (a): plan swaps changed the tokens:"
+                             f" static {static}, scheduled {got}")
+    post = list(eng.layer_stats)[-cfg.n_moe_layers:]
+    if any(s.finetuned for s in post):
+        raise AssertionError("phase 12 (a): a controller-owned layer ran "
+                             "the phase-2 fine-tune")
+
+
+def phase12_failure(dev, cfg, params, prompts, new, static) -> None:
+    """(b) ``fail_devices({1})`` after the second decode step: the tokens
+    must be the fault-free run's, and no realized load may land on
+    placement device 1 afterwards."""
+    import numpy as np
+    srv = ctrl_server(dev, cfg, params)
+    mark = {}
+
+    def fail(eng):
+        if eng.step_idx == 3 and eng.active():
+            srv.fail_devices({1})
+            mark["stats"] = len(eng.layer_stats)
+    got, eng = ctrl_run(srv, prompts, new, on_step=fail)
+    after = list(eng.layer_stats)[mark["stats"]:]
+    on_dead = max(float(np.asarray(s.device_load)[1]) for s in after)
+    print(f"phase 12 (b): device 1 failed after engine step 3 (mid "
+          f"decode): {len(after)} layer stats after it, largest token share"
+          f" on device 1 {on_dead}; degrade stats {srv.degrade_stats}; "
+          f"tokens equal to the fault-free run: {got == static}",
+          flush=True)
+    if not after or on_dead != 0.0:
+        raise AssertionError("phase 12 (b): load landed on the failed "
+                             "device")
+    if got != static:
+        raise AssertionError(f"phase 12 (b): the failure changed the "
+                             f"tokens: fault-free {static}, faulted {got}")
+
+
+def imbalance(engine) -> float:
+    """Mean over the served layer stats of max / mean device token share
+    (the serve driver's load-imbalance line)."""
+    import numpy as np
+    loads = np.stack([s.device_load for s in engine.layer_stats])
+    return float((loads.max(1) / np.maximum(loads.mean(1), 1e-9)).mean())
+
+
+def phase12_driver(dev, src: Path) -> None:
+    """(c) ``launch.serve`` on a drifting trace with ``--autoscale`` (the
+    first such run's span trace exported, two of its engine steps under
+    ``StepProfiler``), then ``python -m repro_torch.obs validate`` on the
+    export (exit 0 or the phase fails), beside the same trace without
+    ``--autoscale``: static, autoscaled, autoscaled, static, so that
+    neither side is always the first on the card."""
+    from repro_torch.launch import serve
+    trace_dir = ROOT / "build" / "ctrl_trace"
+    traced = ["--trace-dir", str(trace_dir), "--profile-steps", "2"]
+    prof = None
+    for i, name in enumerate(("static", "autoscaled", "autoscaled",
+                              "static")):
+        extra = ["--autoscale"] if name == "autoscaled" else []
+        out = serve.run(CTRL_ARGV + ["--device", str(dev)] + extra
+                        + (traced if i == 1 else []))
+        m, eng, sch = out["summary"], out["engine"], out["scheduler"]
+        if m["n"] != 16 or m["gen_tokens"] != 16 * 8:
+            raise AssertionError(f"phase 12 (c) {name}: {m}")
+        if i == 1:
+            out["obs"].export(str(trace_dir))     # as serve.main does
+            prof = out["profiler"]
+        rep = sch.report() if sch is not None else None
+        print(f"phase 12 (c) {name} ({i + 1} of 4): TTFT p50 "
+              f"{m['ttft_p50'] * 1e3:.3f} ms  TPOT p50 "
+              f"{m['tpot_p50'] * 1e3:.3f} ms  {m['gen_tok_s']:.3f} gen "
+              f"tok/s  load imbalance {imbalance(eng):.4f}x  plan reuse "
+              f"{eng.plan_reuse_rate:.4f}  fine-tune rate "
+              f"{eng.finetune_rate:.4f}"
+              + (f"  swaps {rep['swaps']} (+{rep['bootstraps']} "
+                 f"bootstraps) over {rep['steps']} steps, churn "
+                 f"{rep['churn_per_100_steps']:.3f} swaps / 100 steps, "
+                 f"{sch.controller.migrated_slots} expert stacks moved"
+                 if rep else ""), flush=True)
+    times = prof.kernel_times()
+    if not prof.session.cuda or not times:
+        raise AssertionError("phase 12 (c): the StepProfiler capture saw "
+                             "no device activity")
+    print(f"phase 12 (c): StepProfiler capture of engine steps 2-3 "
+          f"({prof.session.path}): {len(times)} kernels, device us: "
+          + ", ".join(f"{k[:60]} {v:.1f}" for k, v in
+                      list(times.items())[:10]), flush=True)
+    env = dict(os.environ, PYTHONPATH=str(src))
+    val = subprocess.run([sys.executable, "-m", "repro_torch.obs",
+                          "validate", "--trace-dir", str(trace_dir),
+                          "--require-requests", "16"], env=env,
+                         capture_output=True, text=True, timeout=300)
+    print(f"phase 12 (c): python -m repro_torch.obs validate: exit "
+          f"{val.returncode}: {val.stdout.strip()[-400:]}", flush=True)
+    if val.returncode != 0:
+        raise AssertionError(f"phase 12 (c): the validator failed: "
+                             f"{val.stdout} {val.stderr}")
+
+
+def phase12(dev, src: Path) -> dict:
+    """The serving control loop on gpt2-moe at full width and depth, kernel
+    route (counters zeroed just before, read just after): (a) plan swaps
+    mid-decode, (b) a device failure mid-decode, (c) the serve driver with
+    ``--workload drift --autoscale`` and the trace validator.  Returns the
+    launches."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import COUNTERS, reset_counters
+    from repro_torch.models import lm
+    t_start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gpt2-moe")
+    # capacity factor 16: no token is dropped, so the tokens cannot depend
+    # on which plan's capacity a token met
+    cfg = dc.replace(cfg, moe=dc.replace(cfg.moe, capacity_factor=16.0))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init_params(cfg, gen, device=dev)
+    n, length, new = CTRL_PROMPTS
+    rng = np.random.RandomState(31)
+    prompts = [rng.randint(0, cfg.vocab_size, (length,)) for _ in range(n)]
+    reset_counters()
+    with torch.inference_mode():
+        static, _ = ctrl_run(ctrl_server(dev, cfg, params), prompts, new)
+        print(f"phase 12: static run: {n} requests of {length} tokens x "
+              f"{new} new tokens, capacity factor 16", flush=True)
+        phase12_swaps(dev, cfg, params, prompts, new, static)
+        phase12_failure(dev, cfg, params, prompts, new, static)
+    del params
+    phase12_driver(dev, src)
+    torch.cuda.synchronize(dev)
+    launches = {k: c.count for k, c in COUNTERS.items()}
+    print("phase 12 launches: " + json.dumps(launches), flush=True)
+    missing = [k for k, c in launches.items()
+               if c == 0 and k not in TRAIN_ONLY | RECURRENT]
+    if missing:
+        raise AssertionError(f"phase 12: kernels never launched on the "
+                             f"control loop's path: {missing}")
+    print(f"phase 12: {time.perf_counter() - t_start:.1f} s", flush=True)
     return launches
 
 
@@ -3591,7 +3919,7 @@ def phase8(dev) -> dict:
     return launches
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10")
+PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12")
 # phase 3's profile: a part of a CUDA kernel's name -> its wrapper
 WATCH_TRAIN = {"gmm_": "grouped_matmul", "gating_kernel": "topk_gating_fused",
                "positions_kernel": "topk_positions",
@@ -3606,7 +3934,7 @@ def main(argv=None) -> int:
                                  "phase, as the module docstring says.")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of the phases to run after phase 0 "
-                    "(1-10; 1r: phase 1's two recurrences alone; 1m: its "
+                    "(1-12; 1r: phase 1's two recurrences alone; 1m: its "
                     "five MoE routing kernels alone); the "
                     "kernels line is printed only when all run")
     ap.add_argument("--src", default=str(SRC),
@@ -3689,6 +4017,8 @@ def main(argv=None) -> int:
     serve_ep = phase8(dev) if "8" in phases else None
     llama4 = phase9(dev) if "9" in phases else None
     dense = phase10(dev) if "10" in phases else None
+    frontends = phase11(dev) if "11" in phases else None
+    control = phase12(dev, src) if "12" in phases else None
 
     print(smi, flush=True)
     if set(phases) == set(PHASES):
@@ -3699,7 +4029,8 @@ def main(argv=None) -> int:
                      "mixtral": mixtral[name], "rwkv": rwkv[name],
                      "zamba": zamba[name], "ep_train": ep_train[name],
                      "serve_ep": serve_ep[name], "llama4": llama4[name],
-                     "dense": dense[name]}
+                     "dense": dense[name], "frontends": frontends[name],
+                     "control": control[name]}
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCE[name],
                 "replaces": REPLACES[name], "launches": sum(paths.values()),

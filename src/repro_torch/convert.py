@@ -70,15 +70,15 @@ def _stack(st, device):
 
 def from_reference(np_params, device="cuda") -> LMParams:
     """Reference ``LMParams`` (numpy leaves; transformer, hybrid or RWKV
-    stack) -> port ``LMParams`` on ``device`` (the card by default; raises
-    without one)."""
+    stack; the frontends' ``patch_proj``, ``frame_proj`` and ``mask_emb``
+    where the config has them) -> port ``LMParams`` on ``device`` (the card
+    by default; raises without one)."""
     device = resolve_device(device)
-    for name in ("patch_proj", "frame_proj", "mask_emb"):
-        if getattr(np_params, name, None) is not None:
-            raise NotImplementedError(f"{name}: modality frontends are not "
-                                      f"ported")
     stack = _stack(np_params.stack, device)
-    return LMParams(_t(np_params.embed, device), stack,
+    return LMParams(_t(np_params.embed, device),
+                    _t(getattr(np_params, "patch_proj", None), device),
+                    _t(getattr(np_params, "frame_proj", None), device),
+                    _t(getattr(np_params, "mask_emb", None), device), stack,
                     _t(np_params.final_norm, device),
                     _t(np_params.lm_head, device))
 

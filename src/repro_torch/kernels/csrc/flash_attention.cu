@@ -38,9 +38,16 @@
 //   while two consumer warpgroups compute (setmaxnreg: 240 registers for the
 //   consumers, 24 for the producer warpgroup).  One 4-D tensor map a tensor
 //   over [B, S, heads, hd] as stored, box {64, 1, rows, 1}: a 64-column
-//   slice of one head (two boxes at hd 128); the GQA head is the map's head
-//   coordinate h // (H/KV).  The TMA's zero fill covers rows >= S, so
-//   nothing is masked on load, and its store clips them.
+//   slice of one head (two boxes at hd 128 and at hd 80); the GQA head is
+//   the map's head coordinate h // (H/KV).  The TMA's zero fill covers rows
+//   >= S, so nothing is masked on load, and its store clips them.
+// - Head dim 80 (hubert-xlarge): the maps keep the real inner dimension
+//   (rows of 160 bytes, a multiple of 16 as the TMA requires), and a tile is
+//   the two 64-column boxes of hd 128, the second zero-filled past column
+//   80.  S = Q K^T issues the 5 k16 steps that hold real columns, P V runs
+//   at m64n80k16 over the same two-box descriptor, the epilogue writes
+//   columns 0 .. 79 and the TMA store clips the second box at column 80.
+//   The scale is 80^-0.5: each instance takes it from its own HD.
 // - Blocks: 384 threads; each work item is a 128-row query tile of one
 //   (b, h), 64 rows a consumer warpgroup, so each staged K/V tile feeds 128
 //   rows.  Persistent: one block an SM (the ring takes most of its shared
@@ -90,12 +97,15 @@ constexpr float kMask = -0x1p100f;                // a masked score (raw)
 constexpr double kLog2e = 1.4426950408889634;
 
 // shared memory: Q [BM rows], kStages x (K, V) [BN rows], O [BM rows], each
-// tile hd / 64 boxes of rows x 128 bytes, 128-byte swizzled; then barriers
+// tile ceil(hd / 64) boxes of rows x 128 bytes, 128-byte swizzled (at hd 80
+// the second box holds columns 64 .. 79, the TMA's zero fill past them);
+// then barriers
 template <int HD>
 struct Smem {
-  static constexpr int kBoxes = HD / 64;
+  static constexpr int kBoxes = (HD + 63) / 64;
   static constexpr int kStages = 2;
-  static constexpr int kQ = BM * HD * 2, kKV = BN * HD * 2, kO = BM * HD * 2;
+  static constexpr int kQ = BM * kBoxes * 128, kKV = BN * kBoxes * 128,
+                       kO = BM * kBoxes * 128;
   static constexpr int kOOff = kQ + kStages * 2 * kKV;
   static constexpr int kBarOff = kOOff + kO;
   static constexpr int kBytes = kBarOff + (2 + 4 * kStages) * 8 + 1024;
@@ -171,8 +181,25 @@ __device__ __forceinline__ void issue_qk(float (&sc)[64], uint32_t q,
                    kk > 0);
 }
 
+#define REGS40 REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39"
+
+// d[64 x 80] += a[64 x 16] (registers) . b[16 x 80] (N-major in shared
+// memory): hopper.cuh's wgmma_rs at n80, the P V of head dim 80.  The
+// descriptor's 64-column blocks sit lbo apart, so columns 64 .. 79 come
+// from the second box
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {" REGS40
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : R8(0), R8(8), R8(16), R8(24), R8(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // O += P V over the BN keys of one staged V tile: k16 step c reads V rows
-// 16c .. 16c+15 (2048 bytes on), the hd / 64 column boxes BN * 128 apart
+// 16c .. 16c+15 (2048 bytes on), the column boxes BN * 128 apart; the
+// product is m64n{hd}k16 (n80 at hd 80: no padded columns multiplied)
 template <int HD>
 __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
                                          const uint32_t (&pa)[BN / 16][4],
@@ -479,7 +506,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int s,
 }  // namespace
 
 // q, o [B,S,H,hd]; k, v [B,S,KV,hd]; all bf16, contiguous, 16-byte aligned.
-// hd 64 or 128; H % KV == 0; window 0 = none; causal 0/1.
+// hd 64, 80 or 128; H % KV == 0; window 0 = none; causal 0/1.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int b, int s, int h, int kvh, int hd,
                                int causal, int window, void* stream) {
@@ -488,6 +515,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (b == 0 || s == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   if (hd == 64) return launch<64>(q, k, v, o, b, s, h, kvh, causal, window, st);
+  if (hd == 80) return launch<80>(q, k, v, o, b, s, h, kvh, causal, window, st);
   if (hd == 128)
     return launch<128>(q, k, v, o, b, s, h, kvh, causal, window, st);
   return (int)cudaErrorInvalidValue;

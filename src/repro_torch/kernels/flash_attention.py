@@ -4,7 +4,7 @@
 [B, S, KV, hd] -> [B, S, H, hd] in q.dtype; query head h reads KV head
 h // (H/KV), the scale is hd**-0.5, masked logits are -1e30, and query and
 key positions both start at 0 (so Sq must equal Skv, as in the reference's
-Pallas kernel).  On the card: bf16 only, hd 64 or 128, no gradient (the
+Pallas kernel).  On the card: bf16 only, hd 64, 80 or 128, no gradient (the
 reference's kernel has no VJP either).
 
 A CPU tensor takes the plain version in ``kernels.ref``; a CUDA tensor
@@ -20,7 +20,7 @@ from repro_torch.kernels._build import (BF16, LaunchCounter, check, lib,
 
 FLASH_ATTENTION = LaunchCounter("flash_attention")
 
-HEAD_DIMS = (64, 128)     # the kernel's template instances
+HEAD_DIMS = (64, 80, 128)     # the kernel's template instances
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):

@@ -1,13 +1,20 @@
 """Serving driver of the port: profile expert-selection paths, then serve a
-Poisson request trace through the continuous-batching engine with Lina's
+request trace through the continuous-batching engine with Lina's
 two-phase popularity scheduling, on one card or an expert-parallel mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gpt2-moe \\
         --requests 8 --seq 64 --max-new-tokens 8 [--device cuda|cpu] \\
-        [--mesh DxE] [--n-microops 4] [--pipeline-ffn]
+        [--workload drift] [--autoscale] [--mesh DxE] [--n-microops 4] \\
+        [--pipeline-ffn] [--trace-dir D] [--profile-steps N]
 
-Flags follow ``repro.launch.serve``, less ``--workload`` and
-``--autoscale`` (the reference's ``sched/`` package, not ported yet).
+Flags follow ``repro.launch.serve``.  ``--workload`` picks a
+``repro_torch.sched.workloads`` scenario (drifting Zipf topic mixture,
+flash crowd, diurnal tide, ...) instead of the stationary Poisson trace;
+``--autoscale`` attaches the telemetry-driven controller
+(``repro_torch.sched``), so per-layer placement adapts to the traffic
+between micro-batches.  ``--profile-steps N`` captures engine steps 2 ..
+N + 1 with ``torch.profiler`` (``obs.StepProfiler``; its Chrome trace goes
+under ``--trace-dir`` when given) and prints the device time by kernel.
 ``--device`` defaults to ``cuda`` and raises without a card; ``--device
 cpu`` runs the kernels' plain versions.
 
@@ -35,11 +42,13 @@ from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.devices import resolve_device
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import lm as lm_mod
-from repro_torch.obs import ObsContext
+from repro_torch.obs import ObsContext, StepProfiler
 from repro_torch.runtime.engine import (EngineConfig, ServingEngine, simulate,
                                         summarize_results)
 from repro_torch.runtime.server import (MoEServer, ServerConfig,
                                         profile_from_training)
+from repro_torch.sched import (SCENARIOS, AdaptiveScheduler,
+                               ControllerConfig, get_trace)
 
 
 def parse_args(argv=None):
@@ -82,6 +91,23 @@ def parse_args(argv=None):
                     help="kept for the reference's command lines")
     ap.add_argument("--no-pipeline-ffn", dest="pipeline_ffn",
                     action="store_false")
+    ap.add_argument("--workload", default=None, choices=sorted(SCENARIOS),
+                    help="trace scenario (repro_torch.sched.workloads); "
+                         "default is a stationary Poisson trace")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="attach the telemetry-driven autoscaling "
+                         "controller (repro_torch.sched): per-layer plans "
+                         "adapt to traffic between micro-batches")
+    ap.add_argument("--autoscale-interval", type=int, default=4,
+                    help="engine steps between controller evaluations")
+    ap.add_argument("--hysteresis", type=float, default=0.1,
+                    help="min relative transfer-balance improvement "
+                         "before the controller swaps a live plan")
+    ap.add_argument("--headroom", type=float, default=0.2,
+                    help="drift-rate -> replica-hedge gain")
+    ap.add_argument("--profile-steps", type=int, default=0,
+                    help="capture engine steps 2 .. N + 1 with "
+                         "torch.profiler and print device time by kernel")
     ap.add_argument("--mesh", default=None,
                     help="data x model mesh DxE, e.g. 2x2 (see the module "
                          "doc)")
@@ -98,7 +124,8 @@ def parse_args(argv=None):
 
 def run(argv=None) -> dict:
     """Profile, build the server and engine, replay the trace.  Returns
-    {"summary", "engine", "results", "obs", "args"}."""
+    {"summary", "engine", "results", "obs", "args", "mesh", "scheduler",
+    "profiler"}."""
     args = parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -147,26 +174,53 @@ def run(argv=None) -> dict:
                                     plan_cache=not args.no_plan_cache),
                        obs=obs, device=dev, mesh=mesh)
     del params
+    scheduler = None
+    if args.autoscale:
+        scheduler = AdaptiveScheduler(
+            server, ControllerConfig(interval=args.autoscale_interval,
+                                     hysteresis=args.hysteresis,
+                                     headroom=args.headroom))
     engine = ServingEngine(server,
                            EngineConfig(max_batch_tokens=args.batch_tokens,
-                                        max_batch_requests=args.batch_requests))
+                                        max_batch_requests=args.batch_requests),
+                           scheduler=scheduler)
     if args.warmup:
         say("warming up (building and launching every kernel) ...")
         n = engine.warmup(seqs=(args.seq,),
                           max_new_tokens=args.max_new_tokens)
         say(f"warm-up ran {n} calls")
 
-    rng = np.random.RandomState(1000 + args.seed)
-    t, trace = 0.0, []
-    for _ in range(args.requests):
-        t += rng.exponential(1.0 / args.rate)
-        trace.append((rng.randint(0, cfg.vocab_size, (args.seq,)), t))
-    say(f"serving {args.requests} requests (stationary-poisson, rate "
-        f"{args.rate}/s, {args.max_new_tokens} new tokens each) ...")
+    if args.workload is not None:
+        trace = get_trace(args.workload, cfg.vocab_size,
+                          n_requests=args.requests, seq=args.seq,
+                          rate_hz=args.rate, seed=1000 + args.seed)
+        shape = args.workload
+    else:
+        rng = np.random.RandomState(1000 + args.seed)
+        t, trace = 0.0, []
+        for _ in range(args.requests):
+            t += rng.exponential(1.0 / args.rate)
+            trace.append((rng.randint(0, cfg.vocab_size, (args.seq,)), t))
+        shape = "stationary-poisson"
+    profiler = None
+    if args.profile_steps:
+        profiler = StepProfiler(args.trace_dir, start=2,
+                                steps=args.profile_steps)
+        step = engine.step
+
+        def profiled_step(*a, **kw):
+            profiler.on_step(engine.step_idx + 1)
+            return step(*a, **kw)
+        engine.step = profiled_step
+    say(f"serving {args.requests} requests ({shape}, rate {args.rate}/s, "
+        f"{args.max_new_tokens} new tokens each) ...")
     with torch.inference_mode():
         results = simulate(engine, trace, max_new_tokens=args.max_new_tokens)
+    if profiler is not None:
+        profiler.close()
     return {"summary": summarize_results(results), "engine": engine,
-            "results": results, "obs": obs, "args": args, "mesh": mesh}
+            "results": results, "obs": obs, "args": args, "mesh": mesh,
+            "scheduler": scheduler, "profiler": profiler}
 
 
 def main(argv=None, _child: bool = False):
@@ -195,6 +249,19 @@ def main(argv=None, _child: bool = False):
           f"{np.mean([s.est_accurate for s in stats]):.1%}")
     print(f"device load imbalance (max/mean): "
           f"{(loads.max(1) / np.maximum(loads.mean(1), 1e-9)).mean():.2f}x")
+    scheduler = out["scheduler"]
+    if scheduler is not None:
+        rep = scheduler.report()
+        print(f"autoscaler: {rep['swaps']} swaps (+{rep['bootstraps']} "
+              f"bootstraps) over {rep['steps']} steps "
+              f"({rep['churn_per_100_steps']:.1f} swaps/100 steps), "
+              f"{scheduler.controller.migrated_slots} expert stacks moved")
+    if out["profiler"] is not None:
+        times = out["profiler"].kernel_times()
+        print(f"profiled engine steps 2-{1 + args.profile_steps}: device "
+              f"time by kernel (us): " + (", ".join(
+                  f"{k} {v:.1f}" for k, v in list(times.items())[:12])
+                  or "no device activity (no card)"))
     if args.trace_dir:
         paths = obs.export(args.trace_dir)
         print(f"trace artifacts: {paths['trace']} (open in "

@@ -8,7 +8,7 @@ from repro_torch.kernels.ref import gelu
 
 
 def dense_init(gen: torch.Generator, shape, scale_axis: int = 0,
-               dtype=torch.float32, device="cpu"):
+               dtype=torch.float32, device="cuda"):
     """N(0, 1/shape[scale_axis]), as the reference's ``dense_init``.  The
     draws are scaled in place: one fp32 transient of the leaf's size, not
     two (a [128, 5120, 8192] expert leaf is 21.5 GB in fp32)."""

@@ -3,7 +3,12 @@
 llama4-maverick, whose groups interleave a dense block with an MoE block
 and add a shared expert; and the ``"dense"`` family: qwen and granite, a
 dense FFN in every block and no expert choices), the hybrid Mamba2 +
-shared-attention stack (zamba2) and the attention-free RWKV6 stack.
+shared-attention stack (zamba2) and the attention-free RWKV6 stack.  The
+transformer also carries the two modality stubs: llava-next-34b's vision
+frontend (precomputed patch embeddings through ``patch_proj``, prepended
+to the text) and hubert-xlarge's audio frontend (precomputed frames of
+``FRAME_DIM`` through ``frame_proj``, every ``MASK_EVERY``-th frame masked
+with ``mask_emb`` in training; a bidirectional encoder with no decode).
 
 Parameters are NamedTuples of tensors in the reference's layout: every
 leaf of a transformer ``LMParams.stack`` carries a leading layer-group dim G
@@ -52,7 +57,9 @@ from repro_torch.models.attention import (AttnParams, KVCache, attention,
 from repro_torch.models.layers import dense_init, ffn_branch, rms_norm
 from repro_torch.tree import tree_map
 
+FRAME_DIM = 512      # audio stub frame-embedding dim
 CE_CHUNK = 1024      # sequence chunk for the memory-bounded CE
+MASK_EVERY = 13      # hubert deterministic mask pattern
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -91,6 +98,9 @@ class RWKVStack(NamedTuple):
 
 class LMParams(NamedTuple):
     embed: torch.Tensor                 # [V, d]
+    patch_proj: Optional[torch.Tensor]  # [d, d] vision stub
+    frame_proj: Optional[torch.Tensor]  # [FRAME_DIM, d] audio stub
+    mask_emb: Optional[torch.Tensor]    # [FRAME_DIM] hubert mask embedding
     stack: object                       # GroupParams, HybridParams or
     #                                     RWKVStack
     final_norm: torch.Tensor            # [d]
@@ -118,13 +128,12 @@ def tree_idx(tree, i):
 
 
 def _check_family(cfg, serve: bool = False) -> None:
-    """The transformer family runs in every entry point here; the hybrid
-    and RWKV families in ``init_params`` and the serving entry points
-    (``serve``) only."""
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend} frontend is not ported "
-            f"(ROADMAP: \"the modality frontends\")")
+    """The transformer family (frontends included) runs in every entry
+    point here; the hybrid and RWKV families in ``init_params`` and the
+    serving entry points (``serve``) only."""
+    if cfg.frontend not in ("none", "vision_stub", "audio_stub"):
+        raise NotImplementedError(f"{cfg.name}: unknown frontend "
+                                  f"{cfg.frontend!r}")
     if (cfg.layer_pattern or cfg.attention_free) and not serve:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family needs backward "
@@ -135,6 +144,17 @@ def _check_family(cfg, serve: bool = False) -> None:
 
 def _check_served_here(cfg) -> None:
     _check_family(cfg, serve=True)
+
+
+def _check_decodes(cfg) -> None:
+    """An encoder-only config (``causal=False``: hubert) has no decode
+    step, as the reference has no decode shapes for it."""
+    _check_served_here(cfg)
+    if not cfg.causal:
+        raise NotImplementedError(
+            f"{cfg.name}: a bidirectional encoder has no autoregressive "
+            f"decode step (init_cache / decode_step); serve it through "
+            f"forward_prefill")
 
 
 # ---------------------------------------------------------------------------
@@ -172,9 +192,15 @@ def init_params(cfg, gen: torch.Generator, device="cuda") -> LMParams:
     def lm_params(stack):
         # the unembedding is drawn after the stack
         lm_head = None if cfg.tie_embeddings else dense((d, cfg.vocab_size))
-        return LMParams(embed, stack, ones(d), lm_head)
+        return LMParams(embed, patch_proj, frame_proj, mask_emb, stack,
+                        ones(d), lm_head)
 
     embed = dense((cfg.vocab_size, d), scale_axis=-1)
+    # the frontends' projections, drawn after the embedding
+    patch_proj = dense((d, d)) if cfg.frontend == "vision_stub" else None
+    frame_proj = dense((FRAME_DIM, d)) if cfg.frontend == "audio_stub" \
+        else None
+    mask_emb = zeros(FRAME_DIM) if cfg.frontend == "audio_stub" else None
     hq, hkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     n_l = cfg.n_layers
     if cfg.layer_pattern:                                  # hybrid (zamba2)
@@ -226,6 +252,42 @@ def cast_for_compute(cfg, params: LMParams) -> LMParams:
     def one(p):
         return p.to(dt) if p.is_floating_point() else p
     return tree_map(one, params)
+
+
+def embed_inputs(cfg, params: LMParams, *, tokens=None, patches=None,
+                 frames=None, mask=None):
+    """The model's input embedding x [B, S, d] in ``cfg.dtype``, as the
+    reference's: the audio stub projects frames [B, S, FRAME_DIM] (frames
+    where ``mask`` [B, S] is True replaced by ``mask_emb``) through
+    ``frame_proj``; else tokens [B, S_text] are looked up, and the vision
+    stub prepends patches [B, P, d] projected through ``patch_proj``.
+    ``params`` are the compute copy (``cast_for_compute``).
+
+    The products are taken in the dtype JAX promotes the operands to (fp32
+    frames against a bf16 ``frame_proj`` multiply in fp32, where torch would
+    refuse the mix), then cast to ``cfg.dtype``; patches are first cast to
+    ``patch_proj``'s dtype, as there."""
+    dtype = DTYPES[cfg.dtype]
+    if cfg.frontend == "audio_stub":
+        f = frames
+        if mask is not None:
+            f = torch.where(mask[..., None], params.mask_emb.to(f.dtype), f)
+        w = params.frame_proj
+        pt = torch.promote_types(f.dtype, w.dtype)
+        return (f.to(pt) @ w.to(pt)).to(dtype)
+    x = params.embed[tokens.long()].to(dtype)
+    if cfg.frontend == "vision_stub":
+        pe = (patches.to(params.patch_proj.dtype) @ params.patch_proj
+              ).to(dtype)
+        x = torch.cat([pe, x], dim=1)
+    return x
+
+
+def frame_mask(shape, device):
+    """hubert's training mask [B, S]: every ``MASK_EVERY``-th frame (the
+    last of each run of ``MASK_EVERY``)."""
+    pos = torch.arange(shape[1], device=device)
+    return ((pos % MASK_EVERY) == (MASK_EVERY - 1))[None].expand(shape)
 
 
 def unembed_weight(params: LMParams):
@@ -416,17 +478,40 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
     ``torch.utils.checkpoint`` (non-reentrant): only the group boundaries
     are kept and the backward recomputes the group, kernels and
     all-to-alls included, as the reference's ``jax.checkpoint`` over the
-    scan body."""
+    scan body.
+
+    The frontends follow the reference's branches: hubert's batch holds
+    ``frames`` [B, S, FRAME_DIM] and ``labels`` [B, S]; every
+    ``MASK_EVERY``-th frame is masked with ``mask_emb`` and the loss is
+    taken on the masked frames only.  llava's holds ``tokens``, ``patches``
+    [B, P, d] and ``labels`` [B, S_text]: the patch prefix gets zero
+    labels and a zero loss mask, the text next-token labels."""
     _check_family(cfg)
     p = cast_for_compute(cfg, params)
-    labels = batch["labels"]
-    x = p.embed[batch["tokens"].long()].to(DTYPES[cfg.dtype])
+    tokens = batch.get("tokens")
+    if cfg.frontend == "audio_stub":
+        frames = batch["frames"]
+        mask = frame_mask(frames.shape[:2], frames.device)
+        x = embed_inputs(cfg, p, frames=frames, mask=mask)
+        labels, loss_mask = batch["labels"], mask.float()
+    elif cfg.frontend == "vision_stub":
+        x = embed_inputs(cfg, p, tokens=tokens, patches=batch["patches"])
+        lab_txt = batch["labels"]
+        pad = torch.zeros((tokens.shape[0], batch["patches"].shape[1]),
+                          dtype=lab_txt.dtype, device=lab_txt.device)
+        labels = torch.cat([pad, lab_txt], dim=1)
+        loss_mask = torch.cat([torch.zeros(pad.shape, device=x.device),
+                               torch.ones(lab_txt.shape, device=x.device)],
+                              dim=1)
+    else:
+        x = embed_inputs(cfg, p, tokens=tokens)
+        labels = batch["labels"]
+        loss_mask = torch.ones(labels.shape, device=x.device)
     x, aux, experts = run_stack(cfg, p.stack, x, remat=cfg.remat,
                                 dispatch_backend=dispatch_backend, mesh=mesh,
                                 lina=lina, fsdp=fsdp)
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
-    loss = chunked_ce_loss(x, unembed_weight(p), labels,
-                           torch.ones(labels.shape, device=x.device),
+    loss = chunked_ce_loss(x, unembed_weight(p), labels, loss_mask,
                            remat=cfg.remat)
     return ModelOutput(loss + aux, aux, experts)
 
@@ -480,16 +565,20 @@ def forward_prefill(cfg, params: LMParams, batch: dict, *, mesh=None,
     (``ModelOutput.logits``), the aux loss and, for the transformer
     family, the per-MoE-layer top-1 expert choices [n_moe_layers, B * S].
     ``batch`` holds ``tokens`` [B, S] on the params' device (the whole
-    batch on every rank of a mesh).  The transformer keywords are the
-    reference's (see the module doc); a stacked ``serve_plan`` gives each
-    MoE layer its own plan (the reference's prefill takes one plan for
-    every layer).  Builds no cache, as the reference's (decode starts from
+    batch on every rank of a mesh); hubert's ``frames`` [B, S, FRAME_DIM]
+    instead (nothing masked), llava's ``tokens`` and ``patches`` [B, P, d]
+    (the logits are the last text position's).  The transformer keywords
+    are the reference's (see the module doc); a stacked ``serve_plan``
+    gives each MoE layer its own plan (the reference's prefill takes one
+    plan for every layer).  Builds no cache, as the reference's (decode starts from
     ``init_cache``).  The WKV / SSD and flash kernels have no backward:
     call it under ``torch.inference_mode`` when the params require
     grad."""
     _check_served_here(cfg)
     p = cast_for_compute(cfg, params)
-    x = p.embed[batch["tokens"].long()].to(DTYPES[cfg.dtype])
+    x = embed_inputs(cfg, p, tokens=batch.get("tokens"),
+                     patches=batch.get("patches"),
+                     frames=batch.get("frames"))
     aux = torch.zeros((), device=x.device)
     experts = None
     if isinstance(p.stack, HybridParams):
@@ -513,8 +602,9 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     KV, hd], or the hybrid's shared-block KV cache [n_taps, B, S_max, KV,
     hd] and its Mamba2 states, or the RWKV states.  KV caches are in
     ``dtype``, S_max = seq_len capped at the sliding window; recurrent
-    states in float32, as the reference keeps them."""
-    _check_served_here(cfg)
+    states in float32, as the reference keeps them.  Raises for an
+    encoder-only config (hubert)."""
+    _check_decodes(cfg)
     device = resolve_device(device)
     pos = torch.zeros((batch,), dtype=torch.int32, device=device)
     s = min(seq_len, cfg.sliding_window) if cfg.sliding_window else seq_len
@@ -588,8 +678,9 @@ def decode_step(cfg, params: LMParams, cache: LMCache, token, *, mesh=None,
     attention is the plain ``decode_attention``.  Mamba2 layers run
     ``mamba_decode`` (plain), the shared block the plain
     ``decode_attention``; each RWKV6 layer runs the WKV op at T = 1 from
-    its cached state (the kernel on the kernel route)."""
-    _check_served_here(cfg)
+    its cached state (the kernel on the kernel route).  llava decodes text
+    tokens only, as the reference's; an encoder-only config raises."""
+    _check_decodes(cfg)
     p = cast_for_compute(cfg, params)
     x = p.embed[token.long()][:, None].to(DTYPES[cfg.dtype])     # [B,1,d]
     pos = cache.pos

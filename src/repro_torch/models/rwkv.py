@@ -52,7 +52,7 @@ class RWKVState(NamedTuple):
 
 
 def init_rwkv_params(gen: torch.Generator, cfg, lead=(), dtype=torch.float32,
-                     device="cpu") -> RWKVParams:
+                     device="cuda") -> RWKVParams:
     """The reference's distributions, with leading dims ``lead`` (the layer
     stack): N(0, 1/fan_in) projections, N(0, 0.01^2) decay lora, lerp
     weights 0.5, decay base -2, zero bonus u, unit norm scale."""
@@ -138,7 +138,7 @@ def channel_mix(p: RWKVParams, x, x_last=None):
     return torch.sigmoid(xr @ p.cr) * (kk @ p.cv), x[:, -1]
 
 
-def init_rwkv_state(cfg, batch, device="cpu") -> RWKVState:
+def init_rwkv_state(cfg, batch, device="cuda") -> RWKVState:
     h, hd = _heads(cfg)
     return RWKVState(
         torch.zeros((batch, h, hd, hd), device=device),

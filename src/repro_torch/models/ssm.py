@@ -49,7 +49,7 @@ def dims(cfg):
 
 
 def init_mamba_params(gen: torch.Generator, cfg, lead=(), dtype=torch.float32,
-                      device="cpu") -> MambaParams:
+                      device="cuda") -> MambaParams:
     """The reference's distributions, with leading dims ``lead`` (the layer
     stack): N(0, 1/fan_in) projections, N(0, 0.1^2) conv taps, zero conv
     bias and dt bias, a_log = log(linspace(1, 16, H)), unit D and norm."""
@@ -152,7 +152,7 @@ def mamba_decode(p: MambaParams, cfg, x, state: MambaState):
 
 
 def init_mamba_state(cfg, batch, dtype=torch.float32,
-                     device="cpu") -> MambaState:
+                     device="cuda") -> MambaState:
     d_in, h, n, pd = dims(cfg)
     return MambaState(
         torch.zeros((batch, h, pd, n), device=device),

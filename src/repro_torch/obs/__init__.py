@@ -2,8 +2,11 @@
 
 ``tracer`` (nested spans with JSON + Chrome ``trace_event`` export) and
 ``metrics`` (counters / gauges / histograms with Prometheus + JSON export)
-are copies of the reference's; ``ObsContext`` bundles one tracer and one
-registry, shared by ``MoEServer`` and ``ServingEngine``.
+are copies of the reference's; ``profiler`` captures device time with
+``torch.profiler`` and replays overlap phases into spans.  ``ObsContext``
+bundles one tracer and one registry, shared by ``MoEServer`` and
+``ServingEngine``.  ``python -m repro_torch.obs validate`` checks an
+exported trace against the span-tree invariants.
 """
 from __future__ import annotations
 
@@ -13,13 +16,16 @@ from dataclasses import dataclass
 
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      MetricsRegistry, parse_prometheus)
+from repro_torch.obs.profiler import (StepProfiler, attribute_overlap,
+                                      hidden_fraction, trace_session)
 from repro_torch.obs.tracer import (NOOP, Span, Tracer, check_span_tree,
                                     to_chrome, to_json, tree_from_chrome)
 
 __all__ = [
     "ObsContext", "Tracer", "Span", "NOOP", "MetricsRegistry", "Counter",
     "Gauge", "Histogram", "parse_prometheus", "to_json", "to_chrome",
-    "tree_from_chrome", "check_span_tree",
+    "tree_from_chrome", "check_span_tree", "trace_session", "StepProfiler",
+    "attribute_overlap", "hidden_fraction",
 ]
 
 

@@ -156,16 +156,37 @@ class ServingEngine:
 
     def __init__(self, server: MoEServer, ecfg: Optional[EngineConfig] = None,
                  clock: Callable[[], float] = time.perf_counter,
+                 scheduler=None,
+                 service_model: Optional[Callable] = None,
+                 fault_injector=None,
                  obs: Optional[ObsContext] = None):
-        """``obs`` is a ``repro_torch.obs.ObsContext``.  The serving stack
+        """``scheduler`` is a ``repro_torch.sched.AdaptiveScheduler``: after
+        each micro-batch the engine feeds it the step's LayerStats and
+        served token count, and controller-published plans take effect from
+        the next micro-batch (decode state survives the swap).
+
+        ``service_model`` maps (step LayerStats list, n_tokens) -> modeled
+        seconds of distributed service time added on top of the measured
+        wall time in virtual-clock replay (``step(now=...)``), where
+        per-device load imbalance, invisible to one card's wall time, slows
+        the step.  Ignored in wall-clock mode.
+
+        ``fault_injector`` is a ``repro_torch.resilience.FaultInjector``:
+        called at each step start (fault firing) and between the step's
+        stats and the scheduler (telemetry corruption).
+
+        ``obs`` is a ``repro_torch.obs.ObsContext``.  The serving stack
         shares ONE context: passing it here also installs it on the server;
-        omitting it inherits the server's.  The reference's scheduler, fault
-        injector and modeled service time arrive with the ``sched`` and
-        ``resilience`` slices."""
+        omitting it inherits the server's."""
         self.server = server
         if obs is not None:
             self.obs = obs
             server.obs = obs
+            # a scheduler built before this engine captured the server's
+            # previous registry: re-point its bus at the shared one
+            bus = getattr(scheduler, "bus", None)
+            if bus is not None and bus.metrics is not None:
+                bus.metrics = obs.metrics
         else:
             self.obs = getattr(server, "obs", None) or ObsContext.disabled()
         # open request-lifecycle spans by rid (tracer enabled only)
@@ -183,6 +204,11 @@ class ServingEngine:
         self._next_rid = 0
         self.layer_stats: Deque[LayerStats] = deque(
             maxlen=self.ecfg.stats_window)
+        self.scheduler = scheduler
+        self.service_model = service_model
+        self.fault_injector = fault_injector
+        if fault_injector is not None:
+            fault_injector.attach(self)
         self._finetunes = 0
         self._layers_served = 0
         self.last_step_end: Optional[float] = None   # stamp of the last step
@@ -345,6 +371,11 @@ class ServingEngine:
                 "trace with simulate()")
         self.step_idx += 1
         t_now = self.clock() if now is None else now
+        if self.fault_injector is not None:
+            # faults fire before batch formation: an overload burst's
+            # requests are admissible this step, a device failure degrades
+            # this step's routing
+            self.fault_injector.on_step(self, t_now)
         self._shed_expired(t_now)
         decodes = list(self._active.values())[:ecfg.max_batch_requests]
         decodes = decodes[:ecfg.max_batch_tokens]
@@ -366,6 +397,10 @@ class ServingEngine:
             dec_res = self._run_decodes(decodes) if decodes else None
         with tr.timed("prefill", record=False) as sw_pre:
             pre_parts = self._run_prefills(prefills) if prefills else []
+        n_tokens = len(decodes) + sum(r.tokens.shape[0] for r in prefills)
+        extra = 0.0
+        if now is not None and self.service_model is not None:
+            extra = float(self.service_model(self._step_stats, n_tokens))
 
         # Finish with a NaN placeholder stamp while the insert phase is
         # still being measured (its wall time is part of the service that
@@ -383,7 +418,7 @@ class ServingEngine:
         if now is None:
             completion = self.clock()
         else:
-            completion = now + service * time_scale
+            completion = now + service * time_scale + extra
         self.last_step_end = completion
         for r in out:
             r.completion = completion
@@ -393,12 +428,21 @@ class ServingEngine:
             if slot.ttft != slot.ttft:
                 slot.ttft = completion
         scale = 1.0 if now is None else time_scale
-        self._observe_step(t_now, completion, scale,
+        self._observe_step(t_now, completion, scale, extra,
                            (sw_dec.dt, sw_pre.dt), decodes, pre_parts, out)
+        if self.scheduler is not None:
+            # between micro-batches: feed telemetry, maybe publish plans —
+            # they apply from the NEXT step, never mid-batch.  The injector
+            # corrupts the observed stats here (telemetry faults poison the
+            # control loop's view, not the actual serving math).
+            stats = self._step_stats
+            if self.fault_injector is not None:
+                stats = self.fault_injector.filter_stats(stats)
+            self.scheduler.after_step(stats, n_tokens)
         return out
 
     # --- observability ------------------------------------------------------
-    def _observe_step(self, t_now, completion, scale, walls,
+    def _observe_step(self, t_now, completion, scale, extra, walls,
                       decodes, pre_parts, out) -> None:
         """Publish the step into the obs context: registry metrics always,
         span trees only when the tracer is enabled.  Phase boundaries are
@@ -407,7 +451,7 @@ class ServingEngine:
         prefilled this step, queue + prefill + insert == TTFT exactly."""
         wall_dec, wall_pre = walls
         t_dec_end = t_now + wall_dec * scale
-        t_pre_end = t_dec_end + wall_pre * scale
+        t_pre_end = t_dec_end + wall_pre * scale + extra
         met = self.obs.metrics
         met.counter("engine_steps_total").inc()
         met.histogram("engine_step_service_s").observe(completion - t_now)

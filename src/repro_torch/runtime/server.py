@@ -182,7 +182,11 @@ class MoEServer:
         self._hosted_of: dict = {}
         self._plan_override: dict = {}
         self._override_fresh: set = set()
+        # devices masked out of planning and routing; fault_hook, when set,
+        # is called as fault_hook("plan", layer) before each primary plan
+        # build (the injection point of planner-crash faults)
         self.dead_devices: set = set()
+        self.fault_hook = None
         self.degrade_stats: dict = {"planner_errors": 0, "phase2_timeouts": 0,
                                     "emergency_replans": 0}
         self._phase2_suppress = 0
@@ -221,6 +225,12 @@ class MoEServer:
                 "server_degrade_total",
                 kind="emergency_replan").inc(len(rebuilt))
             self.publish_plans(rebuilt)
+
+    def revive_devices(self, devices) -> None:
+        """Return repaired devices to the pool; plans re-expand onto them at
+        the next re-plan (cache drift / controller cadence)."""
+        self.dead_devices -= {int(d) for d in devices}
+        self._plan_arrays.clear()
 
     def _plan_orphaned(self, plan: PlacementPlan) -> bool:
         if not self.dead_devices:
@@ -404,6 +414,8 @@ class MoEServer:
             "phase2.finetune" if phase2 else "plan.build", layer=li)
         try:
             with sw:
+                if self.fault_hook is not None:
+                    self.fault_hook("plan", li)
                 plan = plan_placement(basis, self.n_dev, scfg.max_pack,
                                       dead_devices=self.dead_devices)
         except Exception:

@@ -151,3 +151,23 @@ def test_op_is_differentiable_on_the_cpu():
     flash_attention_op(q, k, v, causal=True, window=4).sum().backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (q, k, v))
+
+
+@pytest.mark.parametrize("causal,window,heads,s", [
+    (False, 0, (4, 4), 48),      # hubert: bidirectional MHA
+    (True, 0, (4, 2), 40),
+    (True, 8, (4, 1), 48)])
+def test_flash_attention_at_head_dim_80(causal, window, heads, s):
+    """hubert-xlarge's head dim 80 (the kernel's third instance): the
+    wrapper's plain version against the reference's Pallas kernel in
+    interpret mode, which takes hd 80, and its oracle."""
+    h, kv = heads
+    q, k, v = qkv(np.random.RandomState(80 + s), 2, s, h, kv, hd=80)
+    got = flash_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                          causal=causal, window=window).numpy()
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    for want in (j_flash(jq, jk, jv, causal=causal, window=window,
+                         interpret=True),
+                 jref.ref_attention(jq, jk, jv, causal=causal,
+                                    window=window)):
+        np.testing.assert_allclose(got, np.asarray(want), **TOL)

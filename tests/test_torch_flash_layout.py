@@ -43,10 +43,16 @@ MASK = np.float32(float.fromhex(source_constant("kMask").rstrip("fF")))
 SMS = 132                     # H100 SXM
 
 
+def boxes(hd):
+    """Smem<HD>::kBoxes: 64-column boxes a tile (two at hd 80, the second
+    zero-filled past column 80)."""
+    return -(-hd // 64)
+
+
 def smem_plan(hd):
     """Smem<HD>: byte offsets of Q, the K / V stages, O and the barriers,
-    and the bytes the launch asks for."""
-    q, kv, o = BM * hd * 2, BN * hd * 2, BM * hd * 2
+    and the bytes the launch asks for (whole boxes of 128-byte rows)."""
+    q, kv, o = (rows * boxes(hd) * 128 for rows in (BM, BN, BM))
     st = STAGES
     plan = {"q": 0, "o": q + st * 2 * kv, "bar": q + st * 2 * kv + o}
     for s in range(st):
@@ -182,16 +188,18 @@ def test_query_heads_of_a_kv_head_are_neighbours_at_odd_groups(h, kvh):
 # shared memory, TMA boxes, descriptors, fragments
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128])
 def test_shared_memory_plan_fits_and_aligns(hd):
     plan = smem_plan(hd)
     assert plan["bytes"] <= SMEM_MAX
     tiles = sorted((v, k) for k, v in plan.items()
                    if k not in ("bar", "bytes"))
-    sizes = {"q": BM * hd * 2, "o": BM * hd * 2}
+    width = boxes(hd) * 128                    # bytes a row of a tile
+    assert width >= hd * 2
+    sizes = {"q": BM * width, "o": BM * width}
     for (off, name), nxt in zip(tiles, tiles[1:] + [(plan["bar"], "bar")]):
         assert off % 1024 == 0                 # the swizzle's atom
-        size = sizes.get(name, BN * hd * 2)
+        size = sizes.get(name, BN * width)
         assert off + size == nxt[0], (name, off, size)
 
 
@@ -210,22 +218,24 @@ def tma_load_4d(smem, dst, glob, c0, h, r0, b, rows):
 
 def tma_store_4d(glob, smem, src, c0, h, r0, b):
     """TMA store of the box {64, 1, 64, 1} at (c0, h, r0, b): shared
-    memory at ``src`` (128-byte swizzle) into ``glob``; rows >= S are not
-    written."""
+    memory at ``src`` (128-byte swizzle) into ``glob``; rows >= S and
+    columns >= hd (the second box at hd 80) are not written."""
     r, i = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
     vals = smem[(src + sw128(r * 128 + i * 2)) // 2]
     keep = r0 + r[:, 0] < glob.shape[1]
-    glob[b, r0 + np.arange(64)[keep], h, c0:c0 + 64] = vals[keep]
+    n = min(64, glob.shape[3] - c0)
+    glob[b, r0 + np.arange(64)[keep], h, c0:c0 + n] = vals[keep][:, :n]
 
 
 @pytest.mark.parametrize("heads,kvh,s", [(48, 8, 300), (12, 12, 64),
                                          (4, 1, 129), (40, 8, 300),
                                          (48, 1, 129)])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128])
 def test_tma_boxes_pick_rows_and_the_gqa_head(hd, heads, kvh, s):
     """The producer's boxes: Q at (64 c, h, q0, b), K / V at (64 c,
-    h // (H/KV), j BN, b); rows past S read as 0; the store writes rows
-    below S only."""
+    h // (H/KV), j BN, b); rows past S and columns past hd (hd 80's second
+    box) read as 0; the store writes rows below S and columns below hd
+    only."""
     rng = np.random.RandomState(hd + heads + s)
     b = 2
     q = rng.randn(b, s, heads, hd).astype(np.float32)
@@ -234,16 +244,16 @@ def test_tma_boxes_pick_rows_and_the_gqa_head(hd, heads, kvh, s):
                                        range(0, s, BM)):
         kh = h // (heads // kvh)
         for glob, head, rows in ((q, h, BM), (k, kh, BN)):
-            smem = np.full(rows * hd, np.nan, np.float32)
-            for c in range(hd // 64):
+            smem = np.full(rows * boxes(hd) * 64, np.nan, np.float32)
+            for c in range(boxes(hd)):
                 tma_load_4d(smem, c * rows * 128, glob, 64 * c, head, q0, bb,
                             rows)
             got = np.concatenate(
                 [read_kmajor(smem, 2, c * rows * 128, rows, 64)
-                 for c in range(hd // 64)], axis=1)
-            want = np.zeros((rows, hd), np.float32)
+                 for c in range(boxes(hd))], axis=1)
+            want = np.zeros((rows, boxes(hd) * 64), np.float32)
             n = min(rows, s - q0)
-            want[:n] = glob[bb, q0:q0 + n, head]
+            want[:n, :hd] = glob[bb, q0:q0 + n, head]
             np.testing.assert_array_equal(got, want)
     # the store clips: the box at rows s - 10 .. s + 53 writes 10 rows
     out = np.zeros((1, s, heads, hd), np.float32)
@@ -251,6 +261,12 @@ def test_tma_boxes_pick_rows_and_the_gqa_head(hd, heads, kvh, s):
     tma_store_4d(out, smem, 0, 0, 1, s - 10, 0)
     assert np.count_nonzero(out[0, :, 1, :64]) == 10 * 64
     assert not out[0, :s - 10].any()
+    if hd % 64:
+        # the last box is clipped at column hd
+        out[:] = 0
+        tma_store_4d(out, smem, 0, 64 * (boxes(hd) - 1), 1, 0, 0)
+        assert np.count_nonzero(out[0, :64, 1]) == 64 * (hd % 64)
+        assert not out[0, :64, 1, :64 * (boxes(hd) - 1)].any()
 
 
 def pack_p():
@@ -260,12 +276,12 @@ def pack_p():
             for c in range(BN // 16)]
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128])
 def test_accumulator_is_the_a_fragment_of_p_v(hd):
     """Every (row, key) of the 64 x 128 S tile sits in one accumulator
     register, and packing it as pack_p does puts it where the A fragment of
     k16 step key // 16 expects (row, key % 16); the 64 x hd O accumulator
-    covers its tile once too."""
+    (m64n80 at hd 80) covers its tile once too."""
     seen = np.zeros((64, BN), np.int64)
     for t in range(128):
         regs = pack_p()
@@ -301,7 +317,8 @@ P_TO_A = p_to_a()
 def epilogue_store(o_tile, smem, base):
     """The epilogue's writes: register pair (i, i + 1) of thread t to byte
     (rr 128 + (col % 64) 2) swizzled, in the 64-column box col // 64, boxes
-    8192 bytes apart."""
+    8192 bytes apart (at hd 80 the second box's columns 16 .. 63 are left
+    as they were)."""
     hd = o_tile.shape[1]
     for t in range(128):
         for i in range(0, hd // 2, 2):
@@ -328,7 +345,7 @@ def model_attention(q, k, v, causal, window):
     for t in walk(0, 1, b * h * tiles_m):
         bb, hh, q0 = item_at(t, b, h, tiles_m)
         kh = hh // (h // kvh)
-        for cb in range(hd // 64):
+        for cb in range(boxes(hd)):
             tma_load_4d(smem, plan["q"] + cb * BM * 128, q, 64 * cb, hh, q0,
                         bb, BM)
         j0, j1 = kv_tiles(q0, s, causal, window)
@@ -336,7 +353,7 @@ def model_attention(q, k, v, causal, window):
                       o=np.zeros((64, hd), np.float32)) for _ in range(2)]
         for j in range(j0, j1):
             ks, vs = plan[f"k{it % st}"], plan[f"v{it % st}"]
-            for cb in range(hd // 64):
+            for cb in range(boxes(hd)):
                 tma_load_4d(smem, ks + cb * BN * 128, k, 64 * cb, kh, j * BN,
                             bb, BN)
                 tma_load_4d(smem, vs + cb * BN * 128, v, 64 * cb, kh, j * BN,
@@ -371,12 +388,12 @@ def model_attention(q, k, v, causal, window):
                                       lbo=BN * 128)
                     z["o"] += a @ fv.T
         for wg, z in enumerate(state):
-            base = plan["o"] + wg * (hd // 64) * 64 * 128
+            base = plan["o"] + wg * boxes(hd) * 64 * 128
             epilogue_store(z["o"] / np.maximum(z["l"], 1e-30)[:, None], smem,
                            base)
             r0 = q0 + 64 * wg
             if r0 < s:
-                for cb in range(hd // 64):
+                for cb in range(boxes(hd)):
                     tma_store_4d(out, smem, base + cb * 64 * 128, 64 * cb, hh,
                                  r0, bb)
     return out
@@ -399,7 +416,7 @@ def dense_attention(q, k, v, causal, window):
 @pytest.mark.parametrize("causal,window,s", [(True, 0, 200), (True, 96, 300),
                                              (False, 0, 40),
                                              (False, 64, 200)])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128])
 def test_kernel_model_matches_dense_attention(hd, causal, window, s):
     rng = np.random.RandomState(hd + s + window)
     b, h, kvh = 1, 4, 2
@@ -434,3 +451,14 @@ def test_kernel_model_matches_dense_attention_at_odd_groups(h, kvh):
     got = model_attention(q, k, v, True, 0)
     np.testing.assert_allclose(got, dense_attention(q, k, v, True, 0),
                                rtol=1e-4, atol=1e-5)
+
+
+def test_every_head_dim_has_an_instance_scaled_by_its_own_hd():
+    """Each head dim the wrapper takes dispatches to launch<hd> (no padded
+    instance stands in for another: hd 80 through <128> would scale by
+    128^-0.5), and the scale is computed from the template's HD."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    for hd in HEAD_DIMS:
+        assert re.search(rf"if \(hd == {hd}\)\s*\n?\s*return launch<{hd}>",
+                         SOURCE), hd
+    assert "p.c = (float)(kLog2e / sqrt((double)HD));" in SOURCE

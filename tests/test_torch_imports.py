@@ -27,7 +27,11 @@ need = {"repro_torch.core.axes", "repro_torch.core.microop",
         "repro_torch.optim.compression", "repro_torch.core.serving",
         "repro_torch.runtime.server", "repro_torch.runtime.engine",
         "repro_torch.launch.serve", "repro_torch.launch.steps",
-        "repro_torch.models.lm"}
+        "repro_torch.models.lm", "repro_torch.sched",
+        "repro_torch.sched.telemetry", "repro_torch.sched.workloads",
+        "repro_torch.sched.controller", "repro_torch.resilience",
+        "repro_torch.resilience.faults", "repro_torch.obs.profiler",
+        "repro_torch.obs.__main__"}
 missing = sorted(need - set(names))
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 20 else 0)

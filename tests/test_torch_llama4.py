@@ -190,7 +190,7 @@ def test_dense_init_scales_in_place_bitwise(shape, axis, dtype):
     same draws times the same scale as the out-of-place expression."""
     from repro_torch.models.layers import dense_init
     got = dense_init(torch.Generator().manual_seed(7), shape, axis,
-                     dtype=dtype)
+                     dtype=dtype, device="cpu")
     gen = torch.Generator().manual_seed(7)
     want = (torch.randn(shape, generator=gen) * shape[axis] ** -0.5).to(dtype)
     assert got.dtype == dtype and got.shape == want.shape
