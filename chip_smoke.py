@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 2,8
     python3 chip_smoke.py --phases 9,10
     python3 chip_smoke.py --phases 11,12
+    python3 chip_smoke.py --phases 1r,13
 
 With no arguments every phase runs, as below.  ``--phases`` runs phase 0
 and a subset (``1r``: phase 1's two recurrences alone; ``1m``: its five
@@ -18,7 +19,7 @@ be timed on the same card (a gating case that tree's wrapper refuses is
 then printed and skipped).
 
 Phase 0  prints the card (``nvidia-smi`` name and power limit) and builds
-         the eight CUDA sources of ``src/repro_torch/kernels/csrc`` (one
+         the ten CUDA sources of ``src/repro_torch/kernels/csrc`` (one
          ``nvcc`` each, started together; timed).
 Phase 1  first times the launch floor: ``csrc/launch_floor.cu``'s empty
          kernel (one block of 32 threads, no memory traffic, no TPU
@@ -142,7 +143,19 @@ and C strided slices of one projection), at a ragged T = 2000, as a single
 strong decay (softplus(dt) ~ 6.25: dt a ~ -100 a step), and split in two
 calls, each call repeated bitwise; its bound at the bf16 tensor-core peak,
 the fp32 one printed beside it.  Neither function has a PyTorch call that
-computes it, so their ``library_ms`` is null.
+computes it, so their ``library_ms`` is null.  Then their backward
+kernels (``BACKWARD``: they replace no TPU kernel) against
+``ref_rwkv6_bwd`` / ``ref_ssd_bwd``, every gradient norm-wise within 1e-4
+and every call repeated bitwise: ``rwkv6_wkv_bwd`` (WKV_BWD_CASES) at
+rwkv6-1.6b's training shape 4 x 2048 x 32 heads, a ragged T = 2000, T = 40
+(the forward's step-loop regime), and from a random s0 with a cotangent on
+the final state under a strong and a weak decay; ``ssd_scan_bwd``
+(SSD_BWD_CASES) at zamba2-1.2b's 4 x 2048 x 64 heads with x, B and C
+sliced in place, a ragged T = 2000, and from a random h0 with a
+cotangent under A = 16 in every head (where the reference's chunked form
+overflows).  Each is timed with CUDA events and torch.profiler beside its
+bound (bf16 peak, the fp32 one beside) and, at the training shape, its
+plain version; no PyTorch call computes either.
 Phase 5  serves rwkv6-1.6b (24 RWKV6 layers, d 2048) at full width and
          depth, random weights from a seed, through ``models.lm``'s
          ``forward_prefill`` (4 x 2048 tokens), ``init_cache`` and
@@ -257,7 +270,28 @@ Phase 12 drives the serving control loop on gpt2-moe at full width and
          TTFT / TPOT p50, swaps, churn and load imbalance printed beside
          the same trace served without ``--autoscale``.
 
-Prints one ``{"kernels": [...]}`` line and, last,
+Phase 13 trains the RWKV6 and hybrid Mamba2 families: (a) rwkv6-1.6b and
+         zamba2-1.2b at full width and depth through
+         ``repro_torch.launch.train`` (4 x 2048 tokens a step, 6 steps,
+         remat on), counters zeroed just before and read just after: the
+         recurrence kernel must launch twice a layer a step (the forward
+         and the remat recompute) and its backward once, and nothing
+         else (the shared block's attention is plain in training); every
+         loss and grad norm finite.  It prints the step time (median after
+         the first), tokens/s, peak memory, the checkpoint, and one more
+         step under the profiler: busy share, top kernels and the
+         recurrence kernels' device time.  (b) Each at depth 2 (zamba2's
+         pattern cut to one Mamba2 layer and a tap) on the kernel route
+         against the plain route (``compute_backend="xla"``: the plain
+         recurrences under autograd) from one seed for 3 steps of 2 x
+         2048 tokens: step 1's
+         loss within 1e-4 and grad norm within 1e-3, later steps within
+         1e-2.  (c) rwkv6-1.6b at depth 2: 4 straight steps against 2 +
+         injected failure + restart + 2, bitwise.
+
+Prints one ``{"kernels": [...]}`` line (twelve kernels: the ten of
+``REPLACES`` and the two of ``BACKWARD``, with ``"replaces": null`` and
+``"backward_of"``) and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero exit).
 Imports nothing of the JAX package.
 """
@@ -268,6 +302,7 @@ import dataclasses
 import gc
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -300,13 +335,20 @@ SOURCE = {
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "rwkv6_wkv": "src/repro_torch/kernels/csrc/rwkv6.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd.cu",
+    "rwkv6_wkv_bwd": "src/repro_torch/kernels/csrc/rwkv6_bwd.cu",
+    "ssd_scan_bwd": "src/repro_torch/kernels/csrc/ssd_bwd.cu",
 }
+# the kernels that replace no TPU kernel: the backward of a forward kernel
+# of REPLACES (the reference's Pallas kernels of the recurrences have no
+# VJP; it trains them through jax.grad of its jnp forms)
+BACKWARD = {"rwkv6_wkv_bwd": "rwkv6_wkv", "ssd_scan_bwd": "ssd_scan"}
 # every other kernel runs in training (its attention is plain: the flash
 # kernel has no backward)
 SERVE_ONLY = {"weighted_route", "flash_attention"}
 TRAIN_ONLY = {"grouped_matmul"}     # the FFN backward
-# the recurrences of the RWKV6 and Mamba2 families (phases 5 and 6 only)
-RECURRENT = {"rwkv6_wkv", "ssd_scan"}
+# the recurrences of the RWKV6 and Mamba2 families and their backward
+# (phases 5, 6 and 13 only)
+RECURRENT = {"rwkv6_wkv", "ssd_scan", "rwkv6_wkv_bwd", "ssd_scan_bwd"}
 
 # gpt2-moe serve-path geometry (configs/paper_models.py, ServerConfig and
 # the serve driver's defaults)
@@ -483,6 +525,7 @@ def phase1(dev, hw) -> dict:
     rows["grouped_matmul"] = phase1_grouped_matmul(dev, hw, gen)
     rows["flash_attention"] = phase1_flash(dev, hw, gen)
     rows.update(phase1_recurrences(dev, hw, gen))
+    rows.update(phase1_recurrence_grads(dev, hw, gen))
     return rows
 
 
@@ -1646,6 +1689,159 @@ def phase1_recurrences(dev, hw, gen) -> dict:
                *add_costs(ssd_cost(b, cut, h, p, n, s_out=True),
                           ssd_cost(b, t - cut, h, p, n, True, True)),
                iters=5, peak=hw.peak_flops)
+    return rows
+
+
+# the backward kernels' phase-1 cases.  WKV at rwkv6-1.6b's 32 heads: (case,
+# B, T, decay, random s0 and a final-state cotangent): the training shape,
+# a ragged T, T < 64 (where the forward runs its step loop), and from a
+# random s0 with a cotangent on the final state under a strong and a weak
+# decay (wkv_decay)
+WKV_BWD_CASES = (("train", 4, 2048, "model", False),
+                 ("ragged", 4, 2000, "model", False),
+                 ("short", 4, 40, "model", False),
+                 ("s0 strong", 4, 2000, "strong", True),
+                 ("s0 weak", 4, 2048, "weak", True))
+# SSD at zamba2-1.2b's 64 heads, x, B and C sliced in place from one
+# projection: (case, B, T, A of every head (None: the model's linspace(1,
+# 16)), random h0 and a final-state cotangent).  At A = 16 the reference's
+# chunked form overflows (its gradient is NaN)
+SSD_BWD_CASES = (("train", 4, 2048, None, False),
+                 ("ragged", 4, 2000, None, False),
+                 ("h0 A=16", 4, 2048, 16.0, True))
+
+
+def wkv_bwd_cost(b, t, h, hd, states: bool = False) -> tuple:
+    """(bytes, operations) of one WKV backward: r, k, v bf16, w and dy
+    fp32 read once; dr, dk, dv, dw fp32 written once; u and du; with
+    ``states`` s0 and the final state's cotangent read and ds0 written.
+    Per step of a head 14 hd^2 (the state's update, S dy, G v, G^T k,
+    S .* G and the cotangent's update) + 10 hd."""
+    nbytes = b * t * h * hd * (3 * 2 + 4 + 4 + 4 * 4) + 2 * h * hd * 4 \
+        + states * 3 * b * h * hd * hd * 4
+    return nbytes, b * h * t * (14 * hd * hd + 10 * hd)
+
+
+def ssd_bwd_cost(b, t, h, p, n, states: bool = False) -> tuple:
+    """(bytes, operations) of one SSD backward: x, dt, B, C bf16 and dy
+    fp32 read once; dx, ddt, dB, dC fp32 written once; a_log, D and their
+    gradients; with ``states`` h0 and the final state's cotangent read and
+    dh0 written.  Per step of a head 14 P N (the state's update, G += dy
+    C^T, G B, <G, h>, h^T dy, G^T x and the cotangent's decay) + 8 P."""
+    nbytes = b * t * (h * p * 2 + h * 2 + 2 * n * 2 + h * p * 4
+                      + h * p * 4 + h * 4 + 2 * n * 4) + 4 * h * 4 \
+        + states * 3 * b * h * p * n * 4
+    return nbytes, b * h * t * (14 * p * n + 8 * p)
+
+
+def phase1_recurrence_grads(dev, hw, gen) -> dict:
+    """rwkv6_wkv_bwd and ssd_scan_bwd against ref_rwkv6_bwd / ref_ssd_bwd
+    on the card at WKV_BWD_CASES and SSD_BWD_CASES, every gradient held
+    norm-wise to REC_REL, every call repeated bitwise; timed with CUDA
+    events and torch.profiler, the plain version timed at the training
+    shape.  Returns each kernel's summary row (the training shape)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rwkv6 as rwkv6_mod
+    from repro_torch.kernels import ssd as ssd_mod
+    if not hasattr(rwkv6_mod, "rwkv6_wkv_bwd"):
+        print("phase 1: this tree has no backward kernels of the "
+              "recurrences", flush=True)
+        return {}
+    rwkv6_wkv_bwd, ssd_scan_bwd = rwkv6_mod.rwkv6_wkv_bwd, \
+        ssd_mod.ssd_scan_bwd
+    bf = torch.bfloat16
+    rows = {}
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    def check(name, case, names, kernel, plain, cost):
+        got = kernel()
+        again = kernel()
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise AssertionError(f"{name} {case}: a repeat differs")
+        if not all(torch.isfinite(g).all() for g in got):
+            raise AssertionError(f"{name} {case}: non-finite gradient")
+        want = plain()
+        errs = {n: rel_err(g, w) for n, g, w in zip(names, got, want)
+                if w is not None}
+        max_abs = max((g - w).abs().max().item()
+                      for g, w in zip(got, want) if w is not None)
+        del got, again, want
+        if not max(errs.values()) <= REC_REL:
+            raise AssertionError(f"{name} {case}: norm-wise rel err {errs} "
+                                 f"> {REC_REL}")
+        ms = time_ms(kernel, 5, 1)
+        dms = device_ms(kernel, 5)
+        nbytes, nops = cost
+        bnd, by = bound_ms(nbytes, nops, hw)
+        b32, by32 = bound_ms(nbytes, nops, hw, peak=FP32_FLOPS)
+        pms = time_ms(plain, 1, 0) if case == "train" else None
+        print(f"  {name:18s} {case:10s} norm-wise rel err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (limit {REC_REL}), max abs {max_abs:.3e}  kernel "
+              f"{ms:.4f} ms (device {dms:.4f}, {nbytes / dms / 1e9:.2f} TB/s"
+              f", {nops / dms / 1e9:.2f} TFLOP/s, {bnd / dms:.1%} of the "
+              f"bound)  plain " + (f"{pms:.4f} ms" if pms else "not timed")
+              + f"  bound {bnd:.4f} ms ({by}, bf16 peak; at fp32 "
+              f"{b32:.4f} ms ({by32}); {nbytes} bytes, {nops} operations)"
+              + vs_floor(dms, bnd), flush=True)
+        if case == "train":
+            rows[name] = dict(case=case, ms=ms, device_ms=dms, plain_ms=pms,
+                              library_ms=None, bound_ms=bnd, bound_by=by,
+                              max_abs_err=max_abs)
+        else:
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                            max_abs)
+
+    _, _, h, hd = WKV_SHAPE
+    u = rnd(h, hd, scale=0.5)
+    for case, b, t, decay, states in WKV_BWD_CASES:
+        r, k, v = (rnd(b, t, h, hd).to(bf) for _ in range(3))
+        w = wkv_decay(decay, rnd(b, t, h, hd))
+        dy = rnd(b, t, h, hd)
+        s0 = rnd(b, h, hd, hd, scale=2.0) if states else None
+        ds_t = rnd(b, h, hd, hd) if states else None
+        args = (r, k, v, w, u, s0, dy, ds_t)
+        names = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+        def kern(args=args, states=states):
+            out = rwkv6_wkv_bwd(*args)
+            return out if states else out[:5]
+
+        def plain(args=args, states=states):
+            out = ref.ref_rwkv6_bwd(*args)
+            return out if states else out[:5]
+        check("rwkv6_wkv_bwd", case, names, kern, plain,
+              wkv_bwd_cost(b, t, h, hd, states))
+        del r, k, v, w, dy, s0, ds_t, args
+    _, _, h, p, n = SSD_SHAPE
+    d_skip = torch.ones(h, device=dev)
+    for case, b, t, a_top, states in SSD_BWD_CASES:
+        a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev)) \
+            if a_top is None else torch.full((h,), math.log(a_top),
+                                             device=dev)
+        xbc = rnd(b, t, h * p + 2 * n).to(bf)
+        x = xbc[..., :h * p].reshape(b, t, h, p)
+        bb, cc = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+        dt = rnd(b, t, h).to(bf)
+        dy = rnd(b, t, h, p)
+        h0 = rnd(b, h, p, n) if states else None
+        dh_t = rnd(b, h, p, n) if states else None
+        args = (x, dt, a_log, bb, cc, d_skip, h0, dy, dh_t)
+        names = ("dx", "ddt", "da_log", "db", "dc", "dd", "dh0")
+
+        def kern(args=args, states=states):
+            out = ssd_scan_bwd(*args)
+            return out if states else out[:6]
+
+        def plain(args=args, states=states):
+            out = ref.ref_ssd_bwd(*args)
+            return out if states else out[:6]
+        check("ssd_scan_bwd", case, names, kern, plain,
+              ssd_bwd_cost(b, t, h, p, n, states))
+        del xbc, x, bb, cc, dt, dy, h0, dh_t, args
     return rows
 
 
@@ -3308,6 +3504,254 @@ def phase3_resume(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: training the RWKV6 and hybrid Mamba2 families
+# ---------------------------------------------------------------------------
+
+# rwkv6-1.6b and zamba2-1.2b at full width and depth through launch.train:
+# 4 x 2048 tokens a step, 6 steps, remat on (the configs' default)
+REC_TRAIN_ARGV = ["--steps", "6", "--batch", "4", "--seq", "2048",
+                  "--ckpt-every", "100"]
+# each family's recurrence kernel and its backward; under remat a layer's
+# forward runs twice a step (the forward and the recompute), its backward
+# once
+REC_TRAIN_KERNELS = {"rwkv6-1.6b": ("rwkv6_wkv", "rwkv6_wkv_bwd"),
+                     "zamba2-1.2b": ("ssd_scan", "ssd_scan_bwd")}
+# (b): depth 2, the kernel route against the plain route from one seed for
+# 3 steps of 2 x 2048 tokens (the plain route's Python loops over T take
+# ~27 s at 4 x 2048): step 1's loss within 1e-4 and grad norm within 1e-3
+# (relative); the later steps' gaps printed and held under 1e-2
+ROUTE_STEPS = 3
+ROUTE_BATCH = 2
+ROUTE_LOSS_REL, ROUTE_GN_REL, ROUTE_LATER_REL = 1e-4, 1e-3, 1e-2
+
+
+def depth_cut(cfg, n: int):
+    """``cfg`` at ``n`` layers; a hybrid's pattern cut to n - 1 Mamba2
+    layers and a tap, so the shared block runs."""
+    pattern = cfg.layer_pattern[:n - 1] + "*" if cfg.layer_pattern else ""
+    return dataclasses.replace(cfg, n_layers=n, layer_pattern=pattern)
+
+
+def phase13_train(dev, arch: str) -> dict:
+    """One family at full width and depth through ``launch.train``,
+    counters zeroed just before and read just after: every loss and grad
+    norm finite, the recurrence kernel launched twice a layer a step and
+    its backward once, nothing else; step time, tokens/s, peak memory, the
+    checkpoint, and one more step under the profiler (busy share, top
+    kernels, the recurrence kernels' device time)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import COUNTERS, reset_counters
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    ck = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counters()
+        t0 = time.perf_counter()
+        out = train.run(["--arch", arch, *REC_TRAIN_ARGV, "--ckpt-dir", ck,
+                         "--device", str(dev)])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = {n: c.count for n, c in COUNTERS.items()}
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        tr, state = out["trainer"], out["state"]
+        cfg, log = tr.model_cfg, tr.metrics_log
+        steps = len(log)
+        fwd, bwd = REC_TRAIN_KERNELS[arch]
+        want = {fwd: 2 * cfg.n_layers * steps, bwd: cfg.n_layers * steps}
+        print(f"phase 13 {arch} launches ({steps} steps): "
+              + json.dumps({n: c for n, c in launches.items() if c})
+              + f"; a step: {fwd} {launches[fwd] / max(steps, 1):g}, {bwd} "
+              f"{launches[bwd] / max(steps, 1):g}", flush=True)
+        if steps != 6 or any(r.get("skipped") for r in log):
+            raise AssertionError(f"{arch}: expected 6 committed steps, got "
+                                 f"{log}")
+        if {n: c for n, c in launches.items() if c} != want:
+            raise AssertionError(f"{arch}: launches {launches}, expected "
+                                 f"{want} and no other kernel")
+        losses = [r["loss"] for r in log]
+        norms = [r["grad_norm"] for r in log]
+        if not (all(np.isfinite(losses)) and all(np.isfinite(norms))):
+            raise AssertionError(f"{arch}: non-finite loss or grad norm: "
+                                 f"{losses}, {norms}")
+        n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+        dts = [r["dt"] for r in log]
+        med = float(np.median(dts[1:]))
+        tokens = tr.data_cfg.global_batch * tr.data_cfg.seq_len
+        ck_log = tr.checkpoint_log[-1]
+        print(f"phase 13 {arch}: trained {cfg.n_layers} layers, {n_params} "
+              f"params, {steps} steps of {tokens} tokens in {wall:.2f} s "
+              f"wall; losses {[round(v, 6) for v in losses]}; grad norms "
+              f"{[round(v, 4) for v in norms]}", flush=True)
+        print(f"phase 13 {arch}: step time (fwd_bwd stopwatch) first "
+              f"{dts[0]:.4f} s, median of steps 1-{steps - 1} {med:.4f} s "
+              f"(min {min(dts[1:]):.4f}, max {max(dts[1:]):.4f}); "
+              f"{tokens / med:.1f} tokens/s; peak device memory {peak:.2f} "
+              f"GiB; checkpoint {ck_log['bytes']} bytes in "
+              f"{ck_log['seconds']:.3f} s", flush=True)
+        batch = tr._batch(steps)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            _, _, m = tr.step_fn(state["params"], state["opt_state"], batch)
+            float(m["loss"])
+            pwall = time.perf_counter() - t1
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        print(f"phase 13 {arch} step under the profiler: wall "
+              f"{pwall * 1e3:.3f} ms, device busy {dev_ms:.3f} ms = "
+              f"{100 * dev_ms / 1e3 / med:.1f}% of the median step "
+              f"({100 * dev_ms / 1e3 / pwall:.1f}% of the profiled wall), "
+              f"{sum(e.count for e in kern)} kernels", flush=True)
+        for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
+            print(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
+                  f"x{e.count:<5d} {e.key[:90]}", flush=True)
+        for tag in ("wkv_", "ssd_", "du_sum_kernel"):
+            hits = [e for e in kern if tag in e.key]
+            for e in hits:
+                print(f"  phase 13 {arch} {e.key[:60]}: "
+                      f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} "
+                      f"({e.self_device_time_total / max(e.count, 1) / 1e3:.4f}"
+                      f" ms a launch)", flush=True)
+        return launches
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+
+
+def phase13_routes(dev, arch: str) -> None:
+    """(b): ``arch`` at full width and depth 2 (``depth_cut``), the kernel
+    route against the plain route (``compute_backend="xla"``: the plain
+    recurrences under autograd) from one seed, ROUTE_BATCH x 2048 tokens, 3
+    steps of ``launch.steps.make_train_step``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    cfg = depth_cut(get_config(arch), 2)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=2048,
+                                  global_batch=ROUTE_BATCH, seed=0))
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=ROUTE_STEPS)
+    runs = {}
+    for route in ("pallas", "xla"):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, compute_backend=route))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = lm.init_params(c, gen, device=dev)
+        st = init_opt_state(params, ocfg)
+        step = make_train_step(c, ocfg)
+        t0 = time.perf_counter()
+        got = []
+        for i in range(ROUTE_STEPS):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in data.batch(i).items()}
+            params, st, m = step(params, st, batch)
+            got.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[route] = got
+        print(f"phase 13 {arch} depth 2 ({cfg.layer_pattern or 'rwkv'}) "
+              f"{route} route: losses {[l for l, _ in got]}, grad norms "
+              f"{[g for _, g in got]} in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        del params, st, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    gaps = [(abs(k[0] - p[0]) / abs(p[0]), abs(k[1] - p[1]) / abs(p[1]))
+            for k, p in zip(runs["pallas"], runs["xla"])]
+    print(f"phase 13 {arch} depth 2: kernel vs plain route, relative gaps "
+          f"(loss, grad norm) a step {gaps} (limits step 1 "
+          f"{ROUTE_LOSS_REL} / {ROUTE_GN_REL}, later {ROUTE_LATER_REL})",
+          flush=True)
+    if not (gaps[0][0] <= ROUTE_LOSS_REL and gaps[0][1] <= ROUTE_GN_REL
+            and all(g <= ROUTE_LATER_REL for gap in gaps[1:] for g in gap)):
+        raise AssertionError(f"{arch}: the kernel route disagrees with the "
+                             f"plain route: {gaps}")
+
+
+def phase13_resume(dev) -> None:
+    """(c): rwkv6-1.6b at full width and depth 2, 4 x 2048 tokens: 4
+    straight steps against 2 + injected failure + restart + 2, bitwise,
+    with deterministic algorithms on (as ``phase3_resume``)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from repro_torch.tree import tree_items
+    cfg = depth_cut(get_config("rwkv6-1.6b"), 2)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=2048,
+                      global_batch=4)
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    root = tempfile.mkdtemp(prefix="repro_torch_resume_")
+
+    def trainer(name, **kw):
+        return Trainer(cfg, dcfg, ocfg, TrainerConfig(
+            steps=4, ckpt_every=2, ckpt_dir=f"{root}/{name}", device=str(dev),
+            **kw))
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight = trainer("a")
+        want = straight.run()
+        failing = trainer("b", fail_at_step=2)
+        try:
+            failing.run()
+        except RuntimeError as e:
+            if "injected failure at step 2" not in str(e):
+                raise
+        else:
+            raise AssertionError("the injected failure did not fire")
+        resumed = trainer("b")
+        got = resumed.run()
+        torch.cuda.synchronize(dev)
+        differ = [k for (k, a), (_, b) in zip(tree_items(got),
+                                              tree_items(want))
+                  if not torch.equal(a, b)]
+        la = [r["loss"] for r in straight.metrics_log]
+        lb = [r["loss"] for r in failing.metrics_log + resumed.metrics_log]
+        print(f"phase 13 resume (rwkv6-1.6b, 2 layers, full width): "
+              f"straight losses {la}, 2 + restart + 2 losses {lb}; "
+              f"{len(differ)} of {len(tree_items(got))} state leaves differ",
+              flush=True)
+        if differ or la != lb:
+            raise AssertionError(f"resume is not bitwise: {differ[:8]}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase13(dev) -> dict:
+    """Training rwkv6-1.6b and zamba2-1.2b: (a) each at full width and
+    depth through launch.train, (b) each at depth 2 on the kernel
+    route against the plain route, (c) rwkv6's bitwise resume.  Returns
+    the launches of (a), both models' summed."""
+    import torch
+    t0 = time.perf_counter()
+    launches = {}
+    for arch in REC_TRAIN_KERNELS:
+        for n, c in phase13_train(dev, arch).items():
+            launches[n] = launches.get(n, 0) + c
+        gc.collect()
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    for arch in REC_TRAIN_KERNELS:
+        phase13_routes(dev, arch)
+    t2 = time.perf_counter()
+    phase13_resume(dev)
+    print(f"phase 13 took {time.perf_counter() - t0:.1f} s: (a) "
+          f"{t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+          f"{time.perf_counter() - t2:.1f} s", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 7: expert parallelism and Lina's §4 schedule at world size 1
 # ---------------------------------------------------------------------------
 
@@ -3919,7 +4363,8 @@ def phase8(dev) -> dict:
     return launches
 
 
-PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12")
+PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
+          "13")
 # phase 3's profile: a part of a CUDA kernel's name -> its wrapper
 WATCH_TRAIN = {"gmm_": "grouped_matmul", "gating_kernel": "topk_gating_fused",
                "positions_kernel": "topk_positions",
@@ -3934,7 +4379,7 @@ def main(argv=None) -> int:
                                  "phase, as the module docstring says.")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of the phases to run after phase 0 "
-                    "(1-12; 1r: phase 1's two recurrences alone; 1m: its "
+                    "(1-13; 1r: phase 1's two recurrences alone; 1m: its "
                     "five MoE routing kernels alone); the "
                     "kernels line is printed only when all run")
     ap.add_argument("--src", default=str(SRC),
@@ -3996,6 +4441,7 @@ def main(argv=None) -> int:
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
         rows = phase1_recurrences(dev, H100, gen)
+        rows.update(phase1_recurrence_grads(dev, H100, gen))
     if "1m" in phases:
         print("phase 1: the MoE routing kernels against their plain "
               "versions", flush=True)
@@ -4019,21 +4465,25 @@ def main(argv=None) -> int:
     dense = phase10(dev) if "10" in phases else None
     frontends = phase11(dev) if "11" in phases else None
     control = phase12(dev, src) if "12" in phases else None
+    train_rec = phase13(dev) if "13" in phases else None
 
     print(smi, flush=True)
     if set(phases) == set(PHASES):
         kernels = []
-        for name in REPLACES:
+        for name in (*REPLACES, *BACKWARD):
             r = rows[name]
             paths = {"serve": serve[name], "train": train_launches[name],
                      "mixtral": mixtral[name], "rwkv": rwkv[name],
                      "zamba": zamba[name], "ep_train": ep_train[name],
                      "serve_ep": serve_ep[name], "llama4": llama4[name],
                      "dense": dense[name], "frontends": frontends[name],
-                     "control": control[name]}
+                     "control": control[name],
+                     "train_recurrent": train_rec[name]}
+            origin = {"replaces": REPLACES[name]} if name in REPLACES \
+                else {"replaces": None, "backward_of": BACKWARD[name]}
             kernels.append({
                 "name": name, "route": "cuda", "source": SOURCE[name],
-                "replaces": REPLACES[name], "launches": sum(paths.values()),
+                **origin, "launches": sum(paths.values()),
                 **{f"launches_{p}": n for p, n in paths.items()},
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "device_ms": r["device_ms"],

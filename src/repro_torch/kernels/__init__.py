@@ -2,7 +2,8 @@
 under ``csrc/``, built at first use by ``_build``), their plain PyTorch
 versions (``ref``) and the op layer the models call, with the backward of
 each MoE op (``ops``), the prefill attention (``flash_attention_op``) and
-the RWKV6 / Mamba2 recurrences (``rwkv6_op``, ``ssd_op``).
+the RWKV6 / Mamba2 recurrences (``rwkv6_op``, ``ssd_op``: differentiable,
+each through a backward kernel of its own).
 
 ``COUNTERS`` maps each kernel's name to its launch counter;
 ``reset_counters()`` sets them all to 0.

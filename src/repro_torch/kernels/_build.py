@@ -31,7 +31,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("topk_gating", "dispatch", "moe_ffn", "grouped_matmul",
-           "flash_attention", "rwkv6", "ssd", "launch_floor")
+           "flash_attention", "rwkv6", "ssd", "rwkv6_bwd", "ssd_bwd",
+           "launch_floor")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -68,6 +69,12 @@ SIGNATURES = {
     "ssd": {
         "ssd_scan": (P, P, P, P, P, P, P, P, P, I, I, I, I, I,
                      L, L, L, L, L, L, L, L, P),
+    },
+    "rwkv6_bwd": {
+        "rwkv6_wkv_bwd": (P,) * 16 + (I, I, I, I, P),
+    },
+    "ssd_bwd": {
+        "ssd_scan_bwd": (P,) * 21 + (I,) * 5 + (L,) * 8 + (P,),
     },
     "launch_floor": {
         "launch_floor": (P,),

@@ -34,15 +34,27 @@ launches the same kernels:
     weight as the per-row scale; its ``dot=`` operand (the saved slot
     buffer) gives the weights' row-wise dot in the same pass.
 
+  * ``rwkv6_op``        — the RWKV6 WKV recurrence: the WKV kernel
+    forward, its own backward kernel (``rwkv6.rwkv6_wkv_bwd``) for the
+    gradients of r, k, v, w, u and s0;
+  * ``ssd_op``          — the Mamba2 SSD scan: the SSD kernel forward,
+    its own backward kernel (``ssd.ssd_scan_bwd``) for the gradients of
+    x, dt, a_log, B, C, D and h0.
+The reference's Pallas kernels of the two recurrences have no VJP (it
+trains them through ``jax.grad`` of its jnp forms); the math of these
+backwards is the VJP of the plain recurrences.  Where no gradient is
+wanted (``no_grad`` / ``inference_mode``, or no input requiring one) the
+two ops launch the forward kernel alone, as the serve path always has.
+
 On a CPU tensor the same Functions run and their kernels' plain versions
-run inside, so the CPU tests exercise these backward formulas.
-``topk_positions_op`` and ``weighted_route_op`` have integer outputs and no
-backward.  ``flash_attention_op`` (the prefill attention), ``rwkv6_op`` (the
-RWKV6 WKV recurrence) and ``ssd_op`` (the Mamba2 SSD scan) have no backward
-either, as the reference's Pallas kernels have no VJP: on a CUDA tensor
-that requires grad they raise.  The ops make their inputs contiguous and
-of the index type the kernels take, except that ``ssd_op`` hands the
-model's strided slices to the kernel as they are.
+run inside (``ref_rwkv6_bwd`` and ``ref_ssd_bwd`` for the recurrences),
+so the CPU tests exercise these backward formulas.  Gradients come back
+in their inputs' dtypes.  ``topk_positions_op`` and ``weighted_route_op``
+have integer outputs and no backward.  ``flash_attention_op`` (the
+prefill attention) has no backward, as the reference's Pallas kernel has
+no VJP: on a CUDA tensor that requires grad it raises.  The ops make their
+inputs contiguous and of the index type the kernels take, except that
+``ssd_op`` hands the model's strided slices to the kernels as they are.
 """
 from __future__ import annotations
 
@@ -53,8 +65,8 @@ from repro_torch.kernels.dispatch import (combine_rows, dispatch_rows,
                                           invert_slots, weighted_route)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.moe_ffn import grouped_ffn, grouped_matmul
-from repro_torch.kernels.rwkv6 import rwkv6_wkv
-from repro_torch.kernels.ssd import ssd_scan
+from repro_torch.kernels.rwkv6 import rwkv6_wkv, rwkv6_wkv_bwd
+from repro_torch.kernels.ssd import ssd_scan, ssd_scan_bwd
 from repro_torch.kernels.topk_gating import topk_gating_fused, topk_positions
 
 
@@ -273,23 +285,75 @@ def flash_attention_op(q, k, v, causal: bool = True, window: int = 0):
 
 # ---------------------------------------------------------------------------
 # the recurrences of the RWKV6 and Mamba2 families (reference ops.py:
-# rwkv6_op / ssd_op; forward only)
+# rwkv6_op / ssd_op; the backward its jax.grad of the jnp forms)
 # ---------------------------------------------------------------------------
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        a is not None and a.requires_grad for a in tensors)
+
+
+def _cast(grad, like):
+    """A gradient in its input's dtype (None where there is no input)."""
+    return None if like is None else grad.to(like.dtype)
+
+
+class _RWKV6(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return rwkv6_wkv(r, k, v, w, u, s0=s0, return_state=True)
+
+    @staticmethod
+    def backward(ctx, dy, ds_t):
+        r, k, v, w, u, s0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        grads = rwkv6_wkv_bwd(r, k, v, w, u, s0, dy, ds_t)
+        return tuple(_cast(g, a) for g, a in zip(grads, (r, k, v, w, u, s0)))
+
+
+class _SSD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, d_skip, h0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a_log, b, c, d_skip, h0)
+        return ssd_scan(x, dt, a_log, b, c, d_skip, h0=h0, return_state=True)
+
+    @staticmethod
+    def backward(ctx, dy, dh_t):
+        x, dt, a_log, b, c, d_skip, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        grads = ssd_scan_bwd(x, dt, a_log, b, c, d_skip, h0, dy, dh_t)
+        return tuple(_cast(g, a) for g, a in
+                     zip(grads, (x, dt, a_log, b, c, d_skip, h0)))
+
 
 def rwkv6_op(r, k, v, w, u, s0=None, *, return_state: bool = False):
     """r/k/v/w [B, T, H, hd] (w the log decay), u [H, hd], s0 [B, H, hd,
     hd] or None -> y [B, T, H, hd] float32 (, final state): the WKV kernel
-    for CUDA tensors, its plain version for CPU ones."""
-    return rwkv6_wkv(r.contiguous(), k.contiguous(), v.contiguous(),
-                     w.contiguous(), u, s0=None if s0 is None
-                     else s0.contiguous(), return_state=return_state)
+    for CUDA tensors, its plain version for CPU ones; differentiable in
+    every input (the backward kernel where a gradient is wanted)."""
+    r, k, v, w = (a.contiguous() for a in (r, k, v, w))
+    s0 = None if s0 is None else s0.contiguous()
+    if not _wants_grad(r, k, v, w, u, s0):
+        return rwkv6_wkv(r, k, v, w, u, s0=s0, return_state=return_state)
+    y, s_t = _RWKV6.apply(r, k, v, w, u, s0)
+    return (y, s_t) if return_state else y
 
 
 def ssd_op(x, dt, a_log, b, c, d_skip, h0=None, *,
            return_state: bool = False):
     """x [B, T, H, P], dt [B, T, H], a_log / d_skip [H], b / c [B, T, N],
     h0 [B, H, P, N] or None -> y [B, T, H, P] float32 (, final state): the
-    SSD kernel for CUDA tensors, its plain version for CPU ones."""
-    return ssd_scan(x, dt, a_log, b, c, d_skip,
-                    h0=None if h0 is None else h0.contiguous(),
-                    return_state=return_state)
+    SSD kernel for CUDA tensors, its plain version for CPU ones;
+    differentiable in every input (the backward kernel where a gradient is
+    wanted)."""
+    h0 = None if h0 is None else h0.contiguous()
+    if not _wants_grad(x, dt, a_log, b, c, d_skip, h0):
+        return ssd_scan(x, dt, a_log, b, c, d_skip, h0=h0,
+                        return_state=return_state)
+    y, h_t = _SSD.apply(x, dt, a_log, b, c, d_skip, h0)
+    return (y, h_t) if return_state else y

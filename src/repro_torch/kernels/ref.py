@@ -1,5 +1,7 @@
-"""Plain PyTorch versions of the port's ten kernels (the allclose
-targets), with the reference oracles' names and signatures.
+"""Plain PyTorch versions of the port's twelve kernels (the allclose
+targets): the ten TPU kernels', with the reference oracles' names and
+signatures, and the two recurrences' backward (``ref_rwkv6_bwd``,
+``ref_ssd_bwd``), which the reference leaves to ``jax.grad``.
 
 Each function is the semantic ground truth: simple tensor code with no
 tiling.  The CPU tests hold them against the JAX oracles and the Pallas
@@ -199,3 +201,100 @@ def ref_ssd(x, dt, a_log, b, c, d_skip, h0=None, return_state: bool = False):
     y = torch.stack(ys, dim=1) if ys else x.new_zeros((bsz, 0, h, p))
     y = y + x * d_skip.float()[None, None, :, None]
     return (y, s) if return_state else y
+
+
+def ref_rwkv6_bwd(r, k, v, w, u, s0, dy, ds_t):
+    """The VJP of ``ref_rwkv6`` as an explicit reverse-time recurrence in
+    fp32 (no autograd).  r/k/v/w: [B, T, H, hd]; u: [H, hd]; s0: [B, H,
+    hd, hd] or None (zeros); dy: [B, T, H, hd] the cotangent of y; ds_t:
+    [B, H, hd, hd] or None the cotangent of the final state.  Returns
+    (dr, dk, dv, dw, du [H, hd], ds0), all float32.  With S_{t-1} the
+    state before step t and G_t the cotangent of the state after it:
+        dr_t = S_{t-1} dy_t + u k_t (v_t . dy_t)
+        dk_t = u r_t (v_t . dy_t) + G_t v_t
+        dv_t = (r_t . u k_t) dy_t + G_t^T k_t
+        dw_t = e^{w_t} rowsum(S_{t-1} * G_t)
+        du   = sum_{b, t} r_t k_t (v_t . dy_t)
+        G_{t-1} = e^{w_t}[:, None] G_t + r_t dy_t^T,   ds0 = G_{-1}.
+    The states are kept from a forward sweep, never recovered by
+    dividing by the decay."""
+    b, t, h, hd = r.shape
+    r, k, v, w, dy = (a.float() for a in (r, k, v, w, dy))
+    uu = u.float()
+    s = torch.zeros((b, h, hd, hd), device=r.device) if s0 is None \
+        else s0.float()
+    before = []
+    for i in range(t):
+        before.append(s)
+        s = torch.exp(w[:, i])[..., None] * s \
+            + k[:, i, :, :, None] * v[:, i, :, None, :]
+    g = torch.zeros((b, h, hd, hd), device=r.device) if ds_t is None \
+        else ds_t.float()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros((h, hd), device=r.device)
+    for i in reversed(range(t)):
+        ri, ki, vi, dyi = r[:, i], k[:, i], v[:, i], dy[:, i]
+        e = torch.exp(w[:, i])
+        vdy = (vi * dyi).sum(-1, keepdim=True)                # [B, H, 1]
+        ruk = (ri * uu * ki).sum(-1, keepdim=True)
+        dr[:, i] = torch.einsum("bhkv,bhv->bhk", before[i], dyi) \
+            + uu * ki * vdy
+        dk[:, i] = uu * ri * vdy + torch.einsum("bhkv,bhv->bhk", g, vi)
+        dv[:, i] = ruk * dyi + torch.einsum("bhkv,bhk->bhv", g, ki)
+        dw[:, i] = e * (before[i] * g).sum(-1)
+        du = du + (ri * ki * vdy).sum(0)
+        g = e[..., None] * g + ri[..., :, None] * dyi[..., None, :]
+    return dr, dk, dv, dw, du, g
+
+
+def ref_ssd_bwd(x, dt, a_log, b, c, d_skip, h0, dy, dh_t):
+    """The VJP of ``ref_ssd`` as an explicit reverse-time recurrence in fp32
+    (no autograd).  x: [B, T, H, P]; dt: [B, T, H] (before softplus);
+    a_log, d_skip: [H]; b, c: [B, T, N]; h0: [B, H, P, N] or None (zeros);
+    dy: [B, T, H, P]; dh_t: [B, H, P, N] or None the cotangent of the
+    final state.  Returns (dx, ddt, da_log, db, dc, dd_skip, dh0), all
+    float32.  With d_t = softplus(dt_t), a = -e^{a_log}, g_t = e^{d_t a},
+    h_t = g_t h_{t-1} + d_t x_t B_t^T, y_t = h_t C_t + D x_t and G_t the
+    cotangent of h_t (the later steps' and y_t's):
+        G_t   = g_{t+1} G_{t+1} + dy_t C_t^T   (G_{T-1} from dh_t)
+        dC_t  = sum_h h_t^T dy_t,   dB_t = sum_h d_t G_t^T x_t
+        dx_t  = D dy_t + d_t G_t B_t
+        dd_t  = x_t^T G_t B_t + a g_t <G_t, h_{t-1}>
+        ddt_t = dd_t sigmoid(dt_t),   da_log = a sum_{b,t} d_t g_t <G_t, h_{t-1}>
+        dD    = sum_{b,t} dy_t . x_t,   dh0 = g_0 G_0.
+    The states are kept from a forward sweep, never recovered by dividing
+    by the decay."""
+    bsz, t, h, p = x.shape
+    n = b.shape[-1]
+    a = -torch.exp(a_log.float())
+    dtf = dt.float()
+    dtp = F.softplus(dtf)
+    dec = torch.exp(dtp * a)                                   # [B, T, H]
+    x, b, c, dy = x.float(), b.float(), c.float(), dy.float()
+    s = torch.zeros((bsz, h, p, n), device=x.device) if h0 is None \
+        else h0.float()
+    states = [s]                                               # h_{t-1}
+    for i in range(t):
+        s = s * dec[:, i, :, None, None] + torch.einsum(
+            "bhp,bn->bhpn", x[:, i] * dtp[:, i, :, None], b[:, i])
+        states.append(s)
+    g = torch.zeros((bsz, h, p, n), device=x.device) if dh_t is None \
+        else dh_t.float()
+    dx = torch.empty_like(x)
+    ddtp = torch.empty_like(dtp)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    da = torch.zeros((h,), device=x.device)
+    for i in reversed(range(t)):
+        g = g + dy[:, i, :, :, None] * c[:, i, None, None, :]
+        dc[:, i] = torch.einsum("bhpn,bhp->bn", states[i + 1], dy[:, i])
+        gb = torch.einsum("bhpn,bn->bhp", g, b[:, i])
+        dx[:, i] = d_skip.float()[None, :, None] * dy[:, i] \
+            + dtp[:, i, :, None] * gb
+        db[:, i] = torch.einsum("bhpn,bhp->bn", g,
+                                x[:, i] * dtp[:, i, :, None])
+        q = (g * states[i]).sum((-1, -2))                      # [B, H]
+        ddtp[:, i] = (gb * x[:, i]).sum(-1) + a * dec[:, i] * q
+        da = da + (dtp[:, i] * dec[:, i] * q).sum(0)
+        g = g * dec[:, i, :, None, None]
+    dd = (dy * x).sum((0, 1, 3))
+    return (dx, ddtp * torch.sigmoid(dtf), da * a, db, dc, dd, g)

@@ -3,7 +3,10 @@
 ``rwkv6_wkv(r, k, v, w, u, s0=None, return_state=False)``:
 r/k/v/w [B, T, H, hd] (w the log decay), u [H, hd], s0 [B, H, hd, hd]
 (zeros when None) -> y [B, T, H, hd] float32, and with ``return_state``
-also the final state [B, H, hd, hd] float32.  Without ``s0`` it is the
+also the final state [B, H, hd, hd] float32.  ``rwkv6_wkv_bwd`` is its
+backward (``csrc/rwkv6_bwd.cu``): the gradients of r, k, v, w, u and s0
+for the cotangents of y and of the final state; ``ops.rwkv6_op`` joins the
+two into one differentiable op.  Without ``s0`` it is the
 reference's Pallas kernel (``src/repro/kernels/rwkv6.py``); with it, the
 same recurrence continued from a cached state (one decode step is T = 1).
 From T = 64 the kernel runs the chunked form on the tensor cores, in
@@ -11,8 +14,7 @@ chunks of 64 steps (the last one ragged); a shorter T runs a step loop.
 
 On the card: r, k and v bf16; w float32 (the model forms the log decay in
 float32, and a bf16 w would compound over T); u and s0 float32 (u is cast
-here); hd 64; every tensor contiguous; no gradient (the reference's kernel
-has no VJP either).  From T = 64, r, k, v and w are loaded by TMA, which
+here); hd 64; every tensor contiguous.  From T = 64, r, k, v and w are loaded by TMA, which
 needs each base address to be a multiple of 16 bytes (``tma_base_rule``;
 the rows of a contiguous [B, T, H, 64] tensor are then too).  A CPU tensor
 takes the plain version in ``kernels.ref``; a CUDA tensor launches the
@@ -27,6 +29,7 @@ from repro_torch.kernels._build import (BF16, LaunchCounter, check, lib,
                                         on_cpu, ptr, require, stream)
 
 RWKV6_WKV = LaunchCounter("rwkv6_wkv")
+RWKV6_WKV_BWD = LaunchCounter("rwkv6_wkv_bwd")
 
 HEAD_DIM = 64       # the kernel's one instance
 CHUNK = 64          # Q: from this T on, the chunked kernel (TMA loads)
@@ -58,10 +61,6 @@ def rwkv6_wkv(r, k, v, w, u, *, s0=None, return_state: bool = False):
                          f"{(b, h, hd, hd)}")
     if on_cpu(r, k, v, w, u, s0):
         return ref.ref_rwkv6(r, k, v, w, u, s0=s0, return_state=return_state)
-    if torch.is_grad_enabled() and any(
-            a is not None and a.requires_grad for a in (r, k, v, w, u, s0)):
-        raise RuntimeError("rwkv6_wkv has no backward kernel: call it under "
-                           "torch.no_grad() / inference_mode")
     for name, a in (("r", r), ("k", k), ("v", v)):
         require(a, name, BF16, 4)
     require(w, "w", (torch.float32,), 4)
@@ -83,3 +82,62 @@ def rwkv6_wkv(r, k, v, w, u, *, s0=None, return_state: bool = False):
     check(status, "rwkv6_wkv")
     RWKV6_WKV.inc()
     return (y, s_t) if return_state else y
+
+
+CKPT_EVERY = 8      # R in csrc/rwkv6_bwd.cu: the backward's state checkpoints
+
+
+def rwkv6_wkv_bwd(r, k, v, w, u, s0, dy, ds_t):
+    """The backward of ``rwkv6_wkv``.  r/k/v/w, dy: [B, T, H, hd]; u: [H,
+    hd]; s0, ds_t: [B, H, hd, hd] or None (zeros) -> (dr, dk, dv, dw, du
+    [H, hd], ds0 [B, H, hd, hd]), all float32.
+
+    On the card r, k and v are bf16, w float32 (as the forward takes
+    them), dy, s0 and ds_t float32 (dy is cast here), hd 64, every tensor
+    contiguous; the kernel's scratch (the state every ``CKPT_EVERY`` steps,
+    B H ceil(T / 8) hd^2 float32, and du's per-(b, h) partials) is
+    allocated here.  A CPU tensor takes ``ref.ref_rwkv6_bwd``; a CUDA
+    tensor launches the kernel or raises."""
+    if r.dim() != 4:
+        raise ValueError(f"rwkv6_wkv_bwd takes [B, T, H, hd] r, got "
+                         f"{tuple(r.shape)}")
+    b, t, h, hd = r.shape
+    for name, a in (("k", k), ("v", v), ("w", w), ("dy", dy)):
+        if tuple(a.shape) != tuple(r.shape):
+            raise ValueError(f"rwkv6_wkv_bwd: {name} {tuple(a.shape)} does "
+                             f"not match r {tuple(r.shape)}")
+    if tuple(u.shape) != (h, hd):
+        raise ValueError(f"rwkv6_wkv_bwd: u {tuple(u.shape)}, expected "
+                         f"{(h, hd)}")
+    for name, a in (("s0", s0), ("ds_t", ds_t)):
+        if a is not None and tuple(a.shape) != (b, h, hd, hd):
+            raise ValueError(f"rwkv6_wkv_bwd: {name} {tuple(a.shape)}, "
+                             f"expected {(b, h, hd, hd)}")
+    if on_cpu(r, k, v, w, u, s0, dy, ds_t):
+        return ref.ref_rwkv6_bwd(r, k, v, w, u, s0, dy, ds_t)
+    for name, a in (("r", r), ("k", k), ("v", v)):
+        require(a, name, BF16, 4)
+    require(w, "w", (torch.float32,), 4)
+    for name, a in (("s0", s0), ("ds_t", ds_t)):
+        if a is not None:
+            require(a, name, (torch.float32,), 4)
+    if hd != HEAD_DIM:
+        raise ValueError(f"rwkv6_wkv_bwd kernel takes head_dim {HEAD_DIM}, "
+                         f"got {hd}")
+    dev = r.device
+    uf = u.float().contiguous()
+    dyf = dy.float().contiguous()
+    dr, dk, dv, dw = (torch.empty(r.shape, dtype=torch.float32, device=dev)
+                      for _ in range(4))
+    du = torch.empty((h, hd), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((b, h, hd, hd), dtype=torch.float32, device=dev)
+    du_part = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
+    ckpt = torch.empty((b, h, -(-t // CKPT_EVERY), hd, hd),
+                       dtype=torch.float32, device=dev)
+    status = lib("rwkv6_bwd").rwkv6_wkv_bwd(
+        ptr(r), ptr(k), ptr(v), ptr(w), ptr(uf), ptr(s0), ptr(dyf),
+        ptr(ds_t), ptr(dr), ptr(dk), ptr(dv), ptr(dw), ptr(du), ptr(ds0),
+        ptr(du_part), ptr(ckpt), b, t, h, hd, stream(r))
+    check(status, "rwkv6_wkv_bwd")
+    RWKV6_WKV_BWD.inc()
+    return dr, dk, dv, dw, du, ds0

@@ -14,12 +14,14 @@ Parameters are NamedTuples of tensors in the reference's layout: every
 leaf of a transformer ``LMParams.stack`` carries a leading layer-group dim G
 (one group = ``moe.every`` transformer blocks; ``attn``/``ln*`` add an
 ``every`` dim); the hybrid and RWKV stacks carry a leading layer dim L.
-``forward_train`` is the transformer family's training forward (loss plus
-per-layer top-1 expert choices, differentiable in the params) that the
-train step runs.  Every family is served through the reference's model
+``forward_train`` is the training forward (loss plus, for the transformer
+family, per-layer top-1 expert choices; differentiable in the params)
+that the train step runs.  Every family is served through the reference's model
 entry points ``forward_prefill`` (last-position logits), ``init_cache``
 and ``decode_step``; the transformer family also layer by layer in
-``runtime.server``.  Their recurrences run the WKV and SSD kernels and
+``runtime.server``.  ``forward_train`` trains every family: the hybrid and
+RWKV stacks return the CE loss with a zero aux loss and no expert
+choices, as the reference's do.  Their recurrences run the WKV and SSD kernels and
 their prefill attention the flash kernel on the kernel route
 (``cfg.moe.compute_backend`` "auto"/"pallas"), the plain versions on the
 "xla" route.
@@ -32,10 +34,7 @@ every rank and ``params`` hold this rank's experts
 (``convert.shard_params``, with ``fsdp`` also cut over `data`): a
 plan-honoring layer shards the tokens itself, and ``moe_layer`` gets the
 reference's token shard (batch over `data` where B tiles it, sequence over
-`model` where S tiles it), its outputs all-gathered back.  Training the
-hybrid and RWKV families needs backward kernels for WKV and SSD (ROADMAP:
-"training of the RWKV6 and hybrid Mamba2 families"), so ``forward_train``
-refuses them.
+`model` where S tiles it), its outputs all-gathered back.
 """
 from __future__ import annotations
 
@@ -127,29 +126,19 @@ def tree_idx(tree, i):
     return tree_map(lambda a: a[i], tree)
 
 
-def _check_family(cfg, serve: bool = False) -> None:
-    """The transformer family (frontends included) runs in every entry
-    point here; the hybrid and RWKV families in ``init_params`` and the
-    serving entry points (``serve``) only."""
+def _check_family(cfg) -> None:
+    """Every family (the transformer, frontends included, the hybrid and
+    the RWKV stacks) runs in every entry point here; an unknown frontend
+    raises."""
     if cfg.frontend not in ("none", "vision_stub", "audio_stub"):
         raise NotImplementedError(f"{cfg.name}: unknown frontend "
                                   f"{cfg.frontend!r}")
-    if (cfg.layer_pattern or cfg.attention_free) and not serve:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family needs backward "
-            f"kernels for WKV and SSD (ROADMAP: \"training of the RWKV6 "
-            f"and hybrid Mamba2 families\"); it is "
-            f"served through forward_prefill / init_cache / decode_step")
-
-
-def _check_served_here(cfg) -> None:
-    _check_family(cfg, serve=True)
 
 
 def _check_decodes(cfg) -> None:
     """An encoder-only config (``causal=False``: hubert) has no decode
     step, as the reference has no decode shapes for it."""
-    _check_served_here(cfg)
+    _check_family(cfg)
     if not cfg.causal:
         raise NotImplementedError(
             f"{cfg.name}: a bidirectional encoder has no autoregressive "
@@ -167,7 +156,7 @@ def init_params(cfg, gen: torch.Generator, device="cuda") -> LMParams:
     ``device`` (the card by default; raises without one).  ``gen`` is a
     generator on that device.  The numbers are not JAX's; tests convert
     the reference's with ``repro_torch.convert.from_reference``."""
-    _check_family(cfg, serve=True)
+    _check_family(cfg)
     device = resolve_device(device)
     dtype = DTYPES[cfg.param_dtype]
     d = cfg.d_model
@@ -474,11 +463,15 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
     is this rank's: its mean over the ranks is the global loss.
 
     Differentiable in ``params`` (fp32 masters cast to ``cfg.dtype`` for
-    compute).  With ``cfg.remat`` each layer group runs under
-    ``torch.utils.checkpoint`` (non-reentrant): only the group boundaries
-    are kept and the backward recomputes the group, kernels and
-    all-to-alls included, as the reference's ``jax.checkpoint`` over the
-    scan body.
+    compute).  With ``cfg.remat`` each layer group (each layer of the
+    hybrid and RWKV stacks) runs under ``torch.utils.checkpoint``
+    (non-reentrant): only the group boundaries are kept and the backward
+    recomputes the group, kernels and all-to-alls included, as the
+    reference's ``jax.checkpoint`` over the scan body.  The hybrid and RWKV
+    stacks' recurrences run the WKV / SSD kernels forward and backward on
+    the kernel route; the shared block's attention is plain (the flash
+    kernel has no backward).  They return a zero aux loss and no expert
+    choices, as the reference's.
 
     The frontends follow the reference's branches: hubert's batch holds
     ``frames`` [B, S, FRAME_DIM] and ``labels`` [B, S]; every
@@ -507,9 +500,16 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
         x = embed_inputs(cfg, p, tokens=tokens)
         labels = batch["labels"]
         loss_mask = torch.ones(labels.shape, device=x.device)
-    x, aux, experts = run_stack(cfg, p.stack, x, remat=cfg.remat,
-                                dispatch_backend=dispatch_backend, mesh=mesh,
-                                lina=lina, fsdp=fsdp)
+    if isinstance(p.stack, HybridParams):
+        x = _run_hybrid(cfg, p.stack, x, attn_kernel=False, remat=cfg.remat)
+        aux, experts = torch.zeros((), device=x.device), None
+    elif isinstance(p.stack, RWKVStack):
+        x = _run_rwkv(cfg, p.stack, x, remat=cfg.remat)
+        aux, experts = torch.zeros((), device=x.device), None
+    else:
+        x, aux, experts = run_stack(cfg, p.stack, x, remat=cfg.remat,
+                                    dispatch_backend=dispatch_backend,
+                                    mesh=mesh, lina=lina, fsdp=fsdp)
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
     loss = chunked_ce_loss(x, unembed_weight(p), labels, loss_mask,
                            remat=cfg.remat)
@@ -517,7 +517,7 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
 
 
 # ---------------------------------------------------------------------------
-# the hybrid (zamba2) and RWKV6 families: prefill and decode
+# the hybrid (zamba2) and RWKV6 families: the stacks, prefill and decode
 # ---------------------------------------------------------------------------
 
 def _taps(cfg) -> list:
@@ -533,28 +533,49 @@ def _shared_block(cfg, hp: HybridParams, x, use_kernel: bool):
     return x + _ffn_apply(hp.shared_ffn, h, cfg.ffn_type)
 
 
-def _run_hybrid(cfg, hp: HybridParams, x):
-    """Mamba2 layers, the shared block after each tap.  x: [B, S, d]."""
-    use_kernel = kernel_route(cfg)
+def _hybrid_layer(cfg, hp: HybridParams, li: int, tap: bool, x,
+                  attn_kernel: bool):
+    """Mamba2 layer ``li``, then the shared block if it is a tap."""
+    h = rms_norm(x, hp.ln_m[li], cfg.norm_eps)
+    y, _ = ssm_mod.mamba_block(tree_idx(hp.mamba, li), cfg, h)
+    x = x + y
+    return _shared_block(cfg, hp, x, attn_kernel) if tap else x
+
+
+def _run_hybrid(cfg, hp: HybridParams, x, *, attn_kernel: bool,
+                remat: bool = False):
+    """Mamba2 layers, the shared block after each tap.  x: [B, S, d].
+    ``attn_kernel``: the shared block's attention on the flash kernel
+    (serving only: it has no backward).  With ``remat`` each layer runs
+    under ``torch.utils.checkpoint`` (non-reentrant)."""
     for li, tap in enumerate(_taps(cfg)):
-        h = rms_norm(x, hp.ln_m[li], cfg.norm_eps)
-        y, _ = ssm_mod.mamba_block(tree_idx(hp.mamba, li), cfg, h)
-        x = x + y
-        if tap:
-            x = _shared_block(cfg, hp, x, use_kernel)
+        if remat:
+            x = checkpoint(_hybrid_layer, cfg, hp, li, tap, x, attn_kernel,
+                           use_reentrant=False)
+        else:
+            x = _hybrid_layer(cfg, hp, li, tap, x, attn_kernel)
     return x
 
 
-def _run_rwkv(cfg, st: RWKVStack, x):
-    """RWKV6 layers: time-mix then channel-mix.  x: [B, S, d]."""
+def _rwkv_layer(cfg, st: RWKVStack, li: int, x):
+    """RWKV6 layer ``li``: time-mix then channel-mix."""
+    bp = tree_idx(st.blocks, li)
+    h = rms_norm(x, st.ln1[li], cfg.norm_eps)
+    y, _, _ = rwkv_mod.time_mix(bp, cfg, h)
+    x = x + y
+    h = rms_norm(x, st.ln2[li], cfg.norm_eps)
+    y, _ = rwkv_mod.channel_mix(bp, h)
+    return x + y
+
+
+def _run_rwkv(cfg, st: RWKVStack, x, *, remat: bool = False):
+    """RWKV6 layers.  x: [B, S, d].  With ``remat`` each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant)."""
     for li in range(cfg.n_layers):
-        bp = tree_idx(st.blocks, li)
-        h = rms_norm(x, st.ln1[li], cfg.norm_eps)
-        y, _, _ = rwkv_mod.time_mix(bp, cfg, h)
-        x = x + y
-        h = rms_norm(x, st.ln2[li], cfg.norm_eps)
-        y, _ = rwkv_mod.channel_mix(bp, h)
-        x = x + y
+        if remat:
+            x = checkpoint(_rwkv_layer, cfg, st, li, x, use_reentrant=False)
+        else:
+            x = _rwkv_layer(cfg, st, li, x)
     return x
 
 
@@ -571,10 +592,9 @@ def forward_prefill(cfg, params: LMParams, batch: dict, *, mesh=None,
     are the reference's (see the module doc); a stacked ``serve_plan``
     gives each MoE layer its own plan (the reference's prefill takes one
     plan for every layer).  Builds no cache, as the reference's (decode starts from
-    ``init_cache``).  The WKV / SSD and flash kernels have no backward:
-    call it under ``torch.inference_mode`` when the params require
-    grad."""
-    _check_served_here(cfg)
+    ``init_cache``).  The flash kernel has no backward: call it under
+    ``torch.inference_mode`` when the params require grad."""
+    _check_family(cfg)
     p = cast_for_compute(cfg, params)
     x = embed_inputs(cfg, p, tokens=batch.get("tokens"),
                      patches=batch.get("patches"),
@@ -582,7 +602,7 @@ def forward_prefill(cfg, params: LMParams, batch: dict, *, mesh=None,
     aux = torch.zeros((), device=x.device)
     experts = None
     if isinstance(p.stack, HybridParams):
-        x = _run_hybrid(cfg, p.stack, x)
+        x = _run_hybrid(cfg, p.stack, x, attn_kernel=kernel_route(cfg))
     elif isinstance(p.stack, RWKVStack):
         x = _run_rwkv(cfg, p.stack, x)
     else:

@@ -8,8 +8,11 @@ The reference computes the sequence path with a chunk-vectorized jnp scan
 (``wkv_chunked``); here ``wkv_chunked`` calls ``kernels.ops.rwkv6_op``, the
 same function: the Hopper WKV kernel on a CUDA tensor (with the initial
 state of a decode step), its plain version on a CPU tensor or on the
-"xla" route.  Decode is the same call at T = 1 from the cached state, as in
-the reference.  Parameters and states keep the reference's layouts.
+"xla" route.  On the kernel route it is differentiable through the WKV
+backward kernel (training); the plain route differentiates the plain
+recurrence with autograd.  Decode is the same call at T = 1 from the
+cached state, as in the reference.  Parameters and states keep the
+reference's layouts.
 """
 from __future__ import annotations
 

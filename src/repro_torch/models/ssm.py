@@ -8,7 +8,11 @@ The reference computes the sequence path with chunked jnp matmuls
 (``ssd_chunked``); here ``ssd_chunked`` calls ``kernels.ops.ssd_op``, the
 same function: the Hopper SSD kernel on a CUDA tensor, reading x, B and C
 in place from the convolved projection, its plain version on a CPU tensor
-or on the "xla" route.  ``mamba_decode`` stays plain tensor code, with the
+or on the "xla" route.  On the kernel route it is differentiable through
+the SSD backward kernel (training), which reads the same slices; the
+plain route differentiates the plain recurrence with autograd (never the
+reference's chunked form, whose gradient is NaN where exp(L_t - L_s)
+overflows above the diagonal).  ``mamba_decode`` stays plain tensor code, with the
 reference's own single-step formula.  Parameters and states keep the
 reference's layouts.
 """

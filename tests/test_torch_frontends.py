@@ -189,7 +189,7 @@ def test_from_reference_takes_every_config(name):
     jp = jax.tree.map(np.asarray, jlm.init_params(jcfg,
                                                   jax.random.PRNGKey(0)))
     p = from_reference(jp, device="cpu")
-    lm._check_family(get_config(name + "-smoke"), serve=True)
+    lm._check_family(get_config(name + "-smoke"))
     back = to_reference(p, jp)
     want, got = jax.tree_util.tree_leaves(jp), jax.tree_util.tree_leaves(back)
     assert len(got) == len(want) == len(tree_leaves(p))

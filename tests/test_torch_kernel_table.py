@@ -3,8 +3,10 @@ every ``pl.pallas_call`` site under ``src/repro/kernels/`` (found by parsing
 the files with ``ast``, without importing them) has an entry in
 ``chip_smoke.py``'s ``REPLACES`` at its exact ``file:line``, every entry
 names a real site, every ``SOURCE`` file exists and is built, every
-kernel of the table has a launch counter, and a shared header's edit
-changes every library's build key."""
+kernel of the table has a launch counter, every ``BACKWARD`` kernel (the
+backward of a forward kernel; it replaces no TPU kernel) names a kernel of
+``REPLACES``, has a built ``SOURCE`` and a launch counter, and a shared
+header's edit changes every library's build key."""
 import ast
 from pathlib import Path
 
@@ -42,7 +44,8 @@ def test_every_pallas_call_site_has_exactly_one_replacement():
 def test_every_source_exists_and_is_built():
     from repro_torch.kernels import _build
     source = smoke_table("SOURCE")
-    assert source.keys() == smoke_table("REPLACES").keys()
+    assert source.keys() == (smoke_table("REPLACES").keys()
+                             | smoke_table("BACKWARD").keys())
     for name, path in source.items():
         f = ROOT / path
         assert f.is_file(), (name, path)
@@ -51,7 +54,26 @@ def test_every_source_exists_and_is_built():
 
 def test_every_kernel_of_the_table_has_a_launch_counter():
     from repro_torch.kernels import COUNTERS
-    assert sorted(COUNTERS) == sorted(smoke_table("REPLACES"))
+    assert sorted(COUNTERS) == sorted([*smoke_table("REPLACES"),
+                                       *smoke_table("BACKWARD")])
+
+
+def test_every_backward_kernel_names_a_replacing_kernel():
+    """Each BACKWARD entry is the backward of a kernel of REPLACES, is not
+    itself in REPLACES, has a SOURCE of its own that is built and a launch
+    counter."""
+    from repro_torch.kernels import COUNTERS, _build
+    backward = smoke_table("BACKWARD")
+    replaces, source = smoke_table("REPLACES"), smoke_table("SOURCE")
+    assert backward == {"rwkv6_wkv_bwd": "rwkv6_wkv",
+                        "ssd_scan_bwd": "ssd_scan"}
+    for name, of in backward.items():
+        assert of in replaces and name not in replaces, name
+        f = ROOT / source[name]
+        assert f.is_file() and f.parent == _build.CSRC, source[name]
+        assert f.stem in _build.SOURCES and f.stem in _build.SIGNATURES
+        assert source[name] != source[of]
+        assert name in COUNTERS and COUNTERS[name].name == name
 
 
 def test_a_header_edit_changes_every_build_key(tmp_path, monkeypatch):
@@ -68,3 +90,34 @@ def test_a_header_edit_changes_every_build_key(tmp_path, monkeypatch):
     after = {n: _build._lib_path(n) for n in ("one", "two")}
     assert all(after[n] != before[n] for n in before)
     assert after == {n: _build._lib_path(n) for n in ("one", "two")}
+
+
+def c_entry_points(source: str) -> dict:
+    """``extern "C" int name(...)`` of a CUDA source -> the ctypes kinds of
+    its parameters: "P" a pointer, "I" an int, "L" a long long."""
+    import re
+    out = {}
+    for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', source):
+        kinds = []
+        for param in m.group(2).split(","):
+            decl = " ".join(param.split())
+            kinds.append("P" if "*" in decl else
+                         "L" if decl.startswith("long long") else
+                         "I" if decl.startswith("int ") else decl)
+        out[m.group(1)] = kinds
+    return out
+
+
+def test_every_signature_matches_its_c_entry_point():
+    """ctypes passes each argument as ``_build.SIGNATURES`` declares it: a
+    pointer as c_void_p, a size as c_int, a stride as c_longlong; a
+    mismatch with the C declaration would cut a pointer or shift every
+    later argument.  Each source's entry points and their kinds match."""
+    import ctypes
+    from repro_torch.kernels import _build
+    kind = {ctypes.c_void_p: "P", ctypes.c_int: "I", ctypes.c_longlong: "L"}
+    for name in _build.SOURCES:
+        got = c_entry_points((_build.CSRC / f"{name}.cu").read_text())
+        want = {fn: [kind[a] for a in args]
+                for fn, args in _build.SIGNATURES[name].items()}
+        assert got == want, name

@@ -206,7 +206,8 @@ def test_plain_versions_count_no_launches_and_reset_zeroes():
     assert sorted(COUNTERS) == sorted([
         "topk_gating_fused", "topk_positions", "dispatch_rows",
         "combine_rows", "weighted_route", "grouped_ffn", "grouped_matmul",
-        "flash_attention", "rwkv6_wkv", "ssd_scan"])
+        "flash_attention", "rwkv6_wkv", "ssd_scan", "rwkv6_wkv_bwd",
+        "ssd_scan_bwd"])
     topk_positions(torch.zeros((4, 1), dtype=torch.int32), 2)
     assert all(c.count == 0 for c in COUNTERS.values())
     COUNTERS["grouped_ffn"].inc()

@@ -32,7 +32,7 @@ from repro_torch.kernels import COUNTERS, ref, reset_counters, rwkv6_op
 from repro_torch.kernels.rwkv6 import rwkv6_wkv
 from repro_torch.models import lm
 from repro_torch.models import rwkv
-from repro_torch.tree import tree_items
+from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 KTOL = dict(atol=1e-5, rtol=1e-5)
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -225,14 +225,20 @@ def test_plain_route_matches_kernel_route(models):
 
 
 def test_training_and_the_transformer_entry_points_refuse(models):
-    """Training refuses this family; the transformer family's serve entry
-    points, which refused before, now take it (its cache below)."""
+    """Training, which this family refused before the WKV backward kernel,
+    now runs (its loss and gradients against the reference's are
+    ``test_torch_train_recurrent.py``'s): a finite loss, a zero aux loss,
+    no expert choices and a finite gradient for every leaf.  The
+    transformer family's serve entry points, which refused before, take it
+    too (its cache below)."""
     _, cfg, _, params = models
     toks = torch.zeros((2, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError,
-                       match="training of the RWKV6 and hybrid Mamba2 "
-                             "families"):
-        lm.forward_train(cfg, params, {"tokens": toks, "labels": toks})
+    ps = tree_map(lambda p: p.detach().requires_grad_(), params)
+    out = lm.forward_train(cfg, ps, {"tokens": toks, "labels": toks})
+    assert out.expert_choices is None and float(out.aux_loss) == 0.0
+    grads = torch.autograd.grad(out.loss, tree_leaves(ps))
+    assert np.isfinite(float(out.loss.detach()))
+    assert all(torch.isfinite(g).all() for g in grads)
 
 
 def test_transformer_init_cache_has_the_reference_shape():

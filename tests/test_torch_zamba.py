@@ -33,7 +33,7 @@ from repro_torch.kernels import COUNTERS, ref, reset_counters, ssd_op
 from repro_torch.kernels.ssd import ssd_scan
 from repro_torch.models import lm
 from repro_torch.models import ssm
-from repro_torch.tree import tree_items
+from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 KTOL = dict(atol=2e-5, rtol=2e-5)
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -223,12 +223,19 @@ def test_plain_route_matches_kernel_route(models):
 
 
 def test_training_refuses_and_the_card_is_the_default(models):
+    """Training, which this family refused before the SSD backward kernel,
+    now runs (its loss and gradients against the reference's are
+    ``test_torch_train_recurrent.py``'s): a finite loss, a zero aux loss,
+    no expert choices and a finite gradient for every leaf.  Without a
+    card the entry points' default device raises."""
     _, cfg, _, params = models
     toks = torch.zeros((2, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError,
-                       match="training of the RWKV6 and hybrid Mamba2 "
-                             "families"):
-        lm.forward_train(cfg, params, {"tokens": toks, "labels": toks})
+    ps = tree_map(lambda p: p.detach().requires_grad_(), params)
+    out = lm.forward_train(cfg, ps, {"tokens": toks, "labels": toks})
+    assert out.expert_choices is None and float(out.aux_loss) == 0.0
+    grads = torch.autograd.grad(out.loss, tree_leaves(ps))
+    assert np.isfinite(float(out.loss.detach()))
+    assert all(torch.isfinite(g).all() for g in grads)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             lm.init_cache(cfg, 2, 8)
