@@ -19,7 +19,7 @@ be timed on the same card (a gating case that tree's wrapper refuses is
 then printed and skipped).
 
 Phase 0  prints the card (``nvidia-smi`` name and power limit) and builds
-         the ten CUDA sources of ``src/repro_torch/kernels/csrc`` (one
+         the eleven CUDA sources of ``src/repro_torch/kernels/csrc`` (one
          ``nvcc`` each, started together; timed).
 Phase 1  first times the launch floor: ``csrc/launch_floor.cu``'s empty
          kernel (one block of 32 threads, no memory traffic, no TPU
@@ -153,9 +153,17 @@ the final state under a strong and a weak decay; ``ssd_scan_bwd``
 (SSD_BWD_CASES) at zamba2-1.2b's 4 x 2048 x 64 heads with x, B and C
 sliced in place, a ragged T = 2000, and from a random h0 with a
 cotangent under A = 16 in every head (where the reference's chunked form
-overflows).  Each is timed with CUDA events and torch.profiler beside its
+overflows) and under a strong decay (softplus(dt) ~ 6.25: dt a ~ -100 a
+step).  Each is timed with CUDA events and torch.profiler beside its
 bound (bf16 peak, the fp32 one beside) and, at the training shape, its
-plain version; no PyTorch call computes either.
+plain version, with each CUDA kernel's share of a call's device time on
+a line of its own; no PyTorch call computes either.  Last,
+``csrc/mma_forms.cu`` (a yardstick: no TPU kernel, no counter) times a
+64 x 64 x 64 product of a bf16 pair on mma.sync, on mma.sync over its
+causal half (bounds tested at run time, or known when compiled) and on
+wgmma at ``ssd_bwd_grad_kernel``'s grid and occupancy, each form first
+held against the plain product, and prints the gradient kernel's product
+mix on each form.
 Phase 5  serves rwkv6-1.6b (24 RWKV6 layers, d 2048) at full width and
          depth, random weights from a seed, through ``models.lm``'s
          ``forward_prefill`` (4 x 2048 tokens), ``init_cache`` and
@@ -384,22 +392,53 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 def device_ms(fn, iters: int = 20) -> float:
     """Mean kernel time per call on the card (torch.profiler kernel events,
     no host time), over ``iters`` calls after one warm-up."""
+    return sum(device_split(fn, iters).values())
+
+
+def device_split(fn, iters: int = 20, tries: int = 6) -> dict:
+    """Mean device time per call of each CUDA kernel that ``fn`` launches
+    (torch.profiler kernel events, by kernel name without its arguments and
+    namespace), after one warm-up; a call that launches several kernels
+    (a wrapper of passes) shows each one's share.
+
+    A profiling session loses kernel events: all of them now and then (seen
+    on a 2.7 us kernel), or the first kernel it traces (seen as 4 events of
+    a wrapper's first kernel in 5 calls, its other three at 5).  So each
+    session starts with a warm-up cycle of one call, whose events are
+    dropped, and is kept only when every kernel name has a whole number of
+    events a call and the session before it saw the same names with the
+    same counts; else profile again, and raise after ``tries`` sessions."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    # a profiling session now and then records no kernel event at all (seen
-    # on a 2.7 us kernel): profile again rather than report zero time
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    last = None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / iters / 1e3
-    raise RuntimeError("torch.profiler recorded no kernel time in 3 tries")
+            prof.step()
+        out: dict = {}
+        counts: dict = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                name = e.key.replace("(anonymous namespace)::", "").split(
+                    "(")[0].split("<")[0].split("::")[-1]
+                out[name] = out.get(name, 0.0) + \
+                    e.self_device_time_total / iters / 1e3
+                counts[name] = counts.get(name, 0) + e.count
+        whole = bool(counts) and all(n % iters == 0 for n in counts.values())
+        if whole and counts == last:
+            return out
+        last = counts if whole else None
+    raise RuntimeError(f"torch.profiler: no two sessions in a row of {tries} "
+                       f"saw the same whole kernel counts (last {counts})")
 
 
 # the launch floor: csrc/launch_floor.cu's empty kernel (one block of 32
@@ -1704,11 +1743,14 @@ WKV_BWD_CASES = (("train", 4, 2048, "model", False),
                  ("s0 weak", 4, 2048, "weak", True))
 # SSD at zamba2-1.2b's 64 heads, x, B and C sliced in place from one
 # projection: (case, B, T, A of every head (None: the model's linspace(1,
-# 16)), random h0 and a final-state cotangent).  At A = 16 the reference's
-# chunked form overflows (its gradient is NaN)
-SSD_BWD_CASES = (("train", 4, 2048, None, False),
-                 ("ragged", 4, 2000, None, False),
-                 ("h0 A=16", 4, 2048, 16.0, True))
+# 16)), dt scale, dt shift, random h0 and a final-state cotangent).  At A =
+# 16 the reference's chunked form overflows (its gradient is NaN); "strong"
+# is the forward's strong decay (SSD_CASES): softplus(dt) ~ 6.25, dt a ~
+# -100 a step at a = -16
+SSD_BWD_CASES = (("train", 4, 2048, None, 1.0, 0.0, False),
+                 ("ragged", 4, 2000, None, 1.0, 0.0, False),
+                 ("h0 A=16", 4, 2048, 16.0, 1.0, 0.0, True),
+                 ("strong", 4, 2048, None, 0.2, 6.25, True))
 
 
 def wkv_bwd_cost(b, t, h, hd, states: bool = False) -> tuple:
@@ -1773,7 +1815,8 @@ def phase1_recurrence_grads(dev, hw, gen) -> dict:
             raise AssertionError(f"{name} {case}: norm-wise rel err {errs} "
                                  f"> {REC_REL}")
         ms = time_ms(kernel, 5, 1)
-        dms = device_ms(kernel, 5)
+        split = device_split(kernel, 5)
+        dms = sum(split.values())
         nbytes, nops = cost
         bnd, by = bound_ms(nbytes, nops, hw)
         b32, by32 = bound_ms(nbytes, nops, hw, peak=FP32_FLOPS)
@@ -1788,6 +1831,9 @@ def phase1_recurrence_grads(dev, hw, gen) -> dict:
               f"{b32:.4f} ms ({by32}); {nbytes} bytes, {nops} operations)"
               + vs_floor(dms, bnd), flush=True)
         if case == "train":
+            print(f"  {name:18s} {case:10s} device time by CUDA kernel: "
+                  + ", ".join(f"{k} {v:.4f} ms ({v / sum(split.values()):.1%})"
+                              for k, v in split.items()), flush=True)
             rows[name] = dict(case=case, ms=ms, device_ms=dms, plain_ms=pms,
                               library_ms=None, bound_ms=bnd, bound_by=by,
                               max_abs_err=max_abs)
@@ -1818,14 +1864,14 @@ def phase1_recurrence_grads(dev, hw, gen) -> dict:
         del r, k, v, w, dy, s0, ds_t, args
     _, _, h, p, n = SSD_SHAPE
     d_skip = torch.ones(h, device=dev)
-    for case, b, t, a_top, states in SSD_BWD_CASES:
+    for case, b, t, a_top, dt_scale, dt_shift, states in SSD_BWD_CASES:
         a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev)) \
             if a_top is None else torch.full((h,), math.log(a_top),
                                              device=dev)
         xbc = rnd(b, t, h * p + 2 * n).to(bf)
         x = xbc[..., :h * p].reshape(b, t, h, p)
         bb, cc = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
-        dt = rnd(b, t, h).to(bf)
+        dt = (rnd(b, t, h) * dt_scale + dt_shift).to(bf)
         dy = rnd(b, t, h, p)
         h0 = rnd(b, h, p, n) if states else None
         dh_t = rnd(b, h, p, n) if states else None
@@ -1842,7 +1888,77 @@ def phase1_recurrence_grads(dev, hw, gen) -> dict:
         check("ssd_scan_bwd", case, names, kern, plain,
               ssd_bwd_cost(b, t, h, p, n, states))
         del xbc, x, bb, cc, dt, dy, h0, dh_t, args
+    phase1_mma_forms(dev, gen)
     return rows
+
+
+# the gradient kernel's products a head, in 64 x 64 x 64 products of a bf16
+# pair by bf16 (csrc/ssd_bwd.cu's ssd_bwd_grad_kernel): over the causal half
+# DX, dS B, DX^T, dS^T C (one each) and M^T dy (1.5: pair by pair); whole
+# dy h (1.5), B G^T and x G (one each)
+GRAD_CAUSAL, GRAD_WHOLE = 5.5, 3.5
+
+
+def phase1_mma_forms(dev, gen) -> None:
+    """csrc/mma_forms.cu's four forms of a 64 x 64 x 64 product (an fp32 A
+    as its bf16 pair in registers, a bf16 B in shared memory): mma.sync
+    over every column tile (0), mma.sync over the causal half (the two
+    orientations by turns), its bounds tested at run time as
+    ssd_bwd_grad_kernel does (1) or known when compiled (3), wgmma_rs over
+    the whole product (2).  Each is held against the plain product
+    norm-wise within REC_REL (one block, two turns), then timed by device
+    time at ssd_bwd_grad_kernel's grid and occupancy at the training shape:
+    1024 blocks (32 chunks x 8 head groups x 4) of 128 threads, two an SM,
+    each block forming the 8 heads' 8 (GRAD_CAUSAL + GRAD_WHOLE) = 72
+    products.  Prints each form's time and the gradient kernel's product
+    mix on mma.sync (its causal share on form 1, or 3) against the same
+    products on wgmma (all whole)."""
+    import torch
+    from repro_torch.kernels import _build
+    if "mma_forms" not in _build.SOURCES:
+        print("  mma forms: this tree has no csrc/mma_forms.cu", flush=True)
+        return
+    lib = _build.lib("mma_forms")
+    a = torch.randn(64, 64, generator=gen, device=dev)
+    b = torch.randn(64, 64, generator=gen, device=dev).to(torch.bfloat16)
+    out = torch.empty(64, 64, device=dev)
+
+    def run(form, blocks, reps):
+        _build.check(lib.mma_forms(_build.ptr(a), _build.ptr(b),
+                                   _build.ptr(out), form, blocks, reps,
+                                   _build.stream(a)), "mma_forms")
+    plain = a.double() @ b.double()
+    # two turns: every form but the causal one sums each product twice; the
+    # causal one's turn 0 reaches the column tiles jj <= w of warp w's rows,
+    # turn 1 those with jj >= w
+    w = torch.arange(64, device=dev) // 16
+    reach = (w[None, :] <= w[:, None]).double() + \
+        (w[None, :] >= w[:, None]).double()
+    errs = {}
+    for form, times in ((0, 2.0), (1, reach), (2, 2.0), (3, reach)):
+        run(form, 1, 2)
+        errs[form] = rel_err(out.double(), plain * times)
+    if not max(errs.values()) <= REC_REL:
+        raise AssertionError(f"mma_forms: norm-wise rel err {errs} > "
+                             f"{REC_REL}")
+    blocks, reps = 32 * 8 * 4, int(8 * (GRAD_CAUSAL + GRAD_WHOLE))
+    ms = {form: device_ms(lambda form=form: run(form, blocks, reps), 5)
+          for form in range(4)}
+    flops = blocks * reps * 2 * 64 ** 3 * 2
+    def mix(causal):
+        return (GRAD_CAUSAL * ms[causal] + GRAD_WHOLE * ms[0]) / \
+            (GRAD_CAUSAL + GRAD_WHOLE)
+    print(f"  mma forms (csrc/mma_forms.cu, {blocks} blocks x {reps} "
+          f"64 x 64 x 64 products of a bf16 pair, two blocks an SM): "
+          f"mma.sync {ms[0]:.4f} ms ({flops / ms[0] / 1e9:.1f} TFLOP/s), "
+          f"causal half {ms[1]:.4f} ms (bounds known when compiled "
+          f"{ms[3]:.4f}), wgmma_rs {ms[2]:.4f} ms "
+          f"({flops / ms[2] / 1e9:.1f} TFLOP/s); ssd_bwd_grad_kernel's "
+          f"product mix ({GRAD_CAUSAL} causal + {GRAD_WHOLE} whole a head) "
+          f"on mma.sync {mix(1):.4f} ms ({mix(3):.4f}), on wgmma "
+          f"{ms[2]:.4f} ms; norm-wise rel err "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (limit {REC_REL})", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3611,7 +3727,7 @@ def phase13_train(dev, arch: str) -> dict:
         for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:12]:
             print(f"    {e.self_device_time_total / 1e3:9.3f} ms  "
                   f"x{e.count:<5d} {e.key[:90]}", flush=True)
-        for tag in ("wkv_", "ssd_", "du_sum_kernel"):
+        for tag in ("wkv_", "ssd_", "chunk_state_kernel"):
             hits = [e for e in kern if tag in e.key]
             for e in hits:
                 print(f"  phase 13 {arch} {e.key[:60]}: "

@@ -14,7 +14,9 @@ Every C entry point returns ``cudaGetLastError()`` after its launches;
 ``LaunchCounter`` that it bumps exactly where it launches its kernel.
 ``launch_floor`` launches ``csrc/launch_floor.cu``'s empty kernel, the
 yardstick a small kernel's time is judged by; it replaces no TPU kernel
-and has no counter.
+and has no counter.  Neither does ``csrc/mma_forms.cu``, the yardstick of
+the two tensor-core forms (mma.sync, wgmma) at the recurrences' backward
+shapes, which ``chip_smoke.py`` times through ``lib("mma_forms")``.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("topk_gating", "dispatch", "moe_ffn", "grouped_matmul",
            "flash_attention", "rwkv6", "ssd", "rwkv6_bwd", "ssd_bwd",
-           "launch_floor")
+           "launch_floor", "mma_forms")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -71,13 +73,16 @@ SIGNATURES = {
                      L, L, L, L, L, L, L, L, P),
     },
     "rwkv6_bwd": {
-        "rwkv6_wkv_bwd": (P,) * 16 + (I, I, I, I, P),
+        "rwkv6_wkv_bwd": (P,) * 17 + (I, I, I, I, P),
     },
     "ssd_bwd": {
-        "ssd_scan_bwd": (P,) * 21 + (I,) * 5 + (L,) * 8 + (P,),
+        "ssd_scan_bwd": (P,) * 20 + (I,) * 5 + (L,) * 8 + (P,),
     },
     "launch_floor": {
         "launch_floor": (P,),
+    },
+    "mma_forms": {
+        "mma_forms": (P, P, P, I, I, I, P),
     },
 }
 
@@ -211,6 +216,15 @@ def require(t, name: str, dtypes, ndim: int) -> None:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def aligned16(t):
+    """``t`` itself when its base address is a multiple of 16 bytes (or it
+    is None), else a fresh copy: for an fp32 operand that a kernel loads in
+    16-byte vectors and that may arrive as a view at any offset."""
+    if t is None or t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def launch_floor(device) -> None:

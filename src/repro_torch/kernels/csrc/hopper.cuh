@@ -1,6 +1,8 @@
 // PTX helpers for Hopper (sm_90a) shared by the kernels that load tiles with
 // TMA into mbarrier rings and multiply them with wgmma
-// (grouped_matmul.cu, flash_attention.cu, moe_ffn.cu, ssd.cu), and the bf16 ring
+// (grouped_matmul.cu, flash_attention.cu, moe_ffn.cu, ssd.cu), the bf16 hi /
+// lo pair of an fp32 operand (split2: the recurrences' forwards and, through
+// warp_mma.cuh, their backwards), and the bf16 ring
 // mainloop that grouped_matmul.cu's bf16 path and moe_ffn.cu's two GEMMs
 // share.  Each kernel source includes this header and builds into its own
 // library; kernels/_build.py hashes every csrc/*.cuh into each library's
@@ -155,6 +157,15 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the bf16 pair of (a, b): hi = bf16(v), lo = bf16(v - hi), packed two
+// values a register (a in the low half)
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const uint32_t*>(&h2);
+  lo = pack_bf16(a - __low2float(h2), b - __high2float(h2));
 }
 
 // the 128 threads of consumer warpgroup wg (named barrier 1 + wg)

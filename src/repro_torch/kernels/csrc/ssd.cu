@@ -131,15 +131,6 @@ __device__ __forceinline__ uint32_t swz(uint32_t row, uint32_t byte) {
   return off ^ (((off >> 7) & 7) << 4);
 }
 
-// the bf16 pair of (a, b): hi = bf16(v), lo = bf16(v - hi), packed two
-// values a register (a in the low half)
-__device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h2 = __floats2bfloat162_rn(a, b);
-  hi = *reinterpret_cast<const uint32_t*>(&h2);
-  lo = pack_bf16(a - __low2float(h2), b - __high2float(h2));
-}
-
 // ---------------------------------------------------------------------------
 // the m64nN accumulator: register i of thread (warp w, lane l) of a
 // warpgroup holds row 16 w + l / 4 + 8 ((i / 2) % 2), column 8 (i / 4) +

@@ -4,7 +4,8 @@
 r/k/v/w [B, T, H, hd] (w the log decay), u [H, hd], s0 [B, H, hd, hd]
 (zeros when None) -> y [B, T, H, hd] float32, and with ``return_state``
 also the final state [B, H, hd, hd] float32.  ``rwkv6_wkv_bwd`` is its
-backward (``csrc/rwkv6_bwd.cu``): the gradients of r, k, v, w, u and s0
+backward (``csrc/rwkv6_bwd.cu``, chunked over 64 steps, the state
+products on the tensor cores): the gradients of r, k, v, w, u and s0
 for the cotangents of y and of the final state; ``ops.rwkv6_op`` joins the
 two into one differentiable op.  Without ``s0`` it is the
 reference's Pallas kernel (``src/repro/kernels/rwkv6.py``); with it, the
@@ -25,8 +26,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import (BF16, LaunchCounter, check, lib,
-                                        on_cpu, ptr, require, stream)
+from repro_torch.kernels._build import (BF16, LaunchCounter, aligned16,
+                                        check, lib, on_cpu, ptr, require,
+                                        stream)
 
 RWKV6_WKV = LaunchCounter("rwkv6_wkv")
 RWKV6_WKV_BWD = LaunchCounter("rwkv6_wkv_bwd")
@@ -84,7 +86,7 @@ def rwkv6_wkv(r, k, v, w, u, *, s0=None, return_state: bool = False):
     return (y, s_t) if return_state else y
 
 
-CKPT_EVERY = 8      # R in csrc/rwkv6_bwd.cu: the backward's state checkpoints
+BWD_CHUNK = 64      # Q in csrc/rwkv6_bwd.cu: the backward's chunk
 
 
 def rwkv6_wkv_bwd(r, k, v, w, u, s0, dy, ds_t):
@@ -94,10 +96,14 @@ def rwkv6_wkv_bwd(r, k, v, w, u, s0, dy, ds_t):
 
     On the card r, k and v are bf16, w float32 (as the forward takes
     them), dy, s0 and ds_t float32 (dy is cast here), hd 64, every tensor
-    contiguous; the kernel's scratch (the state every ``CKPT_EVERY`` steps,
-    B H ceil(T / 8) hd^2 float32, and du's per-(b, h) partials) is
-    allocated here.  A CPU tensor takes ``ref.ref_rwkv6_bwd``; a CUDA
-    tensor launches the kernel or raises."""
+    contiguous and r, k, v and w 16-byte aligned (``tma_base_rule``: they
+    are loaded in 16-byte vectors, as are dy, s0 and ds_t, each copied first
+    when its base is not 16-byte aligned).  The kernels' scratch is allocated
+    here: each chunk's entering state and leaving cotangent ([ceil(T /
+    64), 2, B, H, hd, hd] float32: 128 MiB at 4 x 2048 x 32 heads), its
+    decay per row ([ceil(T / 64), B, H, hd]) and du's per-(b, chunk)
+    partials.  A CPU tensor takes ``ref.ref_rwkv6_bwd``; a CUDA tensor
+    launches the kernels or raises."""
     if r.dim() != 4:
         raise ValueError(f"rwkv6_wkv_bwd takes [B, T, H, hd] r, got "
                          f"{tuple(r.shape)}")
@@ -126,18 +132,24 @@ def rwkv6_wkv_bwd(r, k, v, w, u, s0, dy, ds_t):
                          f"got {hd}")
     dev = r.device
     uf = u.float().contiguous()
-    dyf = dy.float().contiguous()
+    dyf = aligned16(dy.float().contiguous())
+    s0, ds_t = aligned16(s0), aligned16(ds_t)
+    for name, a in (("r", r), ("k", k), ("v", v), ("w", w)):
+        tma_base_rule(name, a.data_ptr())
+    chunks = -(-t // BWD_CHUNK)
     dr, dk, dv, dw = (torch.empty(r.shape, dtype=torch.float32, device=dev)
                       for _ in range(4))
     du = torch.empty((h, hd), dtype=torch.float32, device=dev)
     ds0 = torch.empty((b, h, hd, hd), dtype=torch.float32, device=dev)
-    du_part = torch.empty((b, h, hd), dtype=torch.float32, device=dev)
-    ckpt = torch.empty((b, h, -(-t // CKPT_EVERY), hd, hd),
-                       dtype=torch.float32, device=dev)
+    states = torch.empty((chunks, 2, b, h, hd, hd), dtype=torch.float32,
+                         device=dev)
+    decay = torch.empty((chunks, b, h, hd), dtype=torch.float32, device=dev)
+    du_part = torch.empty((b, chunks, h, hd), dtype=torch.float32,
+                          device=dev)
     status = lib("rwkv6_bwd").rwkv6_wkv_bwd(
         ptr(r), ptr(k), ptr(v), ptr(w), ptr(uf), ptr(s0), ptr(dyf),
         ptr(ds_t), ptr(dr), ptr(dk), ptr(dv), ptr(dw), ptr(du), ptr(ds0),
-        ptr(du_part), ptr(ckpt), b, t, h, hd, stream(r))
+        ptr(states), ptr(decay), ptr(du_part), b, t, h, hd, stream(r))
     check(status, "rwkv6_wkv_bwd")
     RWKV6_WKV_BWD.inc()
     return dr, dk, dv, dw, du, ds0

@@ -6,11 +6,11 @@ x [B, T, H, P], dt [B, T, H] (before softplus), a_log / d_skip [H], b / c
 y [B, T, H, P] float32, and with ``return_state`` also the final state
 [B, H, P, N] float32.  Without ``h0`` it is the reference's Pallas kernel
 (``src/repro/kernels/ssd.py``).  ``ssd_scan_bwd`` is its backward
-(``csrc/ssd_bwd.cu``): the gradients of every input for the cotangents of
-y and of the final state; ``ops.ssd_op`` joins the two into one
-differentiable op.  The kernel's chunk is 128 steps and a
-ragged T is masked in the last chunk; the result does not depend on the
-chunking.
+(``csrc/ssd_bwd.cu``, chunked over 64 steps on the tensor cores): the
+gradients of every input for the cotangents of y and of the final state;
+``ops.ssd_op`` joins the two into one differentiable op.  The forward's
+chunk is 128 steps and a ragged T is masked in the last chunk; the result
+does not depend on the chunking.
 
 On the card: x, dt, b and c bf16, read in place through their batch and
 time strides (the model passes slices of one projection; each row's last
@@ -26,8 +26,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import (BF16, LaunchCounter, check, lib,
-                                        on_cpu, ptr, require, stream)
+from repro_torch.kernels._build import (BF16, LaunchCounter, aligned16,
+                                        check, lib, on_cpu, ptr, require,
+                                        stream)
 
 SSD_SCAN = LaunchCounter("ssd_scan")
 SSD_SCAN_BWD = LaunchCounter("ssd_scan_bwd")
@@ -121,7 +122,8 @@ def ssd_scan(x, dt, a_log, b, c, d_skip, *, h0=None,
     return (y, h_t) if return_state else y
 
 
-CKPT_EVERY = 8      # R in csrc/ssd_bwd.cu: the backward's state checkpoints
+BWD_CHUNK = 64      # Q in csrc/ssd_bwd.cu: the backward's chunk
+BWD_HEADS = 8       # kHeads in csrc/ssd_bwd.cu: the heads of a block
 
 
 def ssd_scan_bwd(x, dt, a_log, b, c, d_skip, h0, dy, dh_t):
@@ -132,13 +134,17 @@ def ssd_scan_bwd(x, dt, a_log, b, c, d_skip, h0, dy, dh_t):
 
     On the card x, dt, b and c are bf16 read in place through their batch
     and time strides, as the forward reads them (the dims after time
-    contiguous; no TMA here, so no 16-byte rule); a_log and d_skip cast to
-    float32, dy to float32 contiguous; h0 and dh_t float32 contiguous; P =
-    N = 64.  The kernel's scratch (the state every ``CKPT_EVERY`` steps, B
-    H ceil(T / 8) P N float32; dB and dC per head, [B, T, H, N] float32
-    each; the per-(b, h) partials of da_log and D) is allocated here.  A
-    CPU tensor takes ``ref.ref_ssd_bwd``; a CUDA tensor launches the kernel
-    or raises."""
+    contiguous; x, b and c under the forward's 16-byte rule, loaded in
+    16-byte vectors); a_log and d_skip cast to float32, dy to float32
+    contiguous; h0 and dh_t float32 contiguous; P = N = 64.  dy, h0 and
+    dh_t are loaded in 16-byte vectors: one whose base is not 16-byte
+    aligned is copied first.  The kernels'
+    scratch is allocated here: each chunk's entering state and leaving
+    cotangent ([ceil(T / 64), 2, B, H, P, N] float32: 256 MiB at 4 x 2048
+    x 64 heads), its decay ([ceil(T / 64), B, H]), dB and dC of each group of
+    ``BWD_HEADS`` heads ([B, T, ceil(H / 8), 2, N] float32: 32 MiB) and
+    the per-(b, chunk, h) partials of da_log and D.  A CPU tensor takes
+    ``ref.ref_ssd_bwd``; a CUDA tensor launches the kernels or raises."""
     if x.dim() != 4:
         raise ValueError(f"ssd_scan_bwd takes [B, T, H, P] x, got "
                          f"{tuple(x.shape)}")
@@ -169,28 +175,33 @@ def ssd_scan_bwd(x, dt, a_log, b, c, d_skip, h0, dy, dh_t):
     _rows(dt, "dt", (1,))
     _rows(b, "b", (1,))
     _rows(c, "c", (1,))
+    for name, a in (("x", x), ("b", b), ("c", c)):
+        tma_strides(name, a.shape, a.stride(), a.element_size(), a.data_ptr())
     for name, a in (("h0", h0), ("dh_t", dh_t)):
         if a is not None:
             require(a, name, (torch.float32,), 4)
+    h0, dh_t = aligned16(h0), aligned16(dh_t)
     dev = x.device
     a32 = a_log.float().contiguous()
     d32 = d_skip.float().contiguous()
-    dyf = dy.float().contiguous()
+    dyf = aligned16(dy.float().contiguous())
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
+    chunks, groups = -(-t // BWD_CHUNK), -(-h // BWD_HEADS)
     dx, ddt = empty(bsz, t, h, p), empty(bsz, t, h)
     da_log, dd = empty(h), empty(h)
     db, dc = empty(bsz, t, n), empty(bsz, t, n)
     dh0 = empty(bsz, h, p, n)
-    dbh, dch = empty(bsz, t, h, n), empty(bsz, t, h, n)
-    da_part, dd_part = empty(bsz, h), empty(bsz, h)
-    ckpt = empty(bsz, h, -(-t // CKPT_EVERY), p, n)
+    states = empty(chunks, 2, bsz, h, p, n)
+    decay = empty(chunks, bsz, h)
+    part = empty(bsz, t, groups, 2, n)
+    scal = empty(bsz, chunks, h, 2)
     status = lib("ssd_bwd").ssd_scan_bwd(
         ptr(x), ptr(dt), ptr(a32), ptr(b), ptr(c), ptr(d32), ptr(h0),
         ptr(dyf), ptr(dh_t), ptr(dx), ptr(ddt), ptr(da_log), ptr(db),
-        ptr(dc), ptr(dd), ptr(dh0), ptr(dbh), ptr(dch), ptr(da_part),
-        ptr(dd_part), ptr(ckpt), bsz, t, h, p, n, x.stride(0), x.stride(1),
+        ptr(dc), ptr(dd), ptr(dh0), ptr(states), ptr(decay), ptr(part),
+        ptr(scal), bsz, t, h, p, n, x.stride(0), x.stride(1),
         dt.stride(0), dt.stride(1), b.stride(0), b.stride(1), c.stride(0),
         c.stride(1), stream(x))
     check(status, "ssd_scan_bwd")
