@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 9,10
     python3 chip_smoke.py --phases 11,12
     python3 chip_smoke.py --phases 1r,13
+    python3 chip_smoke.py --phases 14
 
 With no arguments every phase runs, as below.  ``--phases`` runs phase 0
 and a subset (``1r``: phase 1's two recurrences alone; ``1m``: its five
@@ -297,6 +298,25 @@ Phase 13 trains the RWKV6 and hybrid Mamba2 families: (a) rwkv6-1.6b and
          1e-2.  (c) rwkv6-1.6b at depth 2: 4 straight steps against 2 +
          injected failure + restart + 2, bitwise.
 
+Phase 14 holds the launch tooling and the static checker against the
+         card: (a) every edge case of ``repro_torch.analysis.kernels``'
+         registry (small shapes at each kernel's contract boundaries): an
+         accepted one launches (its counter moves), holds to its plain
+         version at phase 1's tolerance for that kernel, and its meta
+         route's output shapes and dtypes are the card's; a refused one
+         raises before its counter moves.  (b) ``repro_torch.launch.sweep``
+         (every assigned config x four shapes x 16x16, 2x16x16, dry runs on
+         ``meta``) on the host's CPU, in the background, one line a cell.
+         (e) A second ``warmup`` of the gpt2-moe engine builds no kernel,
+         loads no library and adds no allocator segment
+         (``analysis.retrace.no_retrace``).  (c) For gpt2-moe's training
+         step (8 x 1024), mixtral-8x22b's prefill at depth 2 (4 x 2048) and
+         rwkv6-1.6b's training step (4 x 2048), the dry run's predicted
+         peak against ``max_memory_allocated`` on the same program
+         (``launch.dryrun.step_program``), within 10%; (d) their analytic
+         FLOPs over the measured step time (median of 3) as a share of 989
+         TFLOP/s.
+
 Prints one ``{"kernels": [...]}`` line (twelve kernels: the ten of
 ``REPLACES`` and the two of ``BACKWARD``, with ``"replaces": null`` and
 ``"backward_of"``) and, last,
@@ -345,6 +365,34 @@ SOURCE = {
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd.cu",
     "rwkv6_wkv_bwd": "src/repro_torch/kernels/csrc/rwkv6_bwd.cu",
     "ssd_scan_bwd": "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+}
+# each CUDA kernel of the sources (its __global__ name) -> the wrappers
+# whose launch counters witness its launches in ``device_split``, with the
+# launches a call of their C entry (at most; grouped_ffn's two GEMMs).  The
+# yardsticks' kernels have no counter: one launch a call of their entry.
+KERNEL_OWNERS = {
+    "gating_kernel": {"topk_gating_fused": 1},
+    "positions_kernel": {"topk_positions": 1},
+    "positions_solo_kernel": {"topk_positions": 1},
+    "dispatch_kernel": {"dispatch_rows": 1},
+    "combine_kernel": {"combine_rows": 1},
+    "route_kernel": {"weighted_route": 1},
+    "ffn_gemm_kernel": {"grouped_ffn": 2},
+    "gmm_bf16_kernel": {"grouped_matmul": 1},
+    "gmm_tf32_kernel": {"grouped_matmul": 1},
+    "flash_kernel": {"flash_attention": 1},
+    "wkv_step_kernel": {"rwkv6_wkv": 1},
+    "wkv_chunk_kernel": {"rwkv6_wkv": 1},
+    "ssd_kernel": {"ssd_scan": 1},
+    "wkv_bwd_chunk_kernel": {"rwkv6_wkv_bwd": 1},
+    "wkv_bwd_grad_kernel": {"rwkv6_wkv_bwd": 1},
+    "wkv_bwd_sum_kernel": {"rwkv6_wkv_bwd": 1},
+    "ssd_bwd_chunk_kernel": {"ssd_scan_bwd": 1},
+    "ssd_bwd_grad_kernel": {"ssd_scan_bwd": 1},
+    "ssd_bwd_sum_kernel": {"ssd_scan_bwd": 1},
+    "chunk_state_kernel": {"rwkv6_wkv_bwd": 1, "ssd_scan_bwd": 1},
+    "empty_kernel": {},
+    "mma_forms_kernel": {},
 }
 # the kernels that replace no TPU kernel: the backward of a forward kernel
 # of REPLACES (the reference's Pallas kernels of the recurrences have no
@@ -403,16 +451,21 @@ def device_split(fn, iters: int = 20, tries: int = 6) -> dict:
 
     A profiling session loses kernel events: all of them now and then (seen
     on a 2.7 us kernel), or the first kernel it traces (seen as 4 events of
-    a wrapper's first kernel in 5 calls, its other three at 5).  So each
-    session starts with a warm-up cycle of one call, whose events are
-    dropped, and is kept only when every kernel name has a whole number of
-    events a call and the session before it saw the same names with the
-    same counts; else profile again, and raise after ``tries`` sessions."""
+    a wrapper's first kernel in 5 calls, its other three at 5), and its
+    counts have been seen to differ between sessions by a whole number of
+    events a call.  So each session starts with a warm-up cycle of one
+    call, whose events are dropped, and is kept only when every kernel has
+    a whole number of events a call and each of the port's kernels
+    (``KERNEL_OWNERS``) has as many events as its wrappers' launch counters
+    rose in those ``iters`` calls, times its launches a wrapper call (a
+    yardstick's: ``iters``), every wrapper that launched showing one of its
+    kernels; else the session's counts and the witness are printed and the
+    card profiled again, raising after ``tries`` sessions."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.kernels import COUNTERS
     fn()
     torch.cuda.synchronize()
-    last = None
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
@@ -420,25 +473,35 @@ def device_split(fn, iters: int = 20, tries: int = 6) -> dict:
             fn()
             torch.cuda.synchronize()
             prof.step()
+            before = {n: c.count for n, c in COUNTERS.items()}
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
             prof.step()
+        launched = {n: c.count - before[n] for n, c in COUNTERS.items()
+                    if c.count != before[n]}
         out: dict = {}
         counts: dict = {}
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 name = e.key.replace("(anonymous namespace)::", "").split(
-                    "(")[0].split("<")[0].split("::")[-1]
+                    "(")[0].split("<")[0].split("::")[-1].split()[-1]
                 out[name] = out.get(name, 0.0) + \
                     e.self_device_time_total / iters / 1e3
                 counts[name] = counts.get(name, 0) + e.count
-        whole = bool(counts) and all(n % iters == 0 for n in counts.values())
-        if whole and counts == last:
+        want = {k: sum(launched.get(w, 0) * n
+                       for w, n in KERNEL_OWNERS[k].items())
+                if KERNEL_OWNERS[k] else iters
+                for k in counts if k in KERNEL_OWNERS}
+        shown = {w for k in want for w in KERNEL_OWNERS[k]}
+        if counts and all(n % iters == 0 for n in counts.values()) and \
+                all(counts[k] == n for k, n in want.items()) and \
+                set(launched) <= shown:
             return out
-        last = counts if whole else None
-    raise RuntimeError(f"torch.profiler: no two sessions in a row of {tries} "
-                       f"saw the same whole kernel counts (last {counts})")
+        print(f"  device_split: a session dropped: kernel events {counts}, "
+              f"wrapper launches {launched}", flush=True)
+    raise RuntimeError(f"torch.profiler: none of {tries} sessions saw the "
+                       f"kernel counts that the launch counters witness")
 
 
 # the launch floor: csrc/launch_floor.cu's empty kernel (one block of 32
@@ -531,10 +594,10 @@ def make_recorder(hw, rows: dict):
     PyTorch call computes the same function) that call, prints a line and
     keeps the kernel's summary row (its prefill case) in ``rows``."""
     def record(name, case, err, kernel, plain_fn, nbytes, nops, iters=50,
-               library_fn=None):
+               library_fn=None, library_ms=None):
         ms = time_ms(kernel, iters)
         plain = time_ms(plain_fn, iters)
-        lib = time_ms(library_fn, iters) if library_fn else None
+        lib = time_ms(library_fn, iters) if library_fn else library_ms
         dms = device_ms(kernel)
         b, by = bound_ms(nbytes, nops, hw)
         print(f"  {name:18s} {case:8s} err {err:.3e}  kernel {ms:.4f} ms "
@@ -902,12 +965,15 @@ DOT_REL = 1e-5
 L2_FLUSH_BYTES = 128 << 20
 
 
-def cold_ms(fn, tag: str, flush, iters: int = 20) -> tuple:
+def cold_ms(fn, tag: str, flush, iters: int = 20, tries: int = 6) -> tuple:
     """Per-call time of ``fn`` with ``flush`` (over twice L2) written before
     each call, outside the timed pair: (ms by CUDA events around the call
-    alone, device ms of the kernels whose name holds ``tag``)."""
+    alone, device ms of the kernels whose name holds ``tag``).  A profiling
+    session can lose kernel events (``device_split``): each opens with a
+    warm-up cycle and is kept when it holds a whole number of ``tag``
+    launches a call, else profile again, and raise after ``tries``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     pairs = []
     for i in range(iters):
@@ -920,18 +986,27 @@ def cold_ms(fn, tag: str, flush, iters: int = 20) -> tuple:
         pairs.append((a, b))
     torch.cuda.synchronize()
     ms = sum(a.elapsed_time(b) for a, b in pairs) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            flush.fill_(float(i))
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            flush.fill_(0.0)
             fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and tag in e.key]
-    n = sum(e.count for e in hits)
-    if n == 0:
-        raise RuntimeError(f"torch.profiler recorded no {tag} launch")
-    return ms, sum(e.self_device_time_total for e in hits) / n / 1e3
+            torch.cuda.synchronize()
+            prof.step()
+            for i in range(iters):
+                flush.fill_(float(i))
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and tag in e.key]
+        n = sum(e.count for e in hits)
+        if n and n % iters == 0:
+            return ms, sum(e.self_device_time_total for e in hits) / n / 1e3
+    raise RuntimeError(f"torch.profiler recorded no whole number of {tag} "
+                       f"launches a call in {tries} sessions")
 
 
 # grouped_ffn at the paths' shapes: (case, groups, rows a group, D, F,
@@ -1065,6 +1140,24 @@ def ffn_case(g, t, d, f, act, route, gen, dev, weights):
     return x, wi, wu, wo, ge, gr
 
 
+def library_by_blocks(x, wi, wu, wo, act, sel, iters: int) -> float:
+    """The bf16 composition (einsum, act, einsum) over blocks of slots
+    whose gathered weights fit in GATHER_MAX bytes, each block's weights
+    gathered before its timing: the sum of the blocks' times (ms)."""
+    from repro_torch.kernels import ref
+    n = gather_block(wi, wu, wo)
+    total, blocks = 0.0, 0
+    for i in range(0, x.shape[0], n):
+        wb = [None if a is None else a[sel[i:i + n]] for a in (wi, wu, wo)]
+        xb = x[i:i + n]
+        total += time_ms(lambda: ref.ref_grouped_ffn(xb, *wb, act), iters)
+        blocks += 1
+        del wb
+    print(f"  grouped_ffn library: {blocks} blocks of up to {n} slots, "
+          f"{total:.4f} ms summed", flush=True)
+    return total
+
+
 def phase1_grouped_ffn(dev, hw, gen, record) -> None:
     """grouped_ffn at FFN_CASES against its fp32 plain version (max abs
     error over max |plain| within FFN_REL), each call repeated bitwise, the
@@ -1116,17 +1209,21 @@ def phase1_grouped_ffn(dev, hw, gen, record) -> None:
               f"{slots * w_bytes / 1e6:.1f} MB once a slot (bound "
               f"{b_slot:.4f} ms, {by_slot})", flush=True)
         sel = torch.clamp(ge, min=0).long() if ge is not None else None
-        # the yardstick's weights gathered beforehand, where they fit
+        # the yardstick's weights gathered beforehand, where they fit; else
+        # (llama4) block by block as the plain version runs, each block's
+        # weights gathered before its timing, the blocks' times summed
         fits = sel is None or slots <= gather_block(wi, wu, wo)
         wg = [None if a is None or sel is None or not fits else a[sel]
               for a in (wi, wu, wo)]
+        lib_blocks = None if fits else \
+            library_by_blocks(x, wi, wu, wo, act, sel, iters)
         record("grouped_ffn", case, err,
                lambda: grouped_ffn(x, wi, wu, wo, **kw),
                lambda: ffn_plain(x, wi, wu, wo, act, ge, gr),
                io_bytes + hosted * w_bytes, n_ops, iters=iters,
                library_fn=(lambda: ref.ref_grouped_ffn(
                    x, *(wi, wu, wo) if sel is None else wg, act))
-               if fits else None)
+               if fits else None, library_ms=lib_blocks)
         del x, got, again, want, wg
     weights.clear()
     torch.cuda.empty_cache()
@@ -4479,8 +4576,284 @@ def phase8(dev) -> dict:
     return launches
 
 
+# phase 14 (c): the dry run's peak against the card's on the same program,
+# (arch, step, batch, sequence, depth or None for the config's own)
+PEAK_CASES = (("gpt2-moe", "train", 8, 1024, None),
+              ("mixtral-8x22b", "prefill", 4, 2048, 2),
+              ("rwkv6-1.6b", "train", 4, 2048, None))
+PEAK_REL = 0.10          # predicted against measured peak
+MFU_REPS = 3             # timed steps after the measured one
+
+
+def _leaves(out):
+    import torch
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _leaves(o)] \
+        if isinstance(out, (tuple, list)) else []
+
+
+def edge_holds(name: str, case: str, got, args, kwargs) -> float:
+    """Hold one accepted edge case's kernel output to its plain version
+    at phase 1's tolerance for that kernel; returns the error."""
+    import torch
+    from repro_torch.analysis.kernels import REGISTRY, wrapper_of
+    from repro_torch.kernels import ref
+    tag = f"phase 14 {name} {case}"
+    if name == "topk_gating_fused":
+        return check_gating(tag, args[0], kwargs["router"], args[1], got)
+    if name == "grouped_ffn":
+        want = ffn_fp32(*args, kwargs["ffn_type"], kwargs.get("group_expert"),
+                        kwargs.get("group_rows"))
+        err = ((got.float() - want).abs().max() / want.abs().max()).item()
+        lim = FFN_REL
+    elif name == "grouped_matmul":
+        want = ref.ref_grouped_matmul(args[0].float(), args[1].float())
+        bf = all(a.dtype == torch.bfloat16 for a in args)
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        lim = MM_REL["bf16" if bf else "tf32"]
+    else:
+        def cpu(t):
+            return t.cpu() if isinstance(t, torch.Tensor) else t
+        want = _leaves(wrapper_of(REGISTRY[name])(
+            *map(cpu, args), **{k: cpu(v) for k, v in kwargs.items()}))
+        gots = [t.cpu() for t in _leaves(got)]
+        if name in ("topk_positions", "weighted_route"):
+            err, lim = float(not torch.equal(gots[0], want[0])), 0.0
+        elif name == "dispatch_rows":
+            x, src, dot = args[0].cpu(), args[1].cpu(), kwargs["dot"].cpu()
+            xs = x.float()[src.clamp(min=0).long()] * (src >= 0)[:, None]
+            scale = (dot.float() * xs).abs().sum(-1)
+            over = (gots[1] - want[1]).abs() - DOT_REL * scale
+            err = float(not torch.equal(gots[0], want[0])) + \
+                max(0.0, over.max().item())
+            lim = 0.0
+        elif name == "combine_rows":
+            yr = want[0].float()
+            ulp = torch.where(yr != 0, torch.exp2(torch.floor(torch.log2(
+                yr.abs())) - 7), torch.full_like(yr, 2.0 ** -133))
+            err = max(0.0, ((gots[0].float() - yr).abs() - ulp).max().item())
+            lim = 0.0
+        elif name == "flash_attention":
+            err, lim = rel_err(gots[0], want[0]), FLASH_REL
+        else:                               # the recurrences
+            err = max(rel_err(g, w) for g, w in zip(gots, want))
+            lim = REC_REL
+    if not err <= lim:
+        raise AssertionError(f"{tag}: error {err:.3e} over {lim}")
+    return err
+
+
+def phase14_contracts(dev) -> None:
+    """(a) Each registry entry's edge cases on the card: an accepted one
+    launches (its counter moves) and holds to its plain version, and the
+    meta route's output shapes and dtypes are the card's; a refused one
+    raises before its counter moves."""
+    import torch
+    from repro_torch.analysis.kernels import REGISTRY, wrapper_of
+    from repro_torch.kernels import COUNTERS
+    from repro_torch.kernels._build import KernelRefused
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    n_ok = n_refused = 0
+    for name, entry in REGISTRY.items():
+        fn, counter = wrapper_of(entry), COUNTERS[name]
+        for ec in entry.edges:
+            args, kwargs = ec.build(dev, gen)
+            before = counter.count
+            if not ec.accepted:
+                try:
+                    fn(*args, **kwargs)
+                except KernelRefused as e:
+                    if counter.count != before:
+                        raise AssertionError(f"phase 14 {name} {ec.name}: "
+                                             f"counted a refused launch")
+                    print(f"  phase 14 {name:18s} {ec.name}: refused "
+                          f"({type(e).__name__}: {str(e)[:70]})", flush=True)
+                    n_refused += 1
+                    continue
+                raise AssertionError(f"phase 14 {name} {ec.name}: the card "
+                                     f"took a case the contract refuses")
+            got = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            if counter.count <= before:
+                raise AssertionError(f"phase 14 {name} {ec.name}: no launch")
+            margs, mkw = ec.build("meta", None)
+            meta = _leaves(fn(*margs, **mkw))
+            shapes = [(tuple(t.shape), t.dtype) for t in _leaves(got)]
+            if [(tuple(t.shape), t.dtype) for t in meta] != shapes:
+                raise AssertionError(f"phase 14 {name} {ec.name}: meta "
+                                     f"route {meta} against {shapes}")
+            err = edge_holds(name, ec.name, got, args, kwargs)
+            print(f"  phase 14 {name:18s} {ec.name}: launched, err "
+                  f"{err:.3e}, meta shapes and dtypes held", flush=True)
+            n_ok += 1
+            del got, args, kwargs
+    print(f"phase 14 (a): {n_ok} accepted edge cases launched and held, "
+          f"{n_refused} refused before a launch", flush=True)
+
+
+def phase14_sweep_start(src: Path):
+    """(b) The dry-run sweep (every assigned config x the four shapes x
+    16x16, 2x16x16) on the host's CPU, in the background; returns (the
+    process, the JSONL path)."""
+    import tempfile
+    out = Path(tempfile.mkdtemp(prefix="repro_torch_sweep_")) / "cells.jsonl"
+    env = dict(os.environ, PYTHONPATH=str(src), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.sweep", "--out", str(out),
+         "--jobs", str(os.cpu_count() or 8), "--timeout", "600"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def phase14_sweep_finish(proc, out: Path) -> dict:
+    """Wait for the sweep; print one line a cell (status, rank 0's peak,
+    fits, FLOPs, wire bytes by kind); raise on a cell in error."""
+    import shutil
+    try:
+        log, _ = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    cells = [json.loads(line) for line in out.read_text().splitlines()]
+    shutil.rmtree(out.parent, ignore_errors=True)
+    if proc.returncode != 0 or any(c["status"] == "error" for c in cells):
+        raise AssertionError("phase 14 sweep failed:\n" + log[-3000:])
+    for c in cells:
+        head = f"  sweep {c['arch']:26s} {c['shape']:12s} {c['mesh']:8s}"
+        if c["status"] != "ok":
+            print(f"{head} skip: {c['reason'][:90]}", flush=True)
+            continue
+        m, co = c["memory_analysis"], c["collectives"]
+        wire = {k: f"{v / 1e9:.3f}" for k, v in co["wire_bytes"].items()}
+        print(f"{head} ok peak {m['peak_bytes_estimate'] / 1e9:.2f} GB "
+              f"fits {c['fits']} flops {c['analytic_flops_global']:.3e} "
+              f"wire GB {wire}", flush=True)
+    n_ok = sum(c["status"] == "ok" for c in cells)
+    print(f"phase 14 (b): {len(cells)} cells, {n_ok} ok, {len(cells) - n_ok}"
+          f" skipped, {sum(bool(c.get('fits')) for c in cells)} fit in "
+          f"80 GB", flush=True)
+    return {(c["arch"], c["shape"], c["mesh"]): c for c in cells}
+
+
+def phase14_peaks(dev) -> None:
+    """(c) The dry run's predicted peak against the card's
+    ``max_memory_allocated`` on the same program (``launch.dryrun``'s
+    ``step_program``), within PEAK_REL; (d) the analytic FLOPs over the
+    measured step time as a share of the bf16 peak."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import H100, ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.analytic import analytic_cost
+    for arch, kind, b, s, depth in PEAK_CASES:
+        cfg = get_config(arch)
+        if depth:
+            cfg = depth_cut(cfg, depth)
+        step, args = dryrun.step_program(cfg, kind, b, s, device="meta")
+        pred = dryrun.meta_peak(step, args)["peak_bytes_estimate"]
+        del step, args
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        step, args = dryrun.step_program(cfg, kind, b, s, device=dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = step(*args)
+        torch.cuda.synchronize(dev)
+        meas = torch.cuda.max_memory_allocated(dev) - base
+        del out
+        gap = (pred - meas) / meas
+        dts = []
+        for _ in range(MFU_REPS):
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize(dev)
+            dts.append(time.perf_counter() - t0)
+            del out
+        dt = float(np.median(dts))
+        ana = analytic_cost(cfg, ShapeConfig(kind, s, b, kind))
+        tokens = b * s
+        model = (6 if kind == "train" else 2) * cfg.active_param_count() \
+            * tokens
+        print(f"phase 14 (c) {arch} {kind} {b} x {s}, {cfg.n_layers} layers:"
+              f" predicted peak {pred} bytes ({pred / 2**30:.2f} GiB), "
+              f"measured {meas} ({meas / 2**30:.2f} GiB), gap "
+              f"{100 * gap:+.2f}%", flush=True)
+        print(f"phase 14 (d) {arch} {kind}: step {dt:.4f} s (median of "
+              f"{MFU_REPS}: {[round(x, 4) for x in dts]}); analytic "
+              f"{ana.flops_global:.4e} FLOPs = {ana.flops_global / dt / 1e12:.1f}"
+              f" TFLOP/s = {100 * ana.flops_global / dt / H100.peak_flops:.2f}"
+              f"% of {H100.peak_flops / 1e12:.0f}; model (6ND / 2ND) "
+              f"{100 * model / dt / H100.peak_flops:.2f}%", flush=True)
+        del step, args
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not abs(gap) <= PEAK_REL:
+            raise AssertionError(f"phase 14 (c) {arch}: predicted peak "
+                                 f"{pred} against measured {meas} "
+                                 f"({100 * gap:+.2f}%)")
+
+
+def phase14_retrace(dev) -> None:
+    """(e) A second ``warmup`` of the gpt2-moe engine at an identical grid
+    builds no kernel, loads no library and adds no allocator segment."""
+    import torch
+    from repro_torch.analysis.retrace import no_retrace
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.runtime.engine import EngineConfig, ServingEngine
+    cfg = get_config("gpt2-moe")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init_params(cfg, gen, device=dev)
+    eng = ServingEngine(ctrl_server(dev, cfg, params),
+                        EngineConfig(max_batch_tokens=256))
+    n = eng.warmup(seqs=(64,), max_new_tokens=8)
+    torch.cuda.synchronize(dev)
+    with no_retrace("the second warm-up") as rep:
+        again = eng.warmup(seqs=(64,), max_new_tokens=8)
+        torch.cuda.synchronize(dev)
+    print(f"phase 14 (e): warm-up {n} calls, again {again}: builds "
+          f"{rep.builds}, library loads {rep.loads}, new allocator segments "
+          f"{rep.segments}", flush=True)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase14(dev, src: Path) -> dict:
+    """The launch tooling and the static checker on the card: (a) the
+    kernels' contract edge cases, (b) the dry-run sweep on the host's CPU
+    (in the background meanwhile), (e) no re-trace in a second engine
+    warm-up, then (c) the dry run's peaks against the card's and (d) the
+    analytic FLOPs over the measured steps."""
+    t0 = time.perf_counter()
+
+    def lap(what: str) -> None:
+        print(f"phase 14: {what} by {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    proc, out = phase14_sweep_start(src)
+    try:
+        phase14_contracts(dev)
+        lap("(a)")
+        phase14_retrace(dev)
+        lap("(e)")
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    cells = phase14_sweep_finish(proc, out)
+    lap("(b)")
+    phase14_peaks(dev)
+    lap("(c), (d): done")
+    return cells
+
+
 PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
-          "13")
+          "13", "14")
 # phase 3's profile: a part of a CUDA kernel's name -> its wrapper
 WATCH_TRAIN = {"gmm_": "grouped_matmul", "gating_kernel": "topk_gating_fused",
                "positions_kernel": "topk_positions",
@@ -4495,7 +4868,7 @@ def main(argv=None) -> int:
                                  "phase, as the module docstring says.")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of the phases to run after phase 0 "
-                    "(1-13; 1r: phase 1's two recurrences alone; 1m: its "
+                    "(1-14; 1r: phase 1's two recurrences alone; 1m: its "
                     "five MoE routing kernels alone); the "
                     "kernels line is printed only when all run")
     ap.add_argument("--src", default=str(SRC),
@@ -4582,6 +4955,8 @@ def main(argv=None) -> int:
     frontends = phase11(dev) if "11" in phases else None
     control = phase12(dev, src) if "12" in phases else None
     train_rec = phase13(dev) if "13" in phases else None
+    if "14" in phases:
+        phase14(dev, src)
 
     print(smi, flush=True)
     if set(phases) == set(PHASES):

@@ -5,9 +5,11 @@ assigned ten and the paper's §7.1 models.  The transformer family (dense
 and MoE, llama4-maverick's interleaved MoE with a shared expert included)
 is served and trained; ``rwkv6-1.6b`` (attention-free RWKV6) and
 ``zamba2-1.2b`` (Mamba2 with a shared attention block) are served through
-``models.lm``'s ``forward_prefill`` / ``decode_step``.  ``llava-next-34b``
-and ``hubert-xlarge`` are held as data: their modality frontends are not
-ported, and ``models.lm`` refuses them.
+``models.lm``'s ``forward_prefill`` / ``decode_step`` and trained through
+``forward_train``.  ``llava-next-34b`` (a prefix of projected patch
+embeddings before the tokens) and ``hubert-xlarge`` (an encoder over
+projected audio frames, no decode) go through the same entry points
+(``models.lm.embed_inputs``).
 """
 from repro_torch.configs.base import (
     ModelConfig, MoEConfig, SSMConfig, ShapeConfig, HardwareConfig,

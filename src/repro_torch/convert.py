@@ -19,10 +19,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import axes
-from repro_torch.core.moe import EXPERT_FIELDS, MoEParams, all_gather_rows
+from repro_torch.core.moe import EXPERT_FIELDS, MoEParams
 from repro_torch.devices import resolve_device
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.lm import (FFNParams, GroupParams, HybridParams,
@@ -151,11 +150,11 @@ def shard_params(params, mesh, fsdp: bool = False):
     return _map_experts(params, cut)
 
 
-def _gather(w, group, dim):
-    n = dist.get_world_size(group)
+def _gather(w, mesh, group, dim):
     wm = w.movedim(dim, 0).contiguous()
-    out = wm.new_empty((n * wm.shape[0], *wm.shape[1:]))
-    all_gather_rows(out, wm, group)
+    out = wm.new_empty((mesh.group_size(group) * wm.shape[0],
+                        *wm.shape[1:]))
+    mesh.all_gather(out, wm, group)
     return out.movedim(0, dim).contiguous()
 
 
@@ -168,6 +167,6 @@ def unshard_params(params, mesh, fsdp: bool = False):
 
     def full(field, w):
         if fsdp:
-            w = _gather(w, mesh.dp_group, _hidden_dim(field, w))
-        return _gather(w, mesh.group(axes.EP_AXIS), w.dim() - 3)
+            w = _gather(w, mesh, mesh.dp_group, _hidden_dim(field, w))
+        return _gather(w, mesh, mesh.group(axes.EP_AXIS), w.dim() - 3)
     return _map_experts(params, full)

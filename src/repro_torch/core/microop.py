@@ -3,9 +3,9 @@ a2a <-> expert-FFN pipeline, and the prioritised gradient reduction
 (the reference's ``src/repro/core/microop.py``).
 
   * ``exchange`` — blocks of dim 0 to the ranks of the mesh's `model`
-    group (``dist.all_to_all_single``), the serve layer's all-to-all;
+    group (``Mesh.all_to_all``), the serve layer's all-to-all;
   * ``all_to_all_ec`` / ``all_to_all_ec_inverse`` — the expert-parallel
-    exchange over the mesh's `model` group (``dist.all_to_all_single``),
+    exchange over the mesh's `model` group (``Mesh.all_to_all``),
     one ``torch.autograd.Function`` whose backward is the inverse exchange;
   * ``chunked_all_to_all``   — the exchange split along the capacity dim
     into uniform micro-ops;
@@ -40,7 +40,6 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import axes
 from repro_torch.tree import tree_leaves, tree_unflatten_like
@@ -51,8 +50,8 @@ def _exchange(x: torch.Tensor, mesh, async_op: bool = False):
     received block j came from rank j.  Returns (out, work or None)."""
     x = x.contiguous()
     out = torch.empty_like(x)
-    work = dist.all_to_all_single(out, x, group=mesh.group(axes.EP_AXIS),
-                                  async_op=async_op)
+    work = mesh.all_to_all(out, x, mesh.group(axes.EP_AXIS),
+                           async_op=async_op)
     return out, work
 
 
@@ -253,12 +252,12 @@ def prioritized_chunked_reduce(grads, group, n_chunks: int, *,
     chunks of the flattened (zero-padded) vector, each issued async.  With
     ``after`` (a CUDA event) the compute stream waits on it first, so the
     first chunk cannot start before it.  ``mean`` divides by the group's
-    size.  ``group`` None reduces over nothing (values pass through, as
-    a one-rank group).  Returns the reduced tree, or with ``async_op`` a
+    size.  ``group`` is one of ``mesh``'s; None reduces over nothing
+    (values pass through, as a one-rank group).  Returns the reduced tree, or with ``async_op`` a
     ``PendingReduce``."""
     flat, spec = flatten_tree(grads)
     n = flat.numel()
-    size = dist.get_world_size(group) if group is not None else 1
+    size = mesh.group_size(group) if group is not None else 1
     if n == 0:
         pend = PendingReduce([], flat, 0, spec, 1)
         return pend if async_op else pend.wait()
@@ -270,9 +269,8 @@ def prioritized_chunked_reduce(grads, group, n_chunks: int, *,
         torch.cuda.current_stream().wait_event(after)
     works = []
     if group is not None:
-        if mesh is not None:
-            mesh.mark("reduce")
+        mesh.mark("reduce")
         for ch in torch.split(flat, flat.numel() // n_chunks):
-            works.append(dist.all_reduce(ch, group=group, async_op=True))
+            works.append(mesh.all_reduce(ch, group, async_op=True))
     pend = PendingReduce(works, flat, n, spec, size if mean else 1)
     return pend if async_op else pend.wait()

@@ -22,8 +22,6 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-import torch.distributed as dist
-
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import axes
 from repro_torch.core import dispatch as D
@@ -71,29 +69,13 @@ def expert_leaf_flags(tree) -> list:
     return [False]
 
 
-def all_gather_rows(out, x, group):
-    """``out`` [n * x0, ...] = the group's ``x`` [x0, ...] in rank order
-    (``all_gather_single``, named ``all_gather_into_tensor`` before)."""
-    fn = getattr(dist, "all_gather_single", None) or \
-        dist.all_gather_into_tensor
-    fn(out, x, group=group)
-
-
 def gather_axis(t, mesh, axis: str, dim: int = 0):
     """``t``'s shards along ``dim`` gathered over the mesh's ``axis``
     group, in rank order (no autograd)."""
     tm = t.movedim(dim, 0).contiguous()
     out = tm.new_empty((mesh.size(axis) * tm.shape[0], *tm.shape[1:]))
-    all_gather_rows(out, tm, mesh.group(axis))
+    mesh.all_gather(out, tm, mesh.group(axis))
     return out.movedim(0, dim)
-
-
-def reduce_scatter_rows(out, x, group):
-    """``out`` [x0 / n, ...] = this rank's block of the group's summed
-    ``x`` (``reduce_scatter_single``, ``reduce_scatter_tensor`` before)."""
-    fn = getattr(dist, "reduce_scatter_single", None) or \
-        dist.reduce_scatter_tensor
-    fn(out, x, group=group)
 
 
 class _GatherHidden(torch.autograd.Function):
@@ -102,27 +84,28 @@ class _GatherHidden(torch.autograd.Function):
     reduce-scatter of the gradient (summed over the group)."""
 
     @staticmethod
-    def forward(ctx, w, group, dim):
-        ctx.group, ctx.dim = group, dim
-        n = dist.get_world_size(group)
+    def forward(ctx, w, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        n = mesh.group_size(mesh.dp_group)
         wm = w.movedim(dim, 0).contiguous()
         out = wm.new_empty((n * wm.shape[0], *wm.shape[1:]))
-        all_gather_rows(out, wm, group)
+        mesh.all_gather(out, wm, mesh.dp_group)
         return out.movedim(0, dim).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        n = dist.get_world_size(ctx.group)
+        mesh = ctx.mesh
+        n = mesh.group_size(mesh.dp_group)
         gm = g.movedim(ctx.dim, 0).contiguous()
         out = gm.new_empty((gm.shape[0] // n, *gm.shape[1:]))
-        reduce_scatter_rows(out, gm, ctx.group)
+        mesh.reduce_scatter(out, gm, mesh.dp_group)
         return out.movedim(0, ctx.dim).contiguous(), None, None
 
 
 def gather_hidden(w, mesh, dim: int):
     """``w``'s hidden-dim shards (dim ``dim``) gathered over the mesh's
     data-parallel group."""
-    return _GatherHidden.apply(w, mesh.dp_group, dim)
+    return _GatherHidden.apply(w, mesh, dim)
 
 
 def world_mean_value(v: torch.Tensor, mesh) -> torch.Tensor:
@@ -131,7 +114,7 @@ def world_mean_value(v: torch.Tensor, mesh) -> torch.Tensor:
     mean's value, and averaging the ranks' gradients (``optim.reduce``)
     gives the gradient of that mean."""
     m = v.detach().clone()
-    dist.all_reduce(m)
+    mesh.all_reduce(m, mesh.world_group)
     return v + (m / mesh.world - v.detach())
 
 

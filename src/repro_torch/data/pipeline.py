@@ -1,8 +1,8 @@
 """Deterministic synthetic LM data pipeline.
 
-A copy of the reference's ``DataConfig`` / ``SyntheticLM`` (numpy), so the
-port's profiling batches are bitwise the reference's: deterministic per
-(seed, step, host-shard).
+A copy of the reference's ``DataConfig`` / ``SyntheticLM`` (numpy),
+``make_batch_iterator`` and ``Prefetcher``, so the port's batches are
+bitwise the reference's: deterministic per (seed, step, host-shard).
 
 The token stream is a mixture of Zipf-distributed unigrams with a Markov
 flavor so that (a) CE loss decreases meaningfully when training and (b) MoE
@@ -11,7 +11,10 @@ popularity skewed at inference (paper §2.2, Fig. 6).
 """
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
+from typing import Iterator
 
 import numpy as np
 
@@ -52,3 +55,48 @@ class SyntheticLM:
         toks[:, 1:][follow] = self.successor[toks[:, :-1][follow]]
         return {"tokens": toks[:, :-1].astype(np.int32),
                 "labels": toks[:, 1:].astype(np.int32)}
+
+
+def make_batch_iterator(cfg: DataConfig, start_step: int = 0) -> Iterator[dict]:
+    ds = SyntheticLM(cfg)
+    step = start_step
+    while True:
+        yield ds.batch(step)
+        step += 1
+
+
+class Prefetcher:
+    """Bounded-queue background prefetch (straggler decoupling)."""
+
+    def __init__(self, it: Iterator[dict], depth: int = 2):
+        self._it = it
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        try:
+            for item in self._it:
+                if self._stop.is_set():
+                    return
+                self._q.put(item)
+        finally:
+            self._q.put(None)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is None:
+            raise StopIteration
+        return item
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass

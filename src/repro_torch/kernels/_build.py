@@ -40,6 +40,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict = {}
 BUILD_LOG: dict = {}          # source name -> nvcc / ptxas output
+# sources compiled and libraries loaded by this process (what
+# ``analysis.retrace.no_retrace`` counts: the port's re-trace stalls)
+STATS = {"builds": 0, "loads": 0}
 
 # ctypes argument kinds: a pointer or stream is c_void_p (a bare Python int
 # would be passed as a 32-bit int and cut), every size is c_int, a stride
@@ -148,6 +151,7 @@ def build_all() -> float:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
+        STATS["builds"] += 1
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -169,12 +173,21 @@ def lib(name: str):
     if handle is None:
         build_all()
         handle = ctypes.CDLL(str(_lib_path(name)))
+        STATS["loads"] += 1
         for fn, argtypes in SIGNATURES[name].items():
             f = getattr(handle, fn)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
         _LIBS[name] = handle
     return handle
+
+
+class KernelRefused(ValueError, TypeError):
+    """A kernel's contract refuses its inputs: a shape, dtype, stride or
+    alignment that the kernel does not take.  Only the ``contract_<kernel>``
+    functions and the rules they call raise it, so a caller can tell a
+    refusal from a fault of its own.  It is a ValueError and a TypeError,
+    as the refusals were before it."""
 
 
 def check(status: int, what: str) -> None:
@@ -185,15 +198,28 @@ def check(status: int, what: str) -> None:
 def on_cpu(*tensors) -> bool:
     """True if every tensor lies on the CPU (the wrapper then runs its plain
     version), False if every one lies on one CUDA device (it launches the
-    kernel).  Any other placement raises."""
+    kernel) or every one on ``meta`` (the meta route: the wrapper runs the
+    kernel's contract and allocates its outputs and scratch there, and
+    launches nothing).  Any other placement raises."""
     devs = {t.device for t in tensors if t is not None}
     kinds = {d.type for d in devs}
     if kinds == {"cpu"}:
         return True
-    if kinds == {"cuda"} and len(devs) == 1:
+    if kinds in ({"cuda"}, {"meta"}) and len(devs) == 1:
         return False
     raise ValueError(f"kernel inputs must all lie on the CPU or all on one "
-                     f"CUDA device, got {sorted(str(d) for d in devs)}")
+                     f"CUDA device (or all on meta, the dry run's), got "
+                     f"{sorted(str(d) for d in devs)}")
+
+
+def addr(t) -> int:
+    """The base address that a kernel's 16-byte rules read: ``data_ptr()``
+    on the card; on ``meta``, where it is 0, ``storage_offset() *
+    itemsize`` (a fresh allocation is aligned on both), so a misaligned
+    view is refused on both."""
+    if t.device.type == "meta":
+        return t.storage_offset() * t.element_size()
+    return t.data_ptr()
 
 
 def stream(t) -> ctypes.c_void_p:
@@ -211,18 +237,19 @@ def require(t, name: str, dtypes, ndim: int) -> None:
     """Raise unless ``t`` has one of ``dtypes``, ``ndim`` dims and is
     contiguous — what every kernel here takes."""
     if t.dtype not in dtypes:
-        raise TypeError(f"{name}: dtype {t.dtype} not in {list(dtypes)}")
+        raise KernelRefused(f"{name}: dtype {t.dtype} not in {list(dtypes)}")
     if t.dim() != ndim:
-        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+        raise KernelRefused(f"{name}: expected {ndim} dims, got "
+                            f"{tuple(t.shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+        raise KernelRefused(f"{name}: must be contiguous")
 
 
 def aligned16(t):
     """``t`` itself when its base address is a multiple of 16 bytes (or it
     is None), else a fresh copy: for an fp32 operand that a kernel loads in
     16-byte vectors and that may arrive as a view at any offset."""
-    if t is None or t.data_ptr() % 16 == 0:
+    if t is None or addr(t) % 16 == 0:
         return t
     return t.clone(memory_format=torch.contiguous_format)
 

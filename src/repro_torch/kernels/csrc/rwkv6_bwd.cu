@@ -152,6 +152,7 @@ struct GradSmem {
   float vd[Q], ruk[Q], u[HD];     // v_t . dy_t, r_t . u k_t
   float dup[kSubs][HD];           // du over a sub-chunk
 };
+static_assert(sizeof(ChunkSmem) <= kSmemMax, "rwkv6_bwd shared memory");
 static_assert(sizeof(GradSmem) <= kSmemMax, "rwkv6_bwd shared memory");
 
 // the chunk state / cotangent slab (kind 0: the state, 1: the cotangent) of

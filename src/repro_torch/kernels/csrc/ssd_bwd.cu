@@ -156,6 +156,7 @@ struct GradSmem {
   float red[2][kThreads];         // per-thread <G, h>, dy . x
   Steps st;
 };
+static_assert(sizeof(ChunkSmem) <= kSmemMax, "ssd_bwd shared memory");
 static_assert(sizeof(GradSmem) <= kSmemMax, "ssd_bwd shared memory");
 
 struct Args {

@@ -114,6 +114,7 @@ constexpr int kXStage = kBM * kBK * 2;     // 8 KB of x a stage
 constexpr int kRBlock = 8192;   // kBK x 64 router columns x 2 bytes
 static_assert(kRBlock == kBK * 64 * 2, "a router column block");
 constexpr int kRingMax = 204800;           // the ring's shared memory
+constexpr int kSmemMax = 232448;           // a block's dynamic limit
 constexpr int kMaxSplits = 8;    // CTAs of a cluster that split a tile's k
 constexpr int kMinSplitSteps = 16;   // k steps each of them keeps at least
 constexpr int kPosThreads = 1024;   // a chunk: an entry a thread
@@ -124,6 +125,10 @@ constexpr int kPosMaxCluster = 16;     // CTAs, where the card allows it
 constexpr int kPosPortableCluster = 8;
 constexpr int kPosHeld = 2;    // chunks a CTA ranks in one pass
 constexpr int kPosMaxEntries = 1 << 30;   // T * k: offsets stay in int
+constexpr int kStaticSmemMax = 49152;      // a block's static limit
+// the positions kernels' static tables: tab, cnt and base
+constexpr int kPosSmem = (kPosWarps * kPosRow + 2 * kPosMaxE) * 4;
+static_assert(kPosSmem <= kStaticSmemMax, "positions' tables exceed 48 KB");
 
 using bf16 = __nv_bfloat16;
 
@@ -154,6 +159,7 @@ struct Ring {
   // + 1024 to align the ring, + the stages' full and empty mbarriers
   static constexpr int kSmem = kStages * kStage + 1024 + kStages * 16;
   static_assert(kStage % 1024 == 0, "stages on 1024-byte boundaries");
+  static_assert(kSmem <= kSmemMax, "gating ring exceeds shared memory");
 };
 
 // byte offset of element (k, n) of a stage's router slice

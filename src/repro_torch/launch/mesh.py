@@ -21,13 +21,22 @@ joins the job's group), else for D * E > 1 it starts D * E local ranks that
 each run the command's ``main``.
 Nothing falls back: a mesh that needs more GPUs than the machine has
 raises, and so does a failed NCCL init.
+
+Every collective of the port goes through one ``Mesh`` method a kind
+(``all_to_all``, ``all_reduce``, ``all_gather``, ``reduce_scatter``,
+``barrier``).  With ``records`` a list, each call appends a ``Record``
+(kind, axis, group size, dtype, bytes) before it issues.  A
+``RecordingMesh`` is rank 0 of a mesh of any shape with stand-in groups:
+it records every collective and issues none, on ``meta`` tensors (the
+dry run, ``launch.dryrun``); ``make_production_mesh`` gives the
+reference's 16 x 16 and 2 x 16 x 16 meshes as recording meshes.
 """
 from __future__ import annotations
 
 import math
 import os
 import tempfile
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -88,6 +97,27 @@ def _nccl_options(high_priority: bool):
     return opts
 
 
+WORLD = "world"       # a record's axis for the world group
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+class Record(NamedTuple):
+    """One collective as issued: its kind (the reference's HLO op names,
+    ``launch.hlo_analysis``), the group's axis (or ``WORLD``), the group's
+    size, the dtype and the byte size of its result (the gathered tensor
+    of an all-gather, the scattered block of a reduce-scatter)."""
+    kind: str
+    axis: str
+    group_size: int
+    dtype: str
+    nbytes: int
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
 class Mesh:
     """One rank's view of the process-group grid (see the module doc).
 
@@ -119,8 +149,10 @@ class Mesh:
                 g = dist.new_group(ranks, **kw)
                 if self.rank in ranks:
                     self.groups[a] = g
+        self.world_group = dist.group.WORLD
         self.a2a_event = None
         self.timeline = None
+        self.records = None
 
     def size(self, axis: str) -> int:
         return axes.axis_sizes(self).get(axis, 1)
@@ -138,6 +170,66 @@ class Mesh:
             raise NotImplementedError(f"a mesh over {self.axis_names}: the "
                                       f"port's meshes are (data, model)")
         return self.groups[dp[0]]
+
+    def group_size(self, group) -> int:
+        return group.size()
+
+    def axis_of(self, group) -> str:
+        """The mesh axis ``group`` spans (``WORLD`` for the world group)."""
+        if group is self.world_group:
+            return WORLD
+        for a, g in self.groups.items():
+            if g is group:
+                return a
+        raise ValueError(f"{group!r} is not a group of {self!r}")
+
+    # -- collectives: the one path of the port's real and recorded ones --
+
+    def _record(self, kind: str, group, t) -> None:
+        if self.records is not None:
+            self.records.append(Record(
+                kind, self.axis_of(group), self.group_size(group),
+                str(t.dtype).replace("torch.", ""), _nbytes(t)))
+
+    def _issue(self, fn: Callable):
+        return fn()
+
+    def all_to_all(self, out, x, group, *, async_op: bool = False):
+        """Blocks of ``x``'s dim 0 to the group's ranks, into ``out``."""
+        self._record("all-to-all", group, out)
+        return self._issue(lambda: dist.all_to_all_single(
+            out, x, group=group, async_op=async_op))
+
+    def all_reduce(self, t, group, *, op: str = "sum",
+                   async_op: bool = False):
+        """``t`` reduced in place over ``group`` (``op`` "sum" or "max")."""
+        self._record("all-reduce", group, t)
+        return self._issue(lambda: dist.all_reduce(
+            t, op=_OPS[op], group=group, async_op=async_op))
+
+    def all_gather(self, out, x, group) -> None:
+        """``out`` [n * x0, ...] = the group's ``x`` [x0, ...] in rank
+        order (``all_gather_single``, named ``all_gather_into_tensor``
+        before)."""
+        self._record("all-gather", group, out)
+        fn = getattr(dist, "all_gather_single", None) or \
+            dist.all_gather_into_tensor
+        self._issue(lambda: fn(out, x, group=group))
+
+    def reduce_scatter(self, out, x, group) -> None:
+        """``out`` [x0 / n, ...] = this rank's block of the group's summed
+        ``x`` (``reduce_scatter_single``, ``reduce_scatter_tensor``
+        before)."""
+        self._record("reduce-scatter", group, out)
+        fn = getattr(dist, "reduce_scatter_single", None) or \
+            dist.reduce_scatter_tensor
+        self._issue(lambda: fn(out, x, group=group))
+
+    def barrier(self) -> None:
+        if self.records is not None:
+            self.records.append(Record("barrier", WORLD, self.world,
+                                       "none", 0))
+        self._issue(dist.barrier)
 
     def mark(self, kind: str) -> None:
         """Record that a collective of ``kind`` is ordered before the
@@ -189,6 +281,75 @@ def make_mesh(shape, axis_names=(axes.DATA, axes.MODEL), device="cuda"):
                          f"ranks; the process group has "
                          f"{dist.get_world_size()}")
     return Mesh(shape, axis_names, dev)
+
+
+class StandInGroup:
+    """A recording mesh's process group: its axis and size, nothing to
+    talk to."""
+
+    def __init__(self, axis: str, size: int):
+        self.axis, self._size = axis, int(size)
+
+    def size(self) -> int:
+        return self._size
+
+    def __repr__(self):
+        return f"StandInGroup({self.axis}, {self._size})"
+
+
+class _Done:
+    """The work handle of a recorded collective: nothing to wait for (a
+    blocking one's is returned too, and its caller drops it)."""
+
+    def wait(self) -> None:
+        return None
+
+
+class RecordingMesh(Mesh):
+    """Rank 0 of a ``shape`` mesh over ``axis_names``, seen from one
+    process with no process group: each group is a ``StandInGroup``,
+    each collective is recorded in ``records`` and issues nothing (its
+    output is the tensor the caller allocated, on ``meta`` in the dry
+    run).  The same ``Mesh`` methods as a real mesh's, so a step issues
+    the same calls on both."""
+
+    def __init__(self, shape, axis_names=(axes.DATA, axes.MODEL),
+                 device="meta", rank: int = 0):
+        self.shape = tuple(int(s) for s in shape)
+        self.axis_names = tuple(axis_names)
+        self.device = torch.device(device)
+        self.backend = "record"
+        self.world = math.prod(self.shape)
+        self.rank = int(rank)
+        strides = [math.prod(self.shape[i + 1:])
+                   for i in range(len(self.shape))]
+        self.coords = {a: (self.rank // st) % n for a, st, n in
+                       zip(self.axis_names, strides, self.shape)}
+        self.groups = {a: StandInGroup(a, n)
+                       for a, n in zip(self.axis_names, self.shape)}
+        self.world_group = StandInGroup(WORLD, self.world)
+        self.a2a_event = None
+        self.timeline = None
+        self.records = []
+
+    def _issue(self, fn: Callable):
+        return _Done()
+
+    def __repr__(self):
+        dims = "x".join(str(s) for s in self.shape)
+        return (f"RecordingMesh({dims} {self.axis_names}, rank {self.rank}, "
+                f"{self.device})")
+
+
+def make_production_mesh(multi_pod: bool = False, device="meta"):
+    """The reference's production mesh as a ``RecordingMesh``: 16 x 16
+    (data, model), or with ``multi_pod`` 32 x 16, its `pod` axis of 2
+    folded into `data`.  The reference's gradient reduction spans (pod,
+    data) as one group (``core.axes.DP_AXES``), so every group here has
+    the size of the reference's: the data-parallel group 32 ranks, the
+    `model` group 16."""
+    return RecordingMesh((32 if multi_pod else 16, 16),
+                         (axes.DATA, axes.MODEL), device=device)
 
 
 def parse_mesh(spec: str) -> tuple:

@@ -24,7 +24,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core.moe import expert_leaf_flags
 from repro_torch.core import axes
@@ -48,7 +47,7 @@ def global_grad_norm(mesh, grads, fsdp: bool = False) -> torch.Tensor:
     exp = [i for i, f in enumerate(flags) if f]
     if exp:
         v = torch.stack([sq[i] for i in exp])
-        dist.all_reduce(v, group=dist.group.WORLD if fsdp
+        mesh.all_reduce(v, mesh.world_group if fsdp
                         else mesh.group(axes.EP_AXIS))
         for j, i in enumerate(exp):
             sq[i] = v[j]
@@ -107,7 +106,10 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, *,
         out = lm_mod.forward_train(cfg, ps, batch,
                                    dispatch_backend=dispatch_backend,
                                    mesh=mesh, lina=lina, fsdp=fsdp)
-        grads = torch.autograd.grad(out.loss, tree_leaves(ps))
+        # a leaf the loss does not reach (hubert's token embedding: it
+        # reads frames) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(out.loss, tree_leaves(ps),
+                                    allow_unused=True, materialize_grads=True)
         return (tree_unflatten_like(params, grads), out.loss.detach(),
                 out.aux_loss.detach())
 
@@ -155,7 +157,7 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, *,
             loss, aux = loss / microbatches, aux / microbatches
         if mesh is not None:
             lv = torch.stack([loss.float(), aux.float()])
-            dist.all_reduce(lv)
+            mesh.all_reduce(lv, mesh.world_group)
             loss, aux = (lv / mesh.world).unbind()
         return grads, loss, aux, rstate
 

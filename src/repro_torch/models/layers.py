@@ -11,7 +11,10 @@ def dense_init(gen: torch.Generator, shape, scale_axis: int = 0,
                dtype=torch.float32, device="cuda"):
     """N(0, 1/shape[scale_axis]), as the reference's ``dense_init``.  The
     draws are scaled in place: one fp32 transient of the leaf's size, not
-    two (a [128, 5120, 8192] expert leaf is 21.5 GB in fp32)."""
+    two (a [128, 5120, 8192] expert leaf is 21.5 GB in fp32).  On
+    ``meta`` it draws nothing."""
+    if torch.device(device).type == "meta":      # the dry run: no draws
+        return torch.empty(shape, dtype=dtype, device=device)
     scale = shape[scale_axis] ** -0.5
     return torch.randn(shape, generator=gen, device=device).mul_(scale).to(
         dtype)

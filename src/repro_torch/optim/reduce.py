@@ -61,7 +61,6 @@ from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.core import axes, microop
 from repro_torch.core.moe import expert_leaf_flags
@@ -131,7 +130,7 @@ def _reduce_shard(grads, int8_state, after, *, group, cfg: ReduceConfig,
     under ``cfg``.  Returns (a pending reduction whose ``wait()`` gives
     the reduced tree, the new int8 state)."""
     tok = after if cfg.ordered else None
-    size = dist.get_world_size(group) if group is not None else 1
+    size = mesh.group_size(group) if group is not None else 1
 
     def run(tree, mean, finish):
         pend = microop.prioritized_chunked_reduce(
@@ -150,7 +149,7 @@ def _reduce_shard(grads, int8_state, after, *, group, cfg: ReduceConfig,
             sc = torch.stack(scales)
             if tok is not None:
                 torch.cuda.current_stream().wait_event(tok)
-            dist.all_reduce(sc, op=dist.ReduceOp.MAX, group=group)
+            mesh.all_reduce(sc, group, op="max")
             scales = list(sc.unbind())
         (qs, scales), new_state = compress_int8_ef(grads, int8_state,
                                                    scales)
@@ -174,7 +173,7 @@ def reduce_plan(mesh, grads, cfg: ReduceConfig, fsdp: bool = False) -> list:
             raise ValueError("expert flags do not match the gradient tree")
         rep = [i for i, f in enumerate(flags) if not f]
         exp = [i for i, f in enumerate(flags) if f]
-        parts = [(rep, dist.group.WORLD, 1)]
+        parts = [(rep, mesh.world_group, 1)]
         if fsdp:
             parts.append((exp, None, mesh.world))
         else:

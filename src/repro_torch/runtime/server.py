@@ -38,7 +38,6 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
@@ -135,7 +134,7 @@ def agree_max(mesh, value: float) -> float:
     if mesh is None or mesh.world == 1:
         return value
     t = torch.tensor([value], dtype=torch.float64, device=mesh.device)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    mesh.all_reduce(t, mesh.world_group, op="max")
     return float(t.item())
 
 
@@ -537,7 +536,7 @@ class MoEServer:
             return
         c = torch.as_tensor(_plan_checksum(plan), device=self.device)
         both = torch.cat([c, -c])
-        dist.all_reduce(both, op=dist.ReduceOp.MAX)
+        self.mesh.all_reduce(both, self.mesh.world_group, op="max")
         hi, lo = both[:3], -both[3:]
         if not torch.equal(hi, lo):
             raise PlanMismatch(

@@ -45,11 +45,9 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.convert import shard_params, unshard_params
-from repro_torch.core.moe import all_gather_rows
 from repro_torch.core.packing import choose_packing
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.devices import resolve_device
@@ -179,8 +177,8 @@ class Trainer:
         if "reduce_state" in state:
             def stack(r):
                 out = r.new_empty((self.world, *r.shape))
-                all_gather_rows(out, r.contiguous()[None],
-                                dist.group.WORLD)
+                self.mesh.all_gather(out, r.contiguous()[None],
+                                     self.mesh.world_group)
                 return out
             full["reduce_state"] = tree_map(stack, state["reduce_state"])
         return full
@@ -193,7 +191,7 @@ class Trainer:
         if self.rank == 0:
             self.ckpt.save(step, full)
         if self.mesh is not None:
-            dist.barrier()
+            self.mesh.barrier()
 
     def _restore(self, like: dict):
         """(step, this rank's state) of the newest checkpoint that

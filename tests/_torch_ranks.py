@@ -633,3 +633,29 @@ def serve_steps_body(rank, params_path, inp_path, shape):
     out["decode_vs_prefill"] = decode_matches_prefill(
         roomy, params, mesh, torch.from_numpy(inp["tokens"]))
     return out
+
+
+def record_config():
+    """gpt2-moe-smoke in bf16 at head dim 64: a config whose every kernel
+    contract holds on the meta route, for the recorded-collectives test."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("gpt2-moe-smoke"),
+                               dtype="bfloat16", head_dim=64)
+
+
+def record_steps_body(rank, shape, train_batch, serve_batch, seq):
+    """Rank 0's train step and serve prefill (``launch.dryrun``'s
+    programs) on a real gloo mesh, every collective recorded through the
+    mesh's methods -> {step: [record tuples]}."""
+    from repro_torch.launch.dryrun import step_program
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, device="cpu")
+    out = {}
+    for kind, b in (("train", train_batch), ("prefill", serve_batch)):
+        step, args = step_program(record_config(), kind, b, seq, mesh=mesh,
+                                  device="cpu")
+        mesh.records = []
+        step(*args)
+        out[kind] = [tuple(r) for r in mesh.records]
+    return out

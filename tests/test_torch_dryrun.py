@@ -1,0 +1,193 @@
+"""The meta route and the dry run (``launch/dryrun.py``): every kernel
+wrapper on ``meta`` (its contract, then its outputs allocated there)
+against its CPU route, the peak tracker against a hand count, one dry-run
+cell against the reference's result keys, the cells it skips, and the
+collectives a (2, 2) recording mesh records against what the same steps
+issue on 4 gloo ranks."""
+from __future__ import annotations
+
+import pytest
+import torch
+
+from _torch_ranks import record_config, record_steps_body, run_ranks
+from repro_torch.analysis.kernels import (REGISTRY, contract_of,
+                                          edge_contract_args, wrapper_of)
+from repro_torch.devices import resolve_device
+from repro_torch.kernels import COUNTERS, reset_counters
+from repro_torch.kernels._build import KernelRefused
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import RecordingMesh, make_production_mesh
+
+# the reference's result keys (src/repro/launch/dryrun.py) whose meaning
+# the port keeps
+REF_KEYS = {"arch", "shape", "mesh", "n_chips", "status", "lina",
+            "analytic_flops_global", "analytic_hbm_bytes_global",
+            "collectives", "memory_analysis", "roofline",
+            "model_flops_global", "useful_flops_ratio", "dominant_term",
+            "roofline_fraction"}
+REF_MEMORY = {"argument_bytes", "output_bytes", "temp_bytes",
+              "peak_bytes_estimate"}
+REF_ROOFLINE = {"compute_s", "memory_s", "collective_s",
+                "collective_s_single_link"}
+REF_COLLECTIVES = {"entry", "wire_bytes", "raw_bytes", "counts",
+                   "total_wire_bytes", "total_raw_bytes"}
+
+
+def _leaves(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out for t in _leaves(o)] \
+        if isinstance(out, (tuple, list)) else []
+
+
+def _edges(accepted: bool):
+    return [pytest.param(name, ec, id=f"{name}:{ec.name}")
+            for name, e in REGISTRY.items() for ec in e.edges
+            if ec.accepted == accepted]
+
+
+def test_meta_is_the_third_place_to_run():
+    assert resolve_device("meta") == torch.device("meta")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        resolve_device("xpu")
+
+
+@pytest.mark.parametrize("name,ec", _edges(True))
+def test_meta_route_outputs_are_the_cpu_routes(name, ec):
+    """Shapes and dtypes of every output as the plain version gives them;
+    no launch counted."""
+    entry = REGISTRY[name]
+    fn = wrapper_of(entry)
+    gen = torch.Generator().manual_seed(0)
+    args, kwargs = ec.build("cpu", gen)
+    cpu = _leaves(fn(*args, **kwargs))
+    reset_counters()
+    args, kwargs = ec.build("meta", None)
+    meta = _leaves(fn(*args, **kwargs))
+    assert [(tuple(t.shape), t.dtype) for t in meta] == \
+        [(tuple(t.shape), t.dtype) for t in cpu]
+    assert all(t.is_meta for t in meta)
+    assert all(c.count == 0 for c in COUNTERS.values())
+
+
+@pytest.mark.parametrize("name,ec", _edges(False))
+def test_meta_route_refuses_as_the_contract_does(name, ec):
+    """The wrapper on ``meta`` raises what the kernel route's contract
+    raises for the same tensors on another device."""
+    entry = REGISTRY[name]
+    gen = torch.Generator().manual_seed(0)
+    cargs, ckw = edge_contract_args(entry, *ec.build("cpu", gen))
+    with pytest.raises(KernelRefused) as real:
+        contract_of(entry)(*cargs, **ckw)
+    reset_counters()
+    with pytest.raises(type(real.value)) as meta:
+        args, kwargs = ec.build("meta", None)
+        wrapper_of(entry)(*args, **kwargs)
+    assert str(meta.value) == str(real.value)
+    assert all(c.count == 0 for c in COUNTERS.values())
+
+
+def test_peak_tracker_by_hand():
+    """1 MiB and 3 MiB live (4), the first freed (3), then 2 MiB (5), the
+    3 MiB kept by a view: the peak is 5 MiB, and a storage leaves the sum
+    only when freed; an argument and its views are not counted."""
+    arg = torch.empty(1 << 20, dtype=torch.uint8, device="meta")
+    with dryrun.PeakTracker() as pt:
+        a = torch.empty(1 << 20, dtype=torch.uint8, device="meta")
+        b = torch.empty(3 << 20, dtype=torch.uint8, device="meta")
+        v = arg[10:]
+        w = b.view(3, -1)
+        assert pt.current == 4 << 20
+        del a
+        assert pt.current == 3 << 20
+        c = torch.empty(1 << 19, dtype=torch.float32, device="meta")
+        assert pt.current == 5 << 20
+        del b
+        assert pt.current == 5 << 20          # w keeps b's storage
+        del w, c
+    assert pt.peak == 5 << 20 and pt.current == 0 and pt.allocs == 3
+    assert v.untyped_storage()._cdata == arg.untyped_storage()._cdata
+
+
+def test_one_cell_keeps_the_references_keys(monkeypatch):
+    monkeypatch.setattr(dryrun, "get_config", lambda arch: record_config())
+    res = dryrun.run_cell("gpt2-moe-smoke", "train_4k", mesh_shape=(2, 2),
+                          batch=8, seq=32, verbose=False)
+    assert res["status"] == "ok" and REF_KEYS <= set(res)
+    assert REF_MEMORY <= set(res["memory_analysis"])
+    assert REF_ROOFLINE == set(res["roofline"])
+    assert REF_COLLECTIVES <= set(res["collectives"])
+    assert res["n_chips"] == 4 and res["mesh"] == "2x2"
+    mem = res["memory_analysis"]
+    assert mem["peak_bytes_estimate"] == mem["argument_bytes"] + \
+        mem["temp_bytes"] > 0
+    assert res["fits"] is True
+    assert res["collectives"]["counts"]["all-to-all"] > 0
+    assert res["dominant_term"] in ("compute_s", "memory_s", "collective_s")
+
+
+def test_cells_the_port_cannot_run_are_skips_with_their_reason():
+    mix = dryrun.run_cell("mixtral-8x22b", "train_4k", verbose=False)
+    assert mix["status"] == "skip" and "expert slicing" in mix["reason"]
+    enc = dryrun.run_cell("hubert-xlarge", "decode_32k", verbose=False)
+    assert enc["status"] == "skip" and "encoder-only" in enc["reason"]
+    pod = dryrun.run_cell("qwen3-8b", "train_4k", multi_pod=True,
+                          verbose=False)
+    assert pod["status"] == "skip" and "does not split" in pod["reason"]
+    smoke = dryrun.run_cell("gpt2-moe-smoke", "prefill_32k",
+                            mesh_shape=(2, 2), batch=2, seq=64,
+                            verbose=False)
+    assert smoke["status"] == "skip" and smoke["reason"].startswith(
+        "refused")
+
+
+def test_a_fault_that_is_no_refusal_is_an_error(monkeypatch):
+    """Only a kernel contract's ``KernelRefused`` makes a cell a skip;
+    any other exception on the step's path is an error."""
+    def fault(step, args):
+        raise ValueError("a fault of the port")
+    monkeypatch.setattr(dryrun, "meta_peak", fault)
+    res = dryrun.run_cell("gpt2-moe-smoke", "train_4k", mesh_shape=(2, 2),
+                          batch=8, seq=32, layers=2, verbose=False)
+    assert res["status"] == "error" and "a fault of the port" in res["error"]
+
+    def refusal(step, args):
+        raise KernelRefused("the kernel takes no such shape")
+    monkeypatch.setattr(dryrun, "meta_peak", refusal)
+    res = dryrun.run_cell("gpt2-moe-smoke", "train_4k", mesh_shape=(2, 2),
+                          batch=8, seq=32, layers=2, verbose=False)
+    assert res == {"arch": "gpt2-moe-smoke", "shape": "train_4k",
+                   "mesh": "2x2", "status": "skip",
+                   "reason": "refused: the kernel takes no such shape"}
+
+
+def test_production_meshes():
+    m = make_production_mesh()
+    assert (m.shape, m.world, m.size("data"), m.size("model")) == \
+        ((16, 16), 256, 16, 16)
+    p = make_production_mesh(multi_pod=True)
+    assert (p.shape, p.group_size(p.dp_group)) == ((32, 16), 32)
+    assert m.coords == {"data": 0, "model": 0} and m.device.type == "meta"
+
+
+def test_recorded_collectives_are_the_gloo_ranks(tmp_path):
+    """gpt2-moe-smoke's train step and serve prefill on a (2, 2) recording
+    mesh record, record for record, what the same programs issue on 4
+    gloo ranks through the same ``Mesh`` methods."""
+    shape, train_b, serve_b, seq = (2, 2), 2, 4, 32
+    ranks = run_ranks(record_steps_body, 4, tmp_path, shape, train_b,
+                      serve_b, seq)
+    rec = {}
+    for kind, b in (("train", train_b), ("prefill", serve_b)):
+        mesh = RecordingMesh(shape)
+        step, args = dryrun.step_program(record_config(), kind, b, seq,
+                                         mesh=mesh)
+        mesh.records = []
+        step(*args)
+        rec[kind] = [tuple(r) for r in mesh.records]
+    for kind in ("train", "prefill"):
+        assert rec[kind], kind
+        assert {r[0] for r in rec[kind]} >= {"all-to-all"}
+        for r, got in enumerate(ranks):
+            assert got[kind] == rec[kind], (kind, r)

@@ -140,6 +140,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         flash_attention(q, q, q, window=-1)
     meta = torch.zeros(1, 8, 4, 16, device="meta")
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        flash_attention_op(meta, q, q)
+    # all on meta: the meta route holds the kernel's contract (bf16 only)
+    with pytest.raises(TypeError, match="dtype"):
         flash_attention_op(meta, meta, meta)
 
 

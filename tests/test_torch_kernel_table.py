@@ -58,6 +58,29 @@ def test_every_kernel_of_the_table_has_a_launch_counter():
                                        *smoke_table("BACKWARD")])
 
 
+def test_every_cuda_kernel_has_its_launch_witness():
+    """``KERNEL_OWNERS`` names every ``__global__`` kernel of the sources,
+    each owned by wrappers with a launch counter whose source defines it
+    (the yardsticks' kernels by none)."""
+    import re
+    from repro_torch.kernels import COUNTERS, _build
+    owners = smoke_table("KERNEL_OWNERS")
+    source = smoke_table("SOURCE")
+    defined = {}
+    for f in sorted(_build.CSRC.glob("*.cu*")):
+        for name in re.findall(r"__global__\s+void\s+(?:__launch_bounds__"
+                               r"\([^)]*\)\s*)?(\w+)\s*\(", f.read_text()):
+            defined.setdefault(name, set()).add(f.name)
+    assert owners.keys() == defined.keys()
+    for kernel, wrappers in owners.items():
+        assert set(wrappers) <= COUNTERS.keys(), kernel
+        for w in wrappers:
+            cu = Path(source[w]).name
+            assert cu in defined[kernel] or any(
+                f'#include "{h}"' in (_build.CSRC / cu).read_text()
+                for h in defined[kernel]), (kernel, w)
+
+
 def test_every_backward_kernel_names_a_replacing_kernel():
     """Each BACKWARD entry is the backward of a kernel of REPLACES, is not
     itself in REPLACES, has a SOURCE of its own that is built and a launch

@@ -218,7 +218,13 @@ def test_plain_versions_count_no_launches_and_reset_zeroes():
 def test_ops_reject_tensors_off_cpu_and_cuda():
     meta = torch.zeros((4, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
-        ops.topk_positions_op(meta, 4)
+        ops.weighted_route_op(meta, torch.zeros((4, 1), dtype=torch.int32),
+                              torch.zeros((4, 1), dtype=torch.int32),
+                              torch.zeros((4, 1), dtype=torch.int32), 1)
+    # all on meta: the meta route, an output there and no launch counted
+    pos = ops.topk_positions_op(meta, 4)
+    assert pos.is_meta and pos.shape == (4, 1)
+    assert COUNTERS["topk_positions"].count == 0
     assert ops.resolve_backend("auto") == ops.resolve_backend("pallas") \
         == "pallas"
     assert ops.resolve_backend("xla") == "xla"

@@ -6,8 +6,13 @@ the kernel route the expert FFN reads the hosted experts' weights in place
 through the slot -> expert index and skips the slot rows nothing was
 routed to.
 
-Integer outputs exact; floats within atol = rtol = 1e-4 (float32).
+Integer outputs exact; floats within atol = rtol = 1e-4 (float32).  The
+reference layer runs compiled (``jax.jit``; op by op, its interpret-mode
+Pallas kernels took ~20 s a call).
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,8 +27,18 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.core import moe, serving
 from repro_torch.core.moe import MoEParams
 from repro_torch.core.placement import plan_placement, route_weights
+from _torch_threads import share_cores
+
+share_cores()
 
 TOL = dict(atol=1e-4, rtol=1e-4)
+
+# the reference's serve_moe_layer without a mesh, compiled once per static
+# configuration
+j_serve_moe_layer = jax.jit(
+    functools.partial(jserving.serve_moe_layer, None),
+    static_argnames=("cfg", "ffn_type", "top_k", "min_replicas",
+                     "route_mode"))
 
 
 def _np(a):
@@ -61,14 +76,14 @@ def test_serve_moe_layer_matches_reference(route_mode, dead):
                 xp=np)), atol=1e-7)
     min_rep = int(plan.n_replicas.min())
     jcfg = JMoEConfig(n_experts=e, top_k=2, d_ff=64)
-    want = jserving.serve_moe_layer(
-        None, jnp.asarray(x), JMoEParams(jnp.asarray(router),
-                                         jnp.asarray(wi), None,
-                                         jnp.asarray(wo)),
-        jcfg, jserving.PlanArrays(jnp.asarray(plan.slot_expert),
-                                  jnp.asarray(plan.replica_of),
-                                  jnp.asarray(plan.n_replicas),
-                                  jnp.asarray(rw)),
+    want = j_serve_moe_layer(
+        jnp.asarray(x), JMoEParams(jnp.asarray(router),
+                                   jnp.asarray(wi), None,
+                                   jnp.asarray(wo)),
+        cfg=jcfg, plan=jserving.PlanArrays(jnp.asarray(plan.slot_expert),
+                                           jnp.asarray(plan.replica_of),
+                                           jnp.asarray(plan.n_replicas),
+                                           jnp.asarray(rw)),
         ffn_type="gelu", top_k=k, min_replicas=min_rep,
         route_mode=route_mode)
     tparams = MoEParams(*(torch.from_numpy(a) if a is not None else None
@@ -122,14 +137,14 @@ def test_kernel_route_reads_hosted_weights_in_place(monkeypatch, ffn_type,
             rw, plan.replica_of, plan.max_pack, dead), np.float32)
     min_rep = int(plan.n_replicas.min())
     jcfg = JMoEConfig(n_experts=e, top_k=k, d_ff=64)
-    want = jserving.serve_moe_layer(
-        None, jnp.asarray(x), JMoEParams(
+    want = j_serve_moe_layer(
+        jnp.asarray(x), JMoEParams(
             *(None if a is None else jnp.asarray(a)
               for a in (router, wi, wu, wo))),
-        jcfg, jserving.PlanArrays(jnp.asarray(plan.slot_expert),
-                                  jnp.asarray(plan.replica_of),
-                                  jnp.asarray(plan.n_replicas),
-                                  jnp.asarray(rw)),
+        cfg=jcfg, plan=jserving.PlanArrays(jnp.asarray(plan.slot_expert),
+                                           jnp.asarray(plan.replica_of),
+                                           jnp.asarray(plan.n_replicas),
+                                           jnp.asarray(rw)),
         ffn_type=ffn_type, top_k=k, min_replicas=min_rep,
         route_mode=route_mode)
     calls = []

@@ -46,6 +46,9 @@ from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 from repro_torch.runtime.trainer import Trainer
 from repro_torch.tree import tree_items, tree_leaves, tree_map, \
     tree_unflatten_like
+from _torch_threads import share_cores
+
+share_cores()
 
 ARCHS = ("rwkv6-1.6b-smoke", "zamba2-1.2b-smoke")
 LOSS_REL, GRAD_REL = 1e-5, 1e-4

@@ -28,6 +28,9 @@ from repro_torch.obs import ObsContext
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.trainer import Trainer, TrainerConfig
 from repro_torch.tree import tree_leaves
+from _torch_threads import share_cores
+
+share_cores()
 
 
 def make_trainer(ckpt_dir, obs=None, **kw):

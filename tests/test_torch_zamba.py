@@ -34,6 +34,9 @@ from repro_torch.kernels.ssd import ssd_scan
 from repro_torch.models import lm
 from repro_torch.models import ssm
 from repro_torch.tree import tree_items, tree_leaves, tree_map
+from _torch_threads import share_cores
+
+share_cores()
 
 KTOL = dict(atol=2e-5, rtol=2e-5)
 TOL = dict(atol=1e-4, rtol=1e-4)
