@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 11,12
     python3 chip_smoke.py --phases 1r,13
     python3 chip_smoke.py --phases 14
+    python3 chip_smoke.py --phases 15
 
 With no arguments every phase runs, as below.  ``--phases`` runs phase 0
 and a subset (``1r``: phase 1's two recurrences alone; ``1m``: its five
@@ -317,6 +318,34 @@ Phase 14 holds the launch tooling and the static checker against the
          FLOPs over the measured step time (median of 3) as a share of 989
          TFLOP/s.
 
+Phase 15 holds the dense sharding (``launch.sharding``: every leaf stored
+         as the reference's specs place it, FSDP gathers, tensor-parallel
+         all-reduces, the vocab-parallel loss, the sequence-sharded decode
+         cache): (a) on a (1, 1, 1) (data, model, tp) and a (1, 1) NCCL
+         mesh, gpt2-moe's 5 training steps (8 x 1024; losses, and the
+         params and AdamW state by sha256) and a served prefill (4 x 64)
+         and 8 decode steps, and qwen3-8b at depth 4's prefill and 8
+         decode steps, against no mesh: bitwise, or within 1e-6 relative
+         where a difference is by design (each result printed with which);
+         (b) rank 0 of three production cells at full width on the card
+         through a ``MirrorMesh`` (each collective filled with what a
+         world of ranks holding this rank's tensors returns: rank 0's
+         program and allocations, not its values): qwen3-8b train_4k (16
+         x 4096 on the rank, remat, AdamW; 16 x 16), qwen2-72b prefill_32k
+         (2 x 32768, TP-only residency, flash at 4 local heads; 16 x 16),
+         mixtral-8x22b prefill_32k at depth 2 on (16, 8, 2): the dry run's
+         peak (``meta``, a ``RecordingMesh``) against
+         ``max_memory_allocated`` within 2%, the recorded collectives
+         (kind, axis, group size, dtype, bytes) equal to the dry run's, the
+         step's wall time (median after the first of 3) and busy share,
+         a finite loss or logits of the expected shape (the mirror's
+         backward multiplies a cotangent by n at each all-reduce, so its
+         gradients may overflow: printed, not held);
+         (c) the sweep's counts (phase 14's): ok, skip, fitting, each cell
+         that does not fit.  Counters zeroed before each sharded run and
+         summed after it (``launches_sharded``): rows 1-8 of REPLACES must
+         launch.
+
 Prints one ``{"kernels": [...]}`` line (twelve kernels: the ten of
 ``REPLACES`` and the two of ``BACKWARD``, with ``"replaces": null`` and
 ``"backward_of"``) and, last,
@@ -437,10 +466,23 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(stop) / iters
 
 
+class EventsLost(RuntimeError):
+    """No profiling session saw every kernel event the launch counters
+    witness, and none saw more."""
+
+
 def device_ms(fn, iters: int = 20) -> float:
     """Mean kernel time per call on the card (torch.profiler kernel events,
-    no host time), over ``iters`` calls after one warm-up."""
-    return sum(device_split(fn, iters).values())
+    no host time), over ``iters`` calls after one warm-up.  Where every
+    profiling session lost events (``EventsLost``), the calls' CUDA-event
+    time instead (host gaps between launches included), said so."""
+    try:
+        return sum(device_split(fn, iters).values())
+    except EventsLost as e:
+        ms = time_ms(fn, iters)
+        print(f"  device_ms: {e}: CUDA-event time {ms:.4f} ms a call "
+              f"instead", flush=True)
+        return ms
 
 
 def device_split(fn, iters: int = 20, tries: int = 6) -> dict:
@@ -460,12 +502,15 @@ def device_split(fn, iters: int = 20, tries: int = 6) -> dict:
     rose in those ``iters`` calls, times its launches a wrapper call (a
     yardstick's: ``iters``), every wrapper that launched showing one of its
     kernels; else the session's counts and the witness are printed and the
-    card profiled again, raising after ``tries`` sessions."""
+    card profiled again, raising after ``tries`` sessions: ``EventsLost``
+    where no session saw more events of a kernel than witnessed (a kernel
+    launched more often than its wrapper counts is a fault)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     from repro_torch.kernels import COUNTERS
     fn()
     torch.cuda.synchronize()
+    over = False
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
@@ -498,10 +543,12 @@ def device_split(fn, iters: int = 20, tries: int = 6) -> dict:
                 all(counts[k] == n for k, n in want.items()) and \
                 set(launched) <= shown:
             return out
+        over = over or any(counts[k] > n for k, n in want.items())
         print(f"  device_split: a session dropped: kernel events {counts}, "
               f"wrapper launches {launched}", flush=True)
-    raise RuntimeError(f"torch.profiler: none of {tries} sessions saw the "
-                       f"kernel counts that the launch counters witness")
+    raise (RuntimeError if over else EventsLost)(
+        f"torch.profiler: none of {tries} sessions saw the kernel counts "
+        f"that the launch counters witness")
 
 
 # the launch floor: csrc/launch_floor.cu's empty kernel (one block of 32
@@ -1024,7 +1071,14 @@ def cold_ms(fn, tag: str, flush, iters: int = 20, tries: int = 6) -> tuple:
 # moe_ffn.cu's kMaxGroups, the last count its sorted walk takes), every
 # expert in 4 slots, the routed rows of a 4 x 2048-token top-1 prefill (cap
 # 88, slot_cap 22), swiglu d 5120 / f 8192, weights read in place (32 GB);
-# and the same at 513 slots (one empty: the index-order walk) at f 1024
+# and the same at 513 slots (one empty: the index-order walk) at f 1024;
+# then rank 0 of mixtral-8x22b on its arch_mesh (16, 8, 2): train_4k's
+# expert-sliced call (its one local expert's f / tp = 8192 columns, one
+# of 4 micro-op chunks of the received capacity rows, every row counted),
+# and prefill_32k's (the serve layer reads whole experts: its 2 hosted
+# experts in place, each slot's rows those the 8 `model` ranks route to it
+# from their copies of the 2 x 32768 tokens, top-2 over 8 experts, kept
+# at capacity factor 1.25: route ("rows", tokens, k, experts, senders))
 MIX_D, MIX_F, MIX_E, MIX_SLOTS = 6144, 16384, 8, 32
 L4_D, L4_F, L4_E, L4_SLOTS, L4_SLOT_CAP = 5120, 8192, 128, 512, 22
 FFN_CASES = (("prefill", N_SLOTS, 24, D, F, "gelu", None, 20),
@@ -1043,7 +1097,11 @@ FFN_CASES = (("prefill", N_SLOTS, 24, D, F, "gelu", None, 20),
              ("llama4 prefill", L4_SLOTS, L4_SLOT_CAP, L4_D, L4_F, "swiglu",
               (L4_E, 8192, 1, MAX_PACK), 5),
              ("llama4 513", L4_SLOTS + 1, L4_SLOT_CAP, L4_D, 1024, "swiglu",
-              (L4_E, 8192, 1, MAX_PACK), 10))
+              (L4_E, 8192, 1, MAX_PACK), 10),
+             ("mixtral tp train", 1, 5136, MIX_D, MIX_F // 2, "swiglu", None,
+              10),
+             ("mixtral rank-0 prefill", 2, 163904, MIX_D, MIX_F, "swiglu",
+              ("rows", 65536, 2, MIX_E, 8), 3))
 # the plain version gathers each slot's weights: past this many bytes it
 # goes slot block by slot block (llama4's 512 slots would gather 129 GB)
 GATHER_MAX = 8 << 30
@@ -1102,7 +1160,9 @@ def ffn_case(g, t, d, f, act, route, gen, dev, weights):
     from repro_torch.kernels import ref
     from repro_torch.kernels.dispatch import invert_slots, weighted_route
     bf = torch.bfloat16
-    n_w = route[0] if isinstance(route, tuple) else 3 if route else g
+    rows_of = isinstance(route, tuple) and route[0] == "rows"
+    n_w = g if rows_of else route[0] if isinstance(route, tuple) else \
+        3 if route else g
     key = (n_w, d, f, act)
     if key not in weights:
         weights.clear()
@@ -1121,6 +1181,15 @@ def ffn_case(g, t, d, f, act, route, gen, dev, weights):
     if route == "empty":   # slots: expert 2, empty (-1), 0 rows, 77 rows
         ge = torch.tensor([2, -1, 0, 1], dtype=torch.int32, device=dev)
         gr = torch.tensor([t, 150, 0, 77], dtype=torch.int32, device=dev)
+    elif rows_of:          # slot g hosts expert g, its senders' kept rows
+        _, n_tok, k, n_exp, senders = route
+        idx = torch.randint(0, n_exp, (n_tok, k), generator=gen, device=dev,
+                            dtype=torch.int32)
+        pos = ref.ref_topk_positions(idx, n_exp)
+        kept = idx[pos < capacity(n_tok, n_exp, k, 1.25)]
+        counts = torch.bincount(kept.long(), minlength=n_exp)
+        ge = torch.arange(g, dtype=torch.int32, device=dev)
+        gr = torch.clamp(senders * counts[:g], max=t).int()
     else:
         n_exp, n_tok, k, reps = route
         kept, pos, cum, slot_of = _route_inputs(
@@ -1417,7 +1486,9 @@ def phase1_grouped_matmul(dev, hw, gen) -> dict:
 # llama4's and granite's head groups; hubert-xlarge's bidirectional
 # encoder at head dim 80 (phase 11), and hd 80 causal, ragged, GQA and
 # windowed; llava-next-34b's 56 / 8 heads (a GQA group of 7) at its 4 x
-# 2048 prefill (phase 11)
+# 2048 prefill (phase 11); rank 0 of qwen2-72b's prefill_32k on 16 x 16
+# (phase 15 (b)): 2 x 32768 tokens, its 4 of the 64 q heads against the
+# one kv head they read
 FLASH_CASES = (("a gpt2 prefill", 4, 64, 12, 12, 64, True, 0, 50),
                ("b gpt2 1024", 8, 1024, 12, 12, 64, True, 0, 20),
                ("c mixtral 2048", 1, 2048, 48, 8, 128, True, 4096, 20),
@@ -1429,7 +1500,8 @@ FLASH_CASES = (("a gpt2 prefill", 4, 64, 12, 12, 64, True, 0, 50),
                ("i granite mqa 48/1", 1, 2048, 48, 1, 128, True, 0, 20),
                ("j hubert hd80", 4, 2048, 16, 16, 80, False, 0, 20),
                ("k hd80 causal window", 2, 1000, 16, 4, 80, True, 256, 20),
-               ("l llava 56/8", 4, 2048, 56, 8, 128, True, 0, 10))
+               ("l llava 56/8", 4, 2048, 56, 8, 128, True, 0, 10),
+               ("m qwen2-72b rank 0 4/1", 2, 32768, 4, 1, 128, True, 0, 5))
 FLASH_ROW_CASE = "d mixtral 6144"     # the kernels line's row
 # norm-wise ||kernel - plain|| / ||plain||: the kernel rounds P to bf16
 # before P.V (2**-9 relative per element) and its output to bf16
@@ -1447,12 +1519,17 @@ def unmasked_pairs(s: int, causal: bool, window: int) -> int:
 
 def plain_attention(q, k, v, causal: bool, window: int):
     """ref_attention, over one KV head's query heads at a time past 2048
-    tokens, so its fp32 [S, S] logits fit."""
+    tokens, so its fp32 [S, S] logits fit; past 8192, the blockwise plain
+    path of ``models.attention`` (fp32 logits of 1024 queries at a
+    time)."""
     import torch
     from repro_torch.kernels import ref
+    from repro_torch.models.attention import _sdpa_blockwise
     s, h, kv = q.shape[1], q.shape[2], k.shape[2]
     if s <= 2048:
         return ref.ref_attention(q, k, v, causal=causal, window=window)
+    if s > 8192:
+        return _sdpa_blockwise(q, k, v, causal=causal, window=window)
     rep = h // kv
     return torch.cat([ref.ref_attention(
         q[:, :, j * rep:(j + 1) * rep], k[:, :, j:j + 1], v[:, :, j:j + 1],
@@ -4448,6 +4525,7 @@ def phase8_steps(dev, mesh, params) -> None:
     from repro_torch.convert import shard_params
     from repro_torch.core.placement import plan_placement
     from repro_torch.core.serving import stack_plan_arrays
+    from repro_torch.launch.sharding import expert_layout
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import lm
     cfg = get_config("gpt2-moe")
@@ -4459,9 +4537,11 @@ def phase8_steps(dev, mesh, params) -> None:
                            device=dev)
 
     def run(m, c):
-        ps = shard_params(params, m, fsdp=True)
-        pre = make_prefill_step(c, m, serve_plan=plan)
-        dec = make_decode_step(c, m, serve_plan=plan)
+        lt = None if m is None else \
+            expert_layout(m, params, "prefill", fsdp=True)
+        ps = shard_params(params, m, None if lt is None else lt.specs)
+        pre = make_prefill_step(c, lt, serve_plan=plan)
+        dec = make_decode_step(c, lt, serve_plan=plan)
         pcalls, dcalls, steps = [], [], []
         with torch.inference_mode():
             t0 = time.perf_counter()
@@ -4852,8 +4932,325 @@ def phase14(dev, src: Path) -> dict:
     return cells
 
 
+# phase 15 (a): the dense-sharded path at world size 1 against no mesh
+WORLD1_TRAIN = (8, 1024, 5)      # gpt2-moe: batch, sequence, steps
+WORLD1_SERVE = (4, 64, 8)        # prefill batch x prompt, decode steps
+WORLD1_REL = 1e-6                # a by-design difference, where one shows
+# phase 15 (b): rank 0 of a production cell on one card through a
+# MirrorMesh: (arch, step, shape, depth or None for the config's own,
+# steps run, the CUDA kernel whose device time the profile prints)
+MIRROR_CASES = (("qwen3-8b", "train", "train_4k", None, 3, ""),
+                ("qwen2-72b", "prefill", "prefill_32k", None, 3,
+                 "flash_kernel"),
+                ("mixtral-8x22b", "prefill", "prefill_32k", 2, 3,
+                 "ffn_gemm_kernel"))
+MIRROR_PEAK_REL = 0.02
+# the kernels on the sharded path (the recurrences' stacks are FSDP only
+# and run in phases 5, 6 and 13)
+SHARDED_PATH = set(REPLACES) - {"rwkv6_wkv", "ssd_scan"}
+
+
+def _held(tag: str, what: str, got, want, rows: list) -> None:
+    """Append (what, bitwise, max relative gap) for tensors ``got`` and
+    ``want`` (lists); raise past WORLD1_REL."""
+    import torch
+    bit = all(torch.equal(a, b) for a, b in zip(got, want))
+    rel = max(float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp(min=1e-30))
+              for a, b in zip(got, want))
+    rows.append((what, bit, rel))
+    print(f"phase 15 (a) {tag} {what}: bitwise {bit}, max relative gap "
+          f"{rel:.3e}", flush=True)
+    if not rel <= WORLD1_REL:
+        raise AssertionError(f"phase 15 (a) {tag} {what}: {rel:.3e} past "
+                             f"{WORLD1_REL}")
+
+
+def phase15_world1(dev, launches: dict) -> None:
+    """(a) A (1, 1, 1) (data, model, tp) and a (1, 1) NCCL mesh with the
+    dense-sharded path on (``launch.sharding``'s specs through
+    ``layout``): gpt2-moe's 5 training steps and a served prefill and 8
+    decode steps (its identity plan), qwen3-8b at depth 4's prefill and 8
+    decode steps, against no mesh.  Counters zeroed before each mesh run
+    and added to ``launches`` after it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.convert import shard_params
+    from repro_torch.kernels import COUNTERS, reset_counters
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (make_decode_step,
+                                          make_prefill_step,
+                                          make_serve_plan, make_train_step)
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.tree import tree_leaves
+    meshes = [("(1, 1, 1)", make_mesh((1, 1, 1), device=str(dev))),
+              ("(1, 1)", make_mesh((1, 1), device=str(dev)))]
+    rows: list = []
+
+    def count():
+        for n, c in COUNTERS.items():
+            launches[n] = launches.get(n, 0) + c.count
+
+    b, s, n_steps = WORLD1_TRAIN
+    cfg = get_config("gpt2-moe")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init_params(cfg, gen, device=dev)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                        generator=gen, device=dev),
+                "labels": torch.randint(0, cfg.vocab_size, (b, s),
+                                        generator=gen, device=dev)}
+               for _ in range(n_steps)]
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=n_steps,
+                       state_dtype=cfg.opt_state_dtype)
+
+    def train(mesh):
+        layout = None if mesh is None else S.layout_for(
+            cfg, mesh, params, "train", global_batch=b)
+        p = params if mesh is None else shard_params(params, mesh,
+                                                     layout.specs)
+        opt = init_opt_state(p, ocfg)
+        step = make_train_step(cfg, ocfg, dispatch_backend="pallas",
+                               layout=layout)
+        losses = []
+        for batch in batches:
+            p, opt, m = step(p, opt, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize(dev)
+        return losses, p, opt
+
+    def serve(c, ps, mesh):
+        bb, ss, n_dec = WORLD1_SERVE
+        layout = None
+        toks = torch.randint(0, c.vocab_size, (bb, ss),
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(1), device=dev)
+        cache = lm.init_cache(c, bb, ss + n_dec, device=dev)
+        if mesh is not None:
+            layout = S.layout_for(c, mesh, ps, "prefill", global_batch=bb,
+                                  cache=cache)
+            ps = shard_params(ps, mesh, layout.specs)
+            cache = shard_params(cache, mesh, layout.cache_specs)
+        plan = make_serve_plan(c, mesh, device=dev)
+        pre = make_prefill_step(c, layout, serve_plan=plan)
+        dec = make_decode_step(c, layout, serve_plan=plan)
+        out = []
+        with torch.inference_mode():
+            out.append(pre(ps, {"tokens": toks}))
+            for i in range(n_dec):
+                lg, cache, ex = dec(ps, cache, toks[:, i])
+                out.append(lg)
+                if ex is not None:
+                    out.append(ex)
+        torch.cuda.synchronize(dev)
+        return out
+
+    base_train = train(None)
+    served = lm.cast_for_compute(cfg, params)
+    base_serve = serve(cfg, served, None)
+    for tag, mesh in meshes:
+        reset_counters()
+        got = train(mesh)
+        count()
+        _held(tag, f"gpt2-moe {n_steps} training steps' losses", got[0],
+              base_train[0], rows)
+        _held(tag, f"gpt2-moe params and AdamW state after {n_steps} steps",
+              tree_leaves(got[1:]), tree_leaves(base_train[1:]), rows)
+        del got
+        reset_counters()
+        got = serve(cfg, served, mesh)
+        count()
+        _held(tag, "gpt2-moe prefill and 8 decode steps (logits, expert "
+              "choices)", got, base_serve, rows)
+    del params, served, base_serve, base_train
+    gc.collect()
+    torch.cuda.empty_cache()
+    qcfg = depth_cut(get_config("qwen3-8b"), 4)
+    qp = lm.cast_for_compute(qcfg, lm.init_params(
+        qcfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    base = serve(qcfg, qp, None)
+    for tag, mesh in meshes:
+        reset_counters()
+        got = serve(qcfg, qp, mesh)
+        count()
+        _held(tag, "qwen3-8b (4 layers) prefill and 8 decode steps", got,
+              base, rows)
+    del qp, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 15 (a): {sum(r[1] for r in rows)} of {len(rows)} results "
+          f"bitwise; not bitwise: "
+          f"{[r[0] for r in rows if not r[1]] or 'none'}", flush=True)
+
+
+def _by_kind(records) -> dict:
+    out: dict = {}
+    for r in records:
+        k = (r.kind, r.axis)
+        n, nb = out.get(k, (0, 0))
+        out[k] = (n + 1, nb + r.nbytes)
+    return out
+
+
+def phase15_mirror(dev, launches: dict) -> None:
+    """(b) Rank 0 of each MIRROR_CASES cell at full width on the card
+    through a ``MirrorMesh`` of the cell's ``arch_mesh``: the dry run's
+    peak and records (the same ``step_program`` on ``meta`` with a
+    ``RecordingMesh``) against ``max_memory_allocated`` and the mirror's
+    records, the step's wall time (median after the first) and busy
+    share, a finite output of the expected shape."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import COUNTERS, reset_counters
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MirrorMesh, arch_mesh
+    print("phase 15 (b): a MirrorMesh fills each collective with what a "
+          "world of ranks holding this rank's tensors returns: the values "
+          "are not rank 0's in the real model; what runs and allocates "
+          "is", flush=True)
+    for arch, kind, sname, depth, n_steps, watch in MIRROR_CASES:
+        cfg = get_config(arch)
+        if depth:
+            cfg = depth_cut(cfg, depth)
+        shape = SHAPES[sname]
+        rec = arch_mesh(cfg)
+        b, s = dryrun.cell_shape(cfg, shape, rec)
+        step, args = dryrun.step_program(cfg, kind, b, s, mesh=rec,
+                                         global_batch=shape.global_batch)
+        rec.records.clear()
+        pred = dryrun.meta_peak(step, args)["peak_bytes_estimate"]
+        want = list(rec.records)
+        del step, args
+        gc.collect()
+        torch.cuda.empty_cache()
+        mm = MirrorMesh(rec.shape, rec.axis_names, device=dev)
+        base = torch.cuda.memory_allocated(dev)
+        step, args = dryrun.step_program(cfg, kind, b, s, mesh=mm,
+                                         device=dev,
+                                         global_batch=shape.global_batch)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        mm.records.clear()
+        reset_counters()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize(dev)
+        dts = [time.perf_counter() - t0]
+        for n, c in COUNTERS.items():
+            launches[n] = launches.get(n, 0) + c.count
+        meas = torch.cuda.max_memory_allocated(dev) - base
+        got = list(mm.records)
+        if kind == "train":
+            # every timed step's loss and gradient norm finite (each runs
+            # from the same weights and batch)
+            def finite(o):
+                return bool(torch.isfinite(o[2]["loss"]) and
+                            torch.isfinite(o[2]["grad_norm"]))
+            ok = finite(out)
+            what = f"loss {float(out[2]['loss']):.6f}, grad norm " \
+                f"{float(out[2]['grad_norm']):.6e}"
+        else:
+            ok = tuple(out.shape) == (b, cfg.vocab_size) and bool(
+                torch.isfinite(out.float()).all())
+            what = f"logits {tuple(out.shape)}"
+        del out
+        for _ in range(n_steps - 1):
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize(dev)
+            dts.append(time.perf_counter() - t0)
+            if kind == "train":
+                ok = ok and finite(out)
+                what += f"; {float(out[2]['grad_norm']):.6e}"
+            del out
+        busy = profile_busy(lambda: step(*args),
+                            f"phase 15 (b) {arch} {kind} {b} x {s}", watch)
+        if watch == "flash_kernel":
+            from repro_torch.configs import H100
+            # this rank's heads: its 1 / 16 of the q heads, the kv heads
+            # they read (models.attention.tp_weights)
+            hd, n = cfg.resolved_head_dim, 16
+            hl = cfg.n_heads // n
+            kvl = cfg.n_kv_heads // n if cfg.n_kv_heads % n == 0 else \
+                max(1, hl * cfg.n_kv_heads // cfg.n_heads)
+            pairs = unmasked_pairs(s, cfg.causal, cfg.sliding_window)
+            bnd, by = bound_ms(2 * (2 * b * s * hl * hd + 2 * b * s * kvl
+                                    * hd), 4 * hd * pairs * hl * b, H100)
+            print(f"phase 15 (b) {arch}: flash_attention at the local "
+                  f"shape B{b} S{s} H{hl}/{kvl} hd{hd} causal: bound "
+                  f"{bnd:.4f} ms a call ({by})", flush=True)
+        gap = (pred - meas) / meas
+        same = got == want
+        print(f"phase 15 (b) {arch} {sname} on {rec.shape} "
+              f"{rec.axis_names}, rank 0: {b} x {s}, {cfg.n_layers} layers:"
+              f" predicted peak {pred} bytes ({pred / 2**30:.2f} GiB), "
+              f"measured {meas} ({meas / 2**30:.2f} GiB), gap "
+              f"{100 * gap:+.3f}%; step {float(np.median(dts[1:])):.4f} s "
+              f"(median after the first; all {[round(x, 4) for x in dts]})"
+              f", busy {100 * busy:.1f}%; {what}, finite {ok}", flush=True)
+        mine, theirs = _by_kind(got), _by_kind(want)
+        for k in sorted(set(mine) | set(theirs)):
+            print(f"    {k[0]:15s} {k[1]:9s} card {mine.get(k, (0, 0))} "
+                  f"dry run {theirs.get(k, (0, 0))} (count, bytes)",
+                  flush=True)
+        print(f"phase 15 (b) {arch}: {len(got)} collectives recorded, the "
+              f"dry run's {len(want)}: equal {same}", flush=True)
+        del step, args, mm
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not (abs(gap) <= MIRROR_PEAK_REL and same and ok):
+            raise AssertionError(f"phase 15 (b) {arch}: gap {gap:+.4f}, "
+                                 f"records equal {same}, output ok {ok}")
+
+
+def phase15_sweep(src: Path, cells) -> None:
+    """(c) The sweep's counts (phase 14's cells, or a sweep of its own):
+    ok, skip, fitting; every cell that does not fit with its peak."""
+    if cells is None:
+        proc, out = phase14_sweep_start(src)
+        cells = phase14_sweep_finish(proc, out)
+    cs = list(cells.values())
+    ok = [c for c in cs if c["status"] == "ok"]
+    fit = [c for c in ok if c["fits"]]
+    print(f"phase 15 (c): {len(cs)} cells, {len(ok)} ok, "
+          f"{len(cs) - len(ok)} skip, {len(fit)} fit in 80 GB", flush=True)
+    for c in ok:
+        if not c["fits"]:
+            print(f"    does not fit: {c['arch']} {c['shape']} {c['mesh']}"
+                  f" {c['memory_analysis']['peak_bytes_estimate'] / 1e9:.2f}"
+                  f" GB", flush=True)
+    bad = [c for c in cs if c["status"] == "skip" and (
+        "expert slicing" in c["reason"] or "does not split" in c["reason"])]
+    if bad:
+        raise AssertionError(f"phase 15 (c): cells skipped for the "
+                             f"sharding: {bad}")
+
+
+def phase15(dev, src: Path, cells=None) -> dict:
+    """The dense sharding (``launch.sharding``): (a) world size 1 against
+    no mesh, (b) rank 0 of three production cells through a
+    ``MirrorMesh``, (c) the sweep's counts.  Returns the launches of the
+    sharded runs; every kernel of SHARDED_PATH must have launched."""
+    t0 = time.perf_counter()
+    launches: dict = {}
+    phase15_world1(dev, launches)
+    print(f"phase 15: (a) by {time.perf_counter() - t0:.1f} s", flush=True)
+    phase15_mirror(dev, launches)
+    print(f"phase 15: (b) by {time.perf_counter() - t0:.1f} s", flush=True)
+    phase15_sweep(src, cells)
+    print("phase 15 launches: " + json.dumps(launches), flush=True)
+    missing = sorted(n for n in SHARDED_PATH if not launches.get(n))
+    if missing:
+        raise AssertionError(f"phase 15: kernels never launched on the "
+                             f"sharded path: {missing}")
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12",
-          "13", "14")
+          "13", "14", "15")
 # phase 3's profile: a part of a CUDA kernel's name -> its wrapper
 WATCH_TRAIN = {"gmm_": "grouped_matmul", "gating_kernel": "topk_gating_fused",
                "positions_kernel": "topk_positions",
@@ -4868,7 +5265,7 @@ def main(argv=None) -> int:
                                  "phase, as the module docstring says.")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of the phases to run after phase 0 "
-                    "(1-14; 1r: phase 1's two recurrences alone; 1m: its "
+                    "(1-15; 1r: phase 1's two recurrences alone; 1m: its "
                     "five MoE routing kernels alone); the "
                     "kernels line is printed only when all run")
     ap.add_argument("--src", default=str(SRC),
@@ -4955,8 +5352,8 @@ def main(argv=None) -> int:
     frontends = phase11(dev) if "11" in phases else None
     control = phase12(dev, src) if "12" in phases else None
     train_rec = phase13(dev) if "13" in phases else None
-    if "14" in phases:
-        phase14(dev, src)
+    cells = phase14(dev, src) if "14" in phases else None
+    sharded = phase15(dev, src, cells) if "15" in phases else None
 
     print(smi, flush=True)
     if set(phases) == set(PHASES):
@@ -4969,7 +5366,8 @@ def main(argv=None) -> int:
                      "serve_ep": serve_ep[name], "llama4": llama4[name],
                      "dense": dense[name], "frontends": frontends[name],
                      "control": control[name],
-                     "train_recurrent": train_rec[name]}
+                     "train_recurrent": train_rec[name],
+                     "sharded": sharded.get(name, 0)}
             origin = {"replaces": REPLACES[name]} if name in REPLACES \
                 else {"replaces": None, "backward_of": BACKWARD[name]}
             kernels.append({

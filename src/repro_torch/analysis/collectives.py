@@ -10,8 +10,10 @@ Four AST lints:
 
 * ``unbound-axis`` — a mesh group or collective named by an axis that is
   not in ``repro_torch.core.axes.MESH_AXES``: the axis argument of
-  ``<mesh>.group`` / ``.size`` / ``.index`` (a receiver whose name ends
-  in ``mesh``) and of ``gather_axis``,
+  ``<mesh>.group`` / ``.size`` / ``.index`` / ``.group_for`` (a receiver
+  whose name ends in ``mesh``; ``group_for`` takes a tuple, each of its
+  names checked: the `tp` axis and the model-parallel (`model`, `tp`)
+  group are named so) and of ``gather_axis``,
   where the resolver can evaluate it statically (constants, tuples,
   ``axes.X``, imported names, local and module assignments, parameters
   through their in-module call sites, to a small depth; dynamic
@@ -45,7 +47,8 @@ from repro_torch.core import axes as _axes_mod
 AXES_MODULE = "repro_torch.core.axes"
 
 # mesh accessor / helper -> positional index of its axis argument
-AXIS_CALLS = {"group": 0, "size": 0, "index": 0, "gather_axis": 2}
+AXIS_CALLS = {"group": 0, "size": 0, "index": 0, "group_for": 0,
+              "gather_axis": 2}
 _AXIS_KWARG = "axis"
 
 # torch.distributed's collectives (and the barrier)

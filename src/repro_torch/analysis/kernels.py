@@ -248,9 +248,9 @@ def record_cases(configs=None, shapes=CONFIG_SHAPES,
                  depth: int = CASE_DEPTH) -> list:
     """The contract calls of rank 0's step of each config x shape on
     ``meta`` (``launch.dryrun.step_program``) at ``depth`` layers, on the
-    16 x 16 production mesh (one rank where the experts do not split over
-    its `model` axis).  Kept per process: the code they come from does
-    not change while it runs."""
+    16 x 16 production mesh as ``launch.mesh.arch_mesh`` views it for the
+    config (the dense-sharded step's local shapes).  Kept per process: the
+    code they come from does not change while it runs."""
     configs = ASSIGNED if configs is None else configs
     key = (tuple(c.name for c in configs), tuple(shapes), depth)
     if key not in _RECORDED:
@@ -260,7 +260,7 @@ def record_cases(configs=None, shapes=CONFIG_SHAPES,
 
 def _record(configs, shapes, depth: int) -> list:
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.mesh import arch_mesh
     with _Recorder() as rec:
         for cfg in configs:
             pattern = cfg.layer_pattern[:depth - 1] + "*" \
@@ -271,14 +271,14 @@ def _record(configs, shapes, depth: int) -> list:
                 shape = SHAPES[sname]
                 if skip_reason(cfg, shape):
                     continue
-                mesh = make_production_mesh()
+                mesh = arch_mesh(cfg)
                 b, s = dryrun.cell_shape(cfg, shape, mesh)
-                if dryrun.mesh_skip_reason(cfg, shape, mesh):
-                    mesh = None
                 kind = "decode" if shape.kind == "long_decode" \
                     else shape.kind
                 rec.name = f"{cfg.name}/{sname}"
-                step, args = dryrun.step_program(cut, kind, b, s, mesh=mesh)
+                step, args = dryrun.step_program(
+                    cut, kind, b, s, mesh=mesh,
+                    global_batch=shape.global_batch)
                 step(*args)
     return rec.cases
 

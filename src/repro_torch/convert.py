@@ -10,24 +10,25 @@ structure of a reference tree the caller passes, so two trained models can
 be compared leaf by leaf.  Both read fields by name and import
 nothing of the reference.
 
-``shard_params`` cuts a full tree (params, or an ``OptState``'s moments)
-down to one rank's part of an expert-parallel mesh, and
-``unshard_params`` gathers it back over the mesh's groups (the
-checkpoint's inverse).
+``shard_params`` cuts a full tree (params, or an ``OptState``) down to
+one rank's part of a mesh, and ``unshard_params`` gathers it back over the
+mesh's groups (the checkpoint's inverse), every leaf by its spec in a
+``core.axes.Spec`` tree of the same structure (``launch.sharding``'s).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core import axes
-from repro_torch.core.moe import EXPERT_FIELDS, MoEParams
+from repro_torch.core.collectives import axis_groups, gather_group
+from repro_torch.core.moe import MoEParams
 from repro_torch.devices import resolve_device
 from repro_torch.models.attention import AttnParams
 from repro_torch.models.lm import (FFNParams, GroupParams, HybridParams,
                                    LMParams, RWKVStack)
 from repro_torch.models.rwkv import RWKVParams
 from repro_torch.models.ssm import MambaParams
+from repro_torch.tree import tree_map
 
 
 def _t(a, device):
@@ -101,72 +102,53 @@ def to_reference(params, like):
     return t.numpy()
 
 
-def _map_experts(tree, fn):
-    """``tree`` with each expert leaf w of a ``MoEParams`` replaced by
-    fn(field name, w); other leaves kept."""
-    if isinstance(tree, MoEParams):
-        return MoEParams(*(fn(f, w) if f in EXPERT_FIELDS and w is not None
-                           else w for f, w in zip(tree._fields, tree)))
-    if isinstance(tree, dict):
-        return {k: _map_experts(tree[k], fn) for k in sorted(tree)}
-    if isinstance(tree, tuple):
-        parts = [_map_experts(t, fn) for t in tree]
-        return type(tree)(*parts) if hasattr(tree, "_fields") \
-            else tuple(parts)
-    return tree
+def block_index(mesh, names) -> tuple:
+    """(this rank's block, the block count) of a dim split over the axes
+    ``names`` (major first)."""
+    idx, n = 0, 1
+    for a in names:
+        idx = idx * mesh.size(a) + mesh.index(a)
+        n *= mesh.size(a)
+    return idx, n
 
 
-def _hidden_dim(field: str, w) -> int:
-    # wi / wu [.., E, d, f], wo [.., E, f, d]
-    return w.dim() - (2 if field == "wo" else 1)
+def shard_leaf(w, mesh, spec):
+    """This rank's block of ``w`` by ``spec``: a copy of its own where a
+    dim is cut, else ``w`` itself."""
+    whole = w
+    for i in range(w.dim()):
+        idx, n = block_index(mesh, spec.axes_of(i))
+        if n == 1:
+            continue
+        if w.shape[i] % n:
+            raise ValueError(f"dim {i} of {tuple(w.shape)} does not split "
+                             f"over {spec.axes_of(i)} ({n} ranks)")
+        blk = w.shape[i] // n
+        w = w.narrow(i, idx * blk, blk)
+    return w if w is whole else w.clone(memory_format=torch.contiguous_format)
 
 
-def shard_params(params, mesh, fsdp: bool = False):
-    """This rank's part of a full tree: expert leaves cut to its E / ep
-    experts (the `model` index picks them) and, with ``fsdp``, to 1 / dp
-    of their hidden dim (the `data` index); every other leaf whole."""
+def unshard_leaf(w, mesh, spec):
+    """The whole of a leaf stored by ``spec``, gathered over the mesh's
+    groups (every rank calls it)."""
+    for i in range(w.dim()):
+        for group in axis_groups(mesh, spec.axes_of(i)):
+            w = gather_group(w, mesh, group, i)
+    return w
+
+
+def shard_params(params, mesh, specs):
+    """This rank's part of a full tree: each leaf cut by its spec in
+    ``specs`` (a ``core.axes.Spec`` tree of the same structure); the
+    whole tree without a mesh."""
     if mesh is None:
         return params
-    ep, m = mesh.size(axes.EP_AXIS), mesh.index(axes.EP_AXIS)
-    dp, d = mesh.size(axes.DATA), mesh.index(axes.DATA)
-
-    def cut(field, w):
-        e_dim = w.dim() - 3
-        if w.shape[e_dim] % ep:
-            raise ValueError(f"{w.shape[e_dim]} experts do not split over "
-                             f"ep {ep}")
-        w = w.chunk(ep, dim=e_dim)[m]
-        if fsdp:
-            h = _hidden_dim(field, w)
-            if w.shape[h] % dp:
-                raise ValueError(f"hidden dim {w.shape[h]} does not split "
-                                 f"over dp {dp}")
-            w = w.chunk(dp, dim=h)[d]
-        # a copy of its own, so that the full tree can be freed (a slice
-        # that happens to be contiguous would keep it alive)
-        return w.clone(memory_format=torch.contiguous_format)
-    if ep == 1 and not fsdp:
-        return params
-    return _map_experts(params, cut)
+    return tree_map(lambda w, s: shard_leaf(w, mesh, s), params, specs)
 
 
-def _gather(w, mesh, group, dim):
-    wm = w.movedim(dim, 0).contiguous()
-    out = wm.new_empty((mesh.group_size(group) * wm.shape[0],
-                        *wm.shape[1:]))
-    mesh.all_gather(out, wm, group)
-    return out.movedim(0, dim).contiguous()
-
-
-def unshard_params(params, mesh, fsdp: bool = False):
-    """The inverse of ``shard_params``: expert leaves gathered over the
-    mesh's `model` group (and the data-parallel group with ``fsdp``).
-    Every rank of the mesh calls it."""
+def unshard_params(params, mesh, specs):
+    """The inverse of ``shard_params``: each leaf gathered over the axes
+    of its spec.  Every rank of the mesh calls it."""
     if mesh is None:
         return params
-
-    def full(field, w):
-        if fsdp:
-            w = _gather(w, mesh, mesh.dp_group, _hidden_dim(field, w))
-        return _gather(w, mesh, mesh.group(axes.EP_AXIS), w.dim() - 3)
-    return _map_experts(params, full)
+    return tree_map(lambda w, s: unshard_leaf(w, mesh, s), params, specs)

@@ -26,6 +26,7 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.core import axes
 from repro_torch.core import dispatch as D
 from repro_torch.core import microop
+from repro_torch.core.collectives import gather_grad
 from repro_torch.core.gating import (capacity, kept_counts,
                                      router_top_k_gating)
 from repro_torch.kernels.ops import (grouped_ffn_grads, grouped_ffn_op,
@@ -52,60 +53,11 @@ class MoEOutput(NamedTuple):
     # its newest all-to-all as a CUDA event (``Mesh.a2a_event``)
 
 
-def expert_leaf_flags(tree) -> list:
-    """One bool per leaf of ``tree`` (``tree_leaves`` order): whether it is
-    an expert weight (``wi``, ``wu``, ``wo`` of a ``MoEParams``), sharded
-    over the `model` group.  The router and every other leaf are
-    replicated."""
-    if tree is None:
-        return []
-    if isinstance(tree, MoEParams):
-        return [f in EXPERT_FIELDS for f in tree._fields
-                if getattr(tree, f) is not None]
-    if isinstance(tree, dict):
-        return [b for k in sorted(tree) for b in expert_leaf_flags(tree[k])]
-    if isinstance(tree, tuple):
-        return [b for sub in tree for b in expert_leaf_flags(sub)]
-    return [False]
-
-
-def gather_axis(t, mesh, axis: str, dim: int = 0):
-    """``t``'s shards along ``dim`` gathered over the mesh's ``axis``
-    group, in rank order (no autograd)."""
-    tm = t.movedim(dim, 0).contiguous()
-    out = tm.new_empty((mesh.size(axis) * tm.shape[0], *tm.shape[1:]))
-    mesh.all_gather(out, tm, mesh.group(axis))
-    return out.movedim(0, dim)
-
-
-class _GatherHidden(torch.autograd.Function):
-    """All-gather of an expert weight's hidden-dim shards over the
-    data-parallel group (FSDP for experts); the backward is the
-    reduce-scatter of the gradient (summed over the group)."""
-
-    @staticmethod
-    def forward(ctx, w, mesh, dim):
-        ctx.mesh, ctx.dim = mesh, dim
-        n = mesh.group_size(mesh.dp_group)
-        wm = w.movedim(dim, 0).contiguous()
-        out = wm.new_empty((n * wm.shape[0], *wm.shape[1:]))
-        mesh.all_gather(out, wm, mesh.dp_group)
-        return out.movedim(0, dim).contiguous()
-
-    @staticmethod
-    def backward(ctx, g):
-        mesh = ctx.mesh
-        n = mesh.group_size(mesh.dp_group)
-        gm = g.movedim(ctx.dim, 0).contiguous()
-        out = gm.new_empty((gm.shape[0] // n, *gm.shape[1:]))
-        mesh.reduce_scatter(out, gm, mesh.dp_group)
-        return out.movedim(0, ctx.dim).contiguous(), None, None
-
-
 def gather_hidden(w, mesh, dim: int):
     """``w``'s hidden-dim shards (dim ``dim``) gathered over the mesh's
-    data-parallel group."""
-    return _GatherHidden.apply(w, mesh, dim)
+    data-parallel group (FSDP for experts; the backward reduce-scatters
+    the gradient)."""
+    return gather_grad(w, mesh, mesh.dp_group, dim)
 
 
 def world_mean_value(v: torch.Tensor, mesh) -> torch.Tensor:
@@ -143,12 +95,16 @@ class _Plan:
     """What ``_ExpertParallel`` needs besides tensors."""
 
     def __init__(self, mesh, n_experts, n_chunks, pipeline, ffn_type,
-                 backend, counts, shadow):
+                 backend, counts, shadow, expert_slicing=False):
         self.mesh, self.e, self.n_chunks = mesh, n_experts, n_chunks
         self.pipeline, self.ffn_type, self.backend = pipeline, ffn_type, \
             backend
         self.counts, self.shadow, self.side = counts, shadow, None
         self.ep = mesh.size(axes.EP_AXIS)
+        # expert slicing: each rank of the `tp` group holds a slice of
+        # every local expert's hidden dim, and the FFN's output is summed
+        # over the group
+        self.tp = mesh.group(axes.TP) if expert_slicing else None
 
     def to_rows(self, recv):
         """[ep * E_local, c, d] received -> the FFN's [E_local, ep * c, d]
@@ -177,7 +133,11 @@ class _ExpertParallel(torch.autograd.Function):
     bf16 compute dtype and add them there).  At ep 1 the whole buffer is
     the single-rank layer's, so its gradients are bitwise that layer's.
     The ScMoE shortcut (``plan.shadow``) runs, with autograd, while the
-    first dispatch is in flight; its output comes back in ``plan.side``."""
+    first dispatch is in flight; its output comes back in ``plan.side``.
+    On a mesh with `tp` the experts' hidden dims are this rank's slice:
+    each chunk's FFN output is summed over the `tp` group before it goes
+    back (the reference's psum over `tp`), and the backward sums dy there
+    too, its adjoint."""
 
     @staticmethod
     def forward(ctx, buf, wi, wu, wo, plan):
@@ -191,6 +151,8 @@ class _ExpertParallel(torch.autograd.Function):
             rows.append(rs)
             out = expert_ffn(wi, wu, wo, rs, plan.ffn_type, plan.backend,
                              group_rows=gr)
+            if plan.tp is not None:
+                plan.mesh.all_reduce(out, plan.tp)
             return plan.from_rows(out, c)
 
         def shadow():
@@ -215,6 +177,8 @@ class _ExpertParallel(torch.autograd.Function):
         recv = [microop.all_to_all_ec(p, mesh, async_op=True)
                 for p in torch.split(dy, c, dim=1)]
         d_rows = torch.cat([plan.to_rows(r.wait()) for r in recv], 1)
+        if plan.tp is not None:       # the adjoint of the forward's sum
+            mesh.all_reduce(d_rows, plan.tp)
         if plan.backend == "pallas":
             dx, dwi, dwu, dwo = grouped_ffn_grads(x_rows, wi, wu, wo,
                                                   plan.ffn_type, d_rows)
@@ -241,12 +205,15 @@ def dense_ffn(x, w_in, w_up, w_out, ffn_type: str):
 def moe_layer(x, params: MoEParams, cfg: MoEConfig, *,
               ffn_type: str = "swiglu", dispatch_backend: str = "scatter",
               top_k: int | None = None, mesh=None, lina: bool = True,
-              fsdp: bool = False, shortcut_params=None) -> MoEOutput:
+              fsdp: bool = False, shortcut_params=None,
+              expert_slicing: bool = False) -> MoEOutput:
     """x: [B, S, d], this rank's tokens -> MoEOutput on them.
 
     ``params`` hold this rank's experts: E / ep of them (``wi``, ``wu``,
     ``wo`` with leading dim E_local; ``convert.shard_params``), with
-    ``fsdp`` also 1 / dp of their hidden dim, gathered here per layer over
+    ``expert_slicing`` (a mesh with `tp`) 1 / tp of their hidden dim (the
+    ranks of a `tp` group must hold the same tokens), with ``fsdp`` 1 / dp
+    of it, gathered here per layer over
     the data-parallel group (its backward a reduce-scatter).  The capacity
     comes from the local token count, as the reference's.  ``lina`` splits
     the exchange into ``cfg.n_microops`` micro-ops and, with
@@ -296,7 +263,8 @@ def moe_layer(x, params: MoEParams, cfg: MoEConfig, *,
             if backend == "pallas" and mesh.size(axes.EP_AXIS) == 1 else None
         plan = _Plan(mesh, e, cfg.n_microops if lina else 1,
                      lina and cfg.pipeline_ffn, ffn_type, backend, counts,
-                     shortcut if shortcut_params is not None else None)
+                     shortcut if shortcut_params is not None else None,
+                     expert_slicing)
         out_buf = _ExpertParallel.apply(buf, wi, wu, wo, plan)
         sc_out = plan.side
         aux = world_mean_value(aux, mesh)

@@ -37,7 +37,8 @@ from repro_torch.core import axes
 from repro_torch.core.gating import (capacity, kept_counts,
                                      router_top_k_gating)
 from repro_torch.core.microop import exchange
-from repro_torch.core.moe import MoEParams, expert_ffn, gather_axis
+from repro_torch.core.collectives import gather_axis
+from repro_torch.core.moe import MoEParams, expert_ffn
 from repro_torch.devices import resolve_device
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels import ref
@@ -458,7 +459,8 @@ def serve_moe_layer(x, params: MoEParams, cfg: MoEConfig, plan: PlanArrays,
                     *, ffn_type: str = "swiglu", top_k: int | None = None,
                     min_replicas: int = 1, cap_override: int = 0,
                     route_mode: str = "weighted", mesh=None,
-                    hosted: Optional[HostedWeights] = None):
+                    hosted: Optional[HostedWeights] = None,
+                    local: bool = False):
     """Inference MoE layer honoring a placement plan.  x: [T, d], the whole
     batch (on every rank of a mesh).
 
@@ -470,7 +472,9 @@ def serve_moe_layer(x, params: MoEParams, cfg: MoEConfig, plan: PlanArrays,
     hold this rank's E / ep experts; at ep > 1 the hosted experts'
     weights are ``hosted`` when the caller fetched them for this plan
     (``fetch_hosted``), else fetched here.  Returns (y [T, d],
-    expert_idx [T, k], router_probs [T, E])."""
+    expert_idx [T, k], router_probs [T, E]).  ``local``: x is this rank's
+    token shard already (the dense-sharded entry points' batch rows), so
+    it is neither cut over `data` nor gathered back."""
     if route_mode not in ("weighted", "round_robin"):
         raise ValueError(f"unknown route_mode {route_mode!r}")
     k = top_k if top_k is not None else max(cfg.top_k, 1)
@@ -478,7 +482,7 @@ def serve_moe_layer(x, params: MoEParams, cfg: MoEConfig, plan: PlanArrays,
         plan = plan._replace(route_weight=uniform_route_weight(
             plan.replica_of, plan.n_replicas))
     t, d_model = x.shape
-    dp_n = dp_shard_count(mesh, t)
+    dp_n = 1 if local else dp_shard_count(mesh, t)
     if dp_n > 1:
         t_loc = t // dp_n
         i = mesh.index(axes.DATA)

@@ -10,20 +10,21 @@ It runs rank 0's train, prefill or decode step (``launch.steps``'
 kernel route at full width and depth, on the ``meta`` device: every
 kernel wrapper runs its contract and allocates its outputs and scratch
 there, nothing is launched and no value is computed.  The mesh is a
-``RecordingMesh`` (``make_production_mesh``: the reference's 16 x 16, or
-2 x 16 x 16 with `pod` folded into `data`), which records every
-collective the step issues.  The inputs are rank 0's:
+``RecordingMesh`` (``arch_mesh``: the reference's 16 x 16, or 2 x 16 x 16
+with `pod` folded into `data`, its `model` axis split into (`model`,
+`tp`) for an arch whose experts do not fill it: mixtral-8x22b's (16, 8,
+2)), which records every collective the step issues.  The step is the
+dense-sharded one (``launch.sharding``): the inputs are rank 0's shards
+as the reference's specs place them:
 
-  * parameters as ``convert.shard_params`` cuts them (experts over
-    `model`; with ``fsdp``, for training as in the reference and for
-    serving where the reference's ``serve_uses_fsdp`` says so, their hidden
-    dim over `data` too).  The port shards nothing else: attention, dense
-    FFNs, embeddings and ``lm_head`` are whole on every rank;
-  * AdamW state (training);
-  * the batch as the port gives it to rank 0: B / world rows of a training
-    batch (the trainer's split), the whole batch of a prefill or decode
-    step (the serve steps replicate the dense layers; the MoE layer takes
-    its own token shard), the decode cache at the shape's seq_len.
+  * parameters by ``param_specs`` (training) or ``serve_param_specs``
+    (prefill, decode: the data axes stripped where bf16 weights over the
+    model-parallel ranks fit 10 GB, ``serve_uses_fsdp``), after
+    ``safe_spec``;
+  * AdamW state by ``opt_state_specs`` (training);
+  * the batch by ``batch_specs``: B / dp rows where they split, else the
+    whole batch; the decode cache by ``cache_specs`` (its sequence over
+    the model-parallel ranks).
 
 Peak memory is counted by ``PeakTracker``, a ``TorchDispatchMode`` that
 adds each new storage's bytes and subtracts them when the storage is
@@ -42,12 +43,14 @@ measurement, and a 16-way group spans two 8-GPU nodes, so the collective
 term (NVLink's rate) is a lower bound.
 
 A cell is ``skip`` with its reason where the reference skips it
-(``configs.skip_reason``), where the port cannot run it on this mesh
-(experts that need ``arch_mesh``'s `tp` expert slicing, not ported; a
-training batch that does not split over the ranks) or where a kernel's
-contract refuses a shape on the path (``refused``: a ``KernelRefused``).
-Any other fault is ``error``, with its traceback.  A mesh is never
-substituted.
+(``configs.skip_reason``) or where a kernel's contract refuses a shape on
+the path (``refused``: a ``KernelRefused``).  Any other fault is
+``error``, with its traceback.  A mesh is never substituted.
+
+``step_program`` also builds rank 0's program on a card: with a
+``MirrorMesh`` its shards are drawn directly at their local shapes
+(``launch.sharding.init_shards``), so that a cell whose whole model does
+not fit one card runs there (``chip_smoke.py`` phase 15).
 """
 from __future__ import annotations
 
@@ -64,22 +67,20 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from repro_torch import convert
 from repro_torch.configs import H100, SHAPES, ShapeConfig, get_config, \
     skip_reason
+from repro_torch.convert import shard_params
 from repro_torch.kernels._build import KernelRefused
 from repro_torch.launch.analytic import analytic_cost
 from repro_torch.launch.hlo_analysis import collective_summary
-from repro_torch.launch.mesh import (RecordingMesh, ep_size,
-                                     make_production_mesh, parse_mesh)
+from repro_torch.launch import sharding as shard_mod
+from repro_torch.launch.mesh import (RecordingMesh, arch_mesh, mesh_axes,
+                                     parse_mesh)
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_serve_plan, make_train_step)
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.lm import DTYPES, FRAME_DIM
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
-
-SERVE_FSDP_BUDGET = 10e9      # the reference's serve_uses_fsdp budget
-
 
 def roofline_terms(flops_global: float, bytes_global: float,
                    coll_bytes_per_dev: float, n_chips: int, hw=H100) -> dict:
@@ -137,26 +138,6 @@ def storages(*trees) -> dict:
             for t in tree_leaves(trees) if isinstance(t, torch.Tensor)}
 
 
-def serve_uses_fsdp(cfg, mesh) -> bool:
-    """The reference's rule: serve weights are cut over `data` too when
-    their bf16 bytes over the model-parallel ranks pass 10 GB."""
-    return 2.0 * cfg.param_count() / ep_size(mesh) > SERVE_FSDP_BUDGET
-
-
-def mesh_skip_reason(cfg, shape: ShapeConfig, mesh) -> str | None:
-    """Why the port cannot run this cell on ``mesh`` (None if it can)."""
-    ep = ep_size(mesh)
-    e = cfg.moe.n_experts if cfg.moe.enabled else 0
-    if e and e % ep:
-        return (f"{e} experts on a {ep}-way `model` axis need arch_mesh's "
-                f"`tp` expert slicing (not ported)")
-    if shape.kind == "train" and shape.global_batch % mesh.world:
-        return (f"a training batch of {shape.global_batch} does not split "
-                f"over {mesh.world} ranks (the trainer gives each rank "
-                f"B / world rows)")
-    return None
-
-
 def _ids(cfg, shape, device, gen):
     """Random token ids (zeros on ``meta``: no draws)."""
     if torch.device(device).type == "meta":
@@ -192,41 +173,85 @@ def batch_for(cfg, kind: str, b: int, s: int, device, gen=None) -> dict:
     return out
 
 
+def _sharded_program(cfg, kind: str, b: int, s: int, mesh, dev, gen,
+                     global_batch: int):
+    """``step_program`` with a mesh: the dense-sharded step and rank's
+    shards (see the module doc)."""
+    full = lm_mod.init_params(cfg, None, device="meta")
+    cache = None
+    if kind == "decode":
+        cache = lm_mod.init_cache(cfg, global_batch, s,
+                                  dtype=DTYPES[cfg.dtype], device="meta")
+    layout = shard_mod.layout_for(cfg, mesh, full, kind,
+                                  global_batch=global_batch, cache=cache)
+    mirror = dev.type != "meta" and isinstance(mesh, RecordingMesh)
+    if not mirror:
+        params = shard_params(lm_mod.init_params(cfg, gen, device=dev),
+                              mesh, layout.specs)
+    else:                   # a MirrorMesh: the shards alone fit the card
+        params = shard_mod.init_shards(cfg, full, mesh, layout.specs, gen,
+                                       dev)
+
+    def ids(t):
+        # in a world of equal ranks a token outside this rank's block of
+        # a vocab-sharded embedding is looked up by no rank (its row
+        # zero through every layer): a mirror's ids stay inside the block
+        return t % params.embed.shape[0] if mirror else t
+
+    batch = {k: ids(v) if k in ("tokens", "labels") else v
+             for k, v in batch_for(cfg, kind, b, s, dev, gen).items()}
+    if kind == "train":
+        opt = init_opt_state(params, AdamWConfig(
+            state_dtype=cfg.opt_state_dtype))
+        step = make_train_step(cfg, layout=layout,
+                               dispatch_backend="pallas")
+        return step, (params, opt, batch)
+    params = lm_mod.cast_for_compute(cfg, params)
+    plan = make_serve_plan(cfg, mesh, device=dev)
+    if kind == "prefill":
+        step = make_prefill_step(cfg, layout, serve_plan=plan)
+        return _no_grad(step), (params, batch)
+    local = shard_mod.local_zeros(cache, mesh, layout.cache_specs, dev)
+    local = local._replace(pos=torch.full_like(local.pos, s - 1))
+    token = ids(_ids(cfg, (b,), dev, gen))
+    step = make_decode_step(cfg, layout, serve_plan=plan)
+    return _no_grad(step), (params, local, token)
+
+
 def step_program(cfg, kind: str, b: int, s: int, *, mesh=None,
-                 device="meta"):
+                 device="meta", global_batch: int | None = None):
     """(step, args): rank 0's ``kind`` step ("train", "prefill",
     "decode") and its arguments on ``device``, so that ``step(*args)``
     runs it once.  The same program on ``meta`` (the dry run) and on the
     card (``chip_smoke.py`` holds the dry run's peak against the card's).
     ``b`` is rank 0's batch, ``s`` the sequence (decode: the cache's
-    depth).  FSDP: for training with a mesh, for serving where
-    ``serve_uses_fsdp`` says so.  Off ``meta`` the weights and inputs are
-    drawn from seed 0."""
+    depth).  With a ``mesh`` the step is dense-sharded by the reference's
+    specs (``global_batch``: the batch whose rows ``b`` are rank 0's,
+    which decides whether they split over the data axes); without, the
+    one-rank step.  Off ``meta`` the weights and inputs are drawn from
+    seed 0."""
     dev = torch.device(device)
     gen = None if dev.type == "meta" else \
         torch.Generator(device=dev).manual_seed(0)
+    if mesh is not None:
+        return _sharded_program(cfg, kind, b, s, mesh, dev, gen,
+                                global_batch or b)
     params = lm_mod.init_params(cfg, gen, device=dev)
     if kind == "train":
-        fsdp = mesh is not None
-        params = convert.shard_params(params, mesh, fsdp=fsdp)
         opt = init_opt_state(params, AdamWConfig(
             state_dtype=cfg.opt_state_dtype))
         # the trainer's step: dispatch and combine on the kernel route
-        step = make_train_step(cfg, mesh=mesh, fsdp=fsdp,
-                               dispatch_backend="pallas")
+        step = make_train_step(cfg, dispatch_backend="pallas")
         return step, (params, opt, batch_for(cfg, kind, b, s, dev, gen))
-    fsdp = mesh is not None and serve_uses_fsdp(cfg, mesh)
-    # the served copy: compute dtype, this rank's experts
-    params = lm_mod.cast_for_compute(
-        cfg, convert.shard_params(params, mesh, fsdp=fsdp))
-    plan = make_serve_plan(cfg, mesh, device=dev)
+    params = lm_mod.cast_for_compute(cfg, params)      # the served copy
+    plan = make_serve_plan(cfg, None, device=dev)
     if kind == "prefill":
-        step = make_prefill_step(cfg, mesh, serve_plan=plan, fsdp=fsdp)
+        step = make_prefill_step(cfg, serve_plan=plan)
         return _no_grad(step), (params, batch_for(cfg, kind, b, s, dev, gen))
     cache = lm_mod.init_cache(cfg, b, s, dtype=DTYPES[cfg.dtype], device=dev)
     cache = cache._replace(pos=torch.full_like(cache.pos, s - 1))
     token = _ids(cfg, (b,), dev, gen)
-    step = make_decode_step(cfg, mesh, serve_plan=plan, fsdp=fsdp)
+    step = make_decode_step(cfg, serve_plan=plan)
     return _no_grad(step), (params, cache, token)
 
 
@@ -252,10 +277,12 @@ def meta_peak(step, args) -> dict:
 
 
 def cell_shape(cfg, shape: ShapeConfig, mesh) -> tuple:
-    """(rank 0's batch, sequence) of ``shape`` on ``mesh``."""
-    if shape.kind == "train":
-        return shape.global_batch // mesh.world, shape.seq_len
-    return shape.global_batch, shape.seq_len
+    """(rank 0's batch, sequence) of ``shape`` on ``mesh``: its rows
+    over the data axes where they split (``sharding.batch_specs``)."""
+    b = shape.global_batch
+    if shard_mod.batch_split(mesh, b):
+        b //= shard_mod.axis_size(mesh, shard_mod.axes.dp_axes(mesh))
+    return b, shape.seq_len
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
@@ -273,12 +300,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
     if batch or seq:
         shape = ShapeConfig(shape.name, seq or shape.seq_len,
                             batch or shape.global_batch, shape.kind)
-    mesh = RecordingMesh(mesh_shape) if mesh_shape else \
-        make_production_mesh(multi_pod)
+    mesh = RecordingMesh(mesh_shape, mesh_axes(mesh_shape)) if mesh_shape \
+        else arch_mesh(cfg, multi_pod)
     mesh_name = "x".join(map(str, mesh_shape)) if mesh_shape else \
         ("2x16x16" if multi_pod else "16x16")
     head = {"arch": arch, "shape": shape_name, "mesh": mesh_name}
-    reason = skip_reason(cfg, shape) or mesh_skip_reason(cfg, shape, mesh)
+    reason = skip_reason(cfg, shape)
     if reason:
         return {**head, "status": "skip", "reason": reason}
     if shape.kind == "long_decode":
@@ -288,7 +315,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
     b, s = cell_shape(cfg, shape, mesh)
     t0 = time.time()
     try:
-        step, args = step_program(cfg, kind, b, s, mesh=mesh)
+        step, args = step_program(cfg, kind, b, s, mesh=mesh,
+                                  global_batch=shape.global_batch)
         mesh.records.clear()
         mem = meta_peak(step, args)
     except KernelRefused as e:
@@ -308,7 +336,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
     mult = 6 if shape.kind == "train" else 2
     model_flops = mult * cfg.active_param_count() * tokens
     result = {
-        **head, "n_chips": n_chips, "status": "ok", "lina": True,
+        **head, "mesh_shape": list(mesh.shape), "n_chips": n_chips,
+        "status": "ok", "lina": True,
         "layers": cfg.n_layers, "rank0_batch": b, "seq": s,
         "run_s": round(t_run, 1),
         "analytic_flops_global": ana.flops_global,
@@ -350,7 +379,7 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true",
                     help="the 2 x 16 x 16 mesh (pod folded into data)")
     ap.add_argument("--mesh", default=None,
-                    help="another recording mesh DxE (e.g. 2x2)")
+                    help="another recording mesh DxE or DxExT (e.g. 2x2)")
     ap.add_argument("--batch", type=int, default=None,
                     help="the shape's global batch instead")
     ap.add_argument("--seq", type=int, default=None,

@@ -1,9 +1,12 @@
 """Process-group meshes: the port's counterpart of the reference's
 ``jax.make_mesh`` (``src/repro/launch/mesh.py``).
 
-A ``Mesh`` is one rank's view of a ``(data, model)`` grid of ranks: its
-coordinates, a process group per axis and the world group.  Ranks are laid
-out row-major, rank = d * ep + m, as ``jax.make_mesh`` orders devices.
+A ``Mesh`` is one rank's view of a ``(data, model)`` or ``(data, model,
+tp)`` grid of ranks: its coordinates, a process group per axis, the
+`model` and `tp` axes' group together (``mp_group``, the tensor-parallel
+collectives' group: the reference's ``mp_axes``) and the world group.
+Ranks are laid out row-major, rank = (d * ep + m) * tp + t, as
+``jax.make_mesh`` orders devices.
 
 Lina's §4 priority is a property of the communicators here: the `model`
 (expert-parallel) group's NCCL communicator runs on a high-priority CUDA
@@ -16,9 +19,9 @@ streams; its groups take no options.
 ``init_distributed`` joins the job's group (``torchrun``'s environment, or
 an explicit ``init_method``) or starts a one-rank group; NCCL on the card,
 gloo on the CPU.  ``spawn_ranks`` is ``launch.train`` and
-``launch.serve``'s ``--mesh DxE``: under ``torchrun`` nothing (each process
-joins the job's group), else for D * E > 1 it starts D * E local ranks that
-each run the command's ``main``.
+``launch.serve``'s ``--mesh DxE`` / ``DxExT``: under ``torchrun`` nothing
+(each process joins the job's group), else for a mesh of more than one
+rank it starts its ranks locally, each running the command's ``main``.
 Nothing falls back: a mesh that needs more GPUs than the machine has
 raises, and so does a failed NCCL init.
 
@@ -29,7 +32,12 @@ Every collective of the port goes through one ``Mesh`` method a kind
 ``RecordingMesh`` is rank 0 of a mesh of any shape with stand-in groups:
 it records every collective and issues none, on ``meta`` tensors (the
 dry run, ``launch.dryrun``); ``make_production_mesh`` gives the
-reference's 16 x 16 and 2 x 16 x 16 meshes as recording meshes.
+reference's 16 x 16 and 2 x 16 x 16 meshes as recording meshes, and
+``arch_mesh`` the reference's re-view of them for an arch whose experts do
+not fill the `model` axis.  A ``MirrorMesh`` is a recording mesh whose
+collectives also fill their results with what a world of ranks that all
+hold this rank's tensors would return, so that rank 0 of a large mesh runs
+its whole step on one card (``chip_smoke.py`` phase 15).
 """
 from __future__ import annotations
 
@@ -91,6 +99,20 @@ def _lines(shape, axis: int) -> list:
     return sorted(out)
 
 
+def _blocks(shape, idx) -> list:
+    """The rank lists of the sub-grids spanned by the axes ``idx`` (the
+    other axes fixed), each in row-major order."""
+    if len(idx) == 1:
+        return _lines(shape, idx[0])
+    strides = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+    groups = {}
+    for r in range(math.prod(shape)):
+        key = tuple((r // strides[i]) % shape[i] for i in range(len(shape))
+                    if i not in idx)
+        groups.setdefault(key, []).append(r)
+    return sorted(groups.values())
+
+
 def _nccl_options(high_priority: bool):
     opts = dist.ProcessGroupNCCL.Options()
     opts.is_high_priority_stream = high_priority
@@ -149,6 +171,13 @@ class Mesh:
                 g = dist.new_group(ranks, **kw)
                 if self.rank in ranks:
                     self.groups[a] = g
+        self._mp = None
+        if axes.TP in self.axis_names:
+            idx = [self.axis_names.index(a) for a in axes.MP_AXES]
+            for ranks in _blocks(self.shape, idx):
+                g = dist.new_group(ranks)
+                if self.rank in ranks:
+                    self._mp = g
         self.world_group = dist.group.WORLD
         self.a2a_event = None
         self.timeline = None
@@ -165,19 +194,51 @@ class Mesh:
 
     @property
     def dp_group(self):
-        dp = axes.dp_axes(self)
-        if len(dp) != 1 or dp[0] not in self.groups:
-            raise NotImplementedError(f"a mesh over {self.axis_names}: the "
-                                      f"port's meshes are (data, model)")
-        return self.groups[dp[0]]
+        """The data-parallel group (`pod` is folded into `data`)."""
+        return self.group_for(axes.dp_axes(self))
+
+    @property
+    def mp_group(self):
+        """The tensor-parallel group: `model`, with `tp` where the mesh
+        has it (ranks `model`-major)."""
+        return self.group_for(axes.mp_axes(self))
+
+    def group_for(self, names):
+        """The group spanning the axes ``names`` (a name or a tuple, the
+        first major): one axis's group, `model` and `tp` together, or the
+        world; None for no axis.  Another set of axes has no group here
+        and raises."""
+        names = (names,) if isinstance(names, str) else tuple(names)
+        names = tuple(a for a in names if a in self.axis_names)
+        if not names:
+            return None
+        if len(names) == 1:
+            return self.groups[names[0]]
+        if names == tuple(self.axis_names):
+            return self.world_group
+        if names == axes.MP_AXES and self._mp is not None:
+            return self._mp
+        raise NotImplementedError(f"no group of {self!r} spans {names}")
 
     def group_size(self, group) -> int:
         return group.size()
 
+    def group_index(self, group) -> int:
+        """This rank's index in ``group`` (row-major over its axes)."""
+        if group is self.world_group:
+            return self.rank
+        if group is self._mp:
+            t = self.size(axes.TP)
+            return self.index(axes.MODEL) * t + self.index(axes.TP)
+        return self.index(self.axis_of(group))
+
     def axis_of(self, group) -> str:
-        """The mesh axis ``group`` spans (``WORLD`` for the world group)."""
+        """The mesh axis ``group`` spans (``WORLD`` for the world group,
+        ``axes.MP_GROUP`` for `model` and `tp` together)."""
         if group is self.world_group:
             return WORLD
+        if group is self._mp and group is not None:
+            return axes.MP_GROUP
         for a, g in self.groups.items():
             if g is group:
                 return a
@@ -261,9 +322,10 @@ class Mesh:
                 f"{self.coords}, {self.backend})")
 
 
-def make_mesh(shape, axis_names=(axes.DATA, axes.MODEL), device="cuda"):
-    """The ``Mesh`` of ``shape`` over ``axis_names`` for this rank, joining
-    or starting the default group first (``init_distributed``).  The
+def make_mesh(shape, axis_names=None, device="cuda"):
+    """The ``Mesh`` of ``shape`` over ``axis_names`` (default
+    ``mesh_axes(shape)``) for this rank, joining or starting the default
+    group first (``init_distributed``).  The
     world must hold exactly prod(shape) ranks; on the card, one GPU each.
     Every rank calls it (it creates the groups); a process makes one mesh
     and passes it on."""
@@ -280,7 +342,7 @@ def make_mesh(shape, axis_names=(axes.DATA, axes.MODEL), device="cuda"):
         raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs {n} "
                          f"ranks; the process group has "
                          f"{dist.get_world_size()}")
-    return Mesh(shape, axis_names, dev)
+    return Mesh(shape, axis_names or mesh_axes(shape), dev)
 
 
 class StandInGroup:
@@ -313,10 +375,10 @@ class RecordingMesh(Mesh):
     run).  The same ``Mesh`` methods as a real mesh's, so a step issues
     the same calls on both."""
 
-    def __init__(self, shape, axis_names=(axes.DATA, axes.MODEL),
-                 device="meta", rank: int = 0):
+    def __init__(self, shape, axis_names=None, device="meta",
+                 rank: int = 0):
         self.shape = tuple(int(s) for s in shape)
-        self.axis_names = tuple(axis_names)
+        self.axis_names = tuple(axis_names or mesh_axes(self.shape))
         self.device = torch.device(device)
         self.backend = "record"
         self.world = math.prod(self.shape)
@@ -327,6 +389,9 @@ class RecordingMesh(Mesh):
                        zip(self.axis_names, strides, self.shape)}
         self.groups = {a: StandInGroup(a, n)
                        for a, n in zip(self.axis_names, self.shape)}
+        self._mp = StandInGroup(axes.MP_GROUP, math.prod(
+            self.groups[a].size() for a in axes.MP_AXES)) \
+            if axes.TP in self.axis_names else None
         self.world_group = StandInGroup(WORLD, self.world)
         self.a2a_event = None
         self.timeline = None
@@ -341,6 +406,51 @@ class RecordingMesh(Mesh):
                 f"{self.device})")
 
 
+class MirrorMesh(RecordingMesh):
+    """A ``RecordingMesh`` whose collectives also compute: each fills its
+    result with what the collective returns when every rank of the group
+    holds this rank's tensor (an all-gather tiles the input n times, a sum
+    all-reduce multiplies it by n and a max one keeps it, a reduce-scatter
+    gives n times this rank's block, an all-to-all this rank's block n
+    times), in place and with no allocation beyond a recording mesh's.
+    Those are the values of a world whose ranks all hold equal shards, not
+    rank 0's values in a real world; what it runs and allocates is rank
+    0's, so the dry run's peak and records can be held against a card."""
+
+    def __init__(self, shape, axis_names=None, device="cuda",
+                 rank: int = 0):
+        super().__init__(shape, axis_names, device=device, rank=rank)
+
+    def all_to_all(self, out, x, group, *, async_op: bool = False):
+        self._record("all-to-all", group, out)
+        n, i = self.group_size(group), self.group_index(group)
+        blk = x.shape[0] // n
+        out.view(n, blk, *x.shape[1:]).copy_(x[i * blk:(i + 1) * blk][None])
+        return _Done()
+
+    def all_reduce(self, t, group, *, op: str = "sum",
+                   async_op: bool = False):
+        self._record("all-reduce", group, t)
+        if op == "sum":
+            t.mul_(self.group_size(group))
+        return _Done()
+
+    def all_gather(self, out, x, group) -> None:
+        self._record("all-gather", group, out)
+        out.view(self.group_size(group), *x.shape).copy_(x[None])
+
+    def reduce_scatter(self, out, x, group) -> None:
+        self._record("reduce-scatter", group, out)
+        n, i = self.group_size(group), self.group_index(group)
+        blk = out.shape[0]
+        out.copy_(x[i * blk:(i + 1) * blk]).mul_(n)
+
+    def __repr__(self):
+        dims = "x".join(str(s) for s in self.shape)
+        return (f"MirrorMesh({dims} {self.axis_names}, rank {self.rank}, "
+                f"{self.device})")
+
+
 def make_production_mesh(multi_pod: bool = False, device="meta"):
     """The reference's production mesh as a ``RecordingMesh``: 16 x 16
     (data, model), or with ``multi_pod`` 32 x 16, its `pod` axis of 2
@@ -352,15 +462,39 @@ def make_production_mesh(multi_pod: bool = False, device="meta"):
                          (axes.DATA, axes.MODEL), device=device)
 
 
+def arch_mesh(cfg, multi_pod: bool = False, device="meta"):
+    """The production mesh re-viewed for ``cfg``, as the reference's
+    ``arch_mesh``: where the expert count is below 16 and divides it, the
+    16-way `model` axis splits into (`model` = E, `tp` = 16 / E), so the
+    all-to-all runs over E ranks and each expert's hidden dim is sliced
+    over `tp` (DeepSpeed-MoE expert slicing): mixtral-8x22b's 8 experts
+    give (16, 8, 2), or (32, 8, 2) with `pod` folded into `data`.  Ranks
+    keep their order.  Otherwise ``make_production_mesh``."""
+    e = cfg.moe.n_experts if cfg.moe.enabled else 0
+    if not e or 16 % e or e >= 16:
+        return make_production_mesh(multi_pod, device=device)
+    return RecordingMesh((32 if multi_pod else 16, e, 16 // e),
+                         (axes.DATA, axes.MODEL, axes.TP), device=device)
+
+
+def mesh_axes(shape) -> tuple:
+    """The axis names of a mesh of ``shape``: (data, model), or (data,
+    model, tp) for three sizes."""
+    return (axes.DATA, axes.MODEL, axes.TP)[:len(shape)]
+
+
 def parse_mesh(spec: str) -> tuple:
-    """"DxE" -> (D, E)."""
+    """"DxE" -> (D, E); "DxExT" -> (D, E, T) (`tp` expert slicing)."""
     try:
-        dp_n, ep_n = (int(v) for v in spec.lower().split("x"))
+        sizes = tuple(int(v) for v in spec.lower().split("x"))
     except ValueError as e:
-        raise ValueError(f"--mesh {spec!r}: expected DxE, e.g. 2x2") from e
-    if dp_n < 1 or ep_n < 1:
+        raise ValueError(f"--mesh {spec!r}: expected DxE or DxExT, e.g. "
+                         f"2x2 or 1x2x2") from e
+    if len(sizes) not in (2, 3):
+        raise ValueError(f"--mesh {spec!r}: expected DxE or DxExT")
+    if min(sizes) < 1:
         raise ValueError(f"--mesh {spec!r}: sizes must be >= 1")
-    return dp_n, ep_n
+    return sizes
 
 
 def dp_size(mesh) -> int:
@@ -393,15 +527,15 @@ def spawn_ranks(main: Callable, argv, mesh_spec: Optional[str], device,
                 child: bool = False) -> bool:
     """Start the local ranks of ``--mesh mesh_spec`` when the command must
     (see the module doc): each runs ``main(argv, _child=True)`` after
-    joining a group of D * E ranks (gloo on the CPU, NCCL with one GPU a
+    joining a group of D * E (* T) ranks (gloo on the CPU, NCCL with one GPU a
     rank; too few GPUs raise).  Returns whether it spawned (the caller's
     process then has nothing left to do)."""
     if not mesh_spec or child or "WORLD_SIZE" in os.environ:
         return False
-    dp_n, ep_n = parse_mesh(mesh_spec)
-    if dp_n * ep_n == 1:
+    n = math.prod(parse_mesh(mesh_spec))
+    if n == 1:
         return False
-    spawn(main, argv, dp_n * ep_n, str(device))
+    spawn(main, argv, n, str(device))
     return True
 
 

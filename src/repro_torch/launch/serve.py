@@ -23,8 +23,10 @@ experts split over E), as ``launch.train`` does: under ``torchrun`` each
 process joins the job's group; otherwise, for D * E > 1, it spawns
 D * E local ranks (gloo with ``--device cpu``, NCCL with one GPU a rank,
 raising when the machine has too few GPUs), and at ``1x1`` it runs
-in-process on a one-rank group.  Every rank serves the same trace
-(``runtime.engine``); rank 0 prints.
+in-process on a one-rank group.  ``--mesh DxExT`` adds a `tp` axis: the
+server reads whole experts (the reference's ``P(EP_AXIS, None, None)``),
+so its T ranks of a `model` index serve the same rows.  Every rank serves
+the same trace (``runtime.engine``); rank 0 prints.
 
 ``--n-microops`` and ``--pipeline-ffn`` only keep the reference's command
 lines working: they reach the ``lina=False`` profiling forward alone, as there.
@@ -109,7 +111,8 @@ def parse_args(argv=None):
                     help="capture engine steps 2 .. N + 1 with "
                          "torch.profiler and print device time by kernel")
     ap.add_argument("--mesh", default=None,
-                    help="data x model mesh DxE, e.g. 2x2 (see the module "
+                    help="data x model (x tp) mesh DxE or DxExT, e.g. 2x2 "
+                         "(see the module "
                          "doc)")
     ap.add_argument("--warmup", action="store_true",
                     help="build and launch every kernel before serving")

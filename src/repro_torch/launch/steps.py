@@ -2,22 +2,23 @@
 reduction and the AdamW update on this rank (the reference's
 ``launch/steps.py::make_train_step``).
 
-Without a mesh it is the single-rank step: no all-to-all, and with no
-schedule no reduction.  With a mesh (``launch.mesh``) the MoE layers run
-expert parallel over its `model` group and the gradients are reduced over
-the ranks (``optim.reduce``): ``schedule`` None is one unordered
-all-reduce (the DDP default, the reference's implicit reduction), the
-named schedules are Lina's.  The global gradient norm adds the squares of
-the expert shards over the `model` group (over the world with ``fsdp``),
-and the loss and aux metrics are averaged over the world, so every rank
-logs the global step.
+Without a ``layout`` it is the single-rank step: no all-to-all, and with
+no schedule no reduction.  With one (``launch.sharding.Layout``: a mesh,
+the spec tree its params are stored by and the axes its batch rows are
+split over) the entry points compute with this rank's shards
+(``models.lm``) and the gradients are reduced over the ranks by each
+leaf's spec (``optim.reduce``): ``schedule`` None is one unordered
+all-reduce a group (the DDP default, the reference's implicit reduction),
+the named schedules are Lina's.  The global gradient norm sums each
+leaf's square over the axes it is split on, and the loss and aux metrics
+are averaged over the world, so every rank logs the global step.
 
 ``make_prefill_step``, ``make_decode_step`` and ``make_serve_plan`` are the
-reference's serve steps: the transformer branch of ``models.lm``'s serve
-entry points on a mesh (or none), under an identity plan sized to the
-mesh's expert-parallel group.  Their ``params`` are this rank's
-(``convert.shard_params``, with ``fsdp`` also cut over `data`), and each
-call fetches the hosted experts' weights anew, as the reference's does.
+reference's serve steps: ``models.lm``'s serve entry points over a layout
+(or none), under an identity plan sized to the mesh's expert-parallel
+group.  Their ``params`` are this rank's (``convert.shard_params``), and
+each call fetches the hosted experts' weights anew, as the reference's
+does.
 """
 from __future__ import annotations
 
@@ -25,8 +26,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.moe import expert_leaf_flags
-from repro_torch.core import axes
 from repro_torch.core.placement import identity_plan
 from repro_torch.core.serving import PlanArrays
 from repro_torch.launch.mesh import ep_size
@@ -36,26 +35,29 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
 
-def global_grad_norm(mesh, grads, fsdp: bool = False) -> torch.Tensor:
+def global_grad_norm(mesh, grads, specs) -> torch.Tensor:
     """The norm of the whole model's reduced gradient, from this rank's
-    leaves: replicated leaves once, each expert leaf's square summed over
-    the ranks that hold the other experts (one all-reduce of a vector),
-    then added in leaf order, as ``adamw.clip_by_global_norm`` adds them
-    (so one rank gives its norm bit for bit)."""
-    flags = expert_leaf_flags(grads)
+    leaves: each leaf's square summed over the axes its spec in ``specs``
+    splits it on (one all-reduce of a vector a set of axes), never over
+    its replicas, then added in leaf order, as
+    ``adamw.clip_by_global_norm`` adds them (so one rank gives its norm
+    bit for bit)."""
     sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
-    exp = [i for i, f in enumerate(flags) if f]
-    if exp:
-        v = torch.stack([sq[i] for i in exp])
-        mesh.all_reduce(v, mesh.world_group if fsdp
-                        else mesh.group(axes.EP_AXIS))
-        for j, i in enumerate(exp):
+    by = {}                    # the axes -> the leaves summed over them
+    for i, s in enumerate(tree_leaves(specs)):
+        names = tuple(a for a in mesh.axis_names if a in s.names())
+        if names:
+            by.setdefault(names, []).append(i)
+    for names, idx in by.items():
+        v = torch.stack([sq[i] for i in idx])
+        mesh.all_reduce(v, mesh.group_for(names))
+        for j, i in enumerate(idx):
             sq[i] = v[j]
     return torch.sqrt(sum(sq))
 
 
 def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, *,
-                    mesh=None, lina: bool = True, fsdp: bool = False,
+                    layout=None, lina: bool = True,
                     dispatch_backend: str = "scatter",
                     microbatches: int = 1,
                     schedule: Optional[str] = None,
@@ -64,9 +66,10 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, *,
                     grad_compression: Optional[str] = None):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
-    ``params`` are this rank's fp32 master ``LMParams`` (its expert shard
-    with a mesh, ``convert.shard_params``); ``batch`` holds this rank's
-    ``tokens`` and ``labels`` [B, S] on its device.  ``microbatches > 1``
+    ``params`` are this rank's fp32 master ``LMParams`` (its shards by
+    ``layout.specs``, ``convert.shard_params``; the AdamW moments alike);
+    ``batch`` holds this rank's ``tokens`` and ``labels`` [B, S] on its
+    device.  ``microbatches > 1``
     sums the gradients of B / microbatches slices, then divides, as the
     reference's scan.  ``metrics`` holds 0-d tensors ``loss``,
     ``aux_loss``, ``grad_norm`` and ``lr``.
@@ -82,14 +85,15 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, *,
 
     The returned step's ``reduced_grads(params, batch, reduce_state)``
     gives (grads, loss, aux, reduce_state) without the update."""
+    mesh = specs = None
+    if layout is not None:
+        mesh, specs = layout.mesh, layout.specs
     opt_cfg = opt_cfg or AdamWConfig(state_dtype=cfg.opt_state_dtype)
     if grad_compression is not None and schedule is None:
         raise ValueError("grad_compression requires an explicit schedule "
                          f"(one of {reduce_mod.SCHEDULES})")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
-    if fsdp and mesh is None:
-        raise ValueError("fsdp needs a mesh")
     rcfg = None
     if schedule is not None:
         rcfg = reduce_mod.ReduceConfig(schedule=schedule,
@@ -105,7 +109,7 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, *,
         ps = tree_map(lambda p: p.detach().requires_grad_(), params)
         out = lm_mod.forward_train(cfg, ps, batch,
                                    dispatch_backend=dispatch_backend,
-                                   mesh=mesh, lina=lina, fsdp=fsdp)
+                                   lina=lina, layout=layout)
         # a leaf the loss does not reach (hubert's token embedding: it
         # reads frames) gets zeros, as jax.grad gives it
         grads = torch.autograd.grad(out.loss, tree_leaves(ps),
@@ -116,8 +120,8 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, *,
     def reduce(grads, rstate, async_op=False):
         after = reduce_mod.backward_a2a_token(mesh)
         return reduce_mod.reduce_gradients(mesh, grads, rcfg, after=after,
-                                           state=rstate, fsdp=fsdp,
-                                           async_op=async_op)
+                                           state=rstate, async_op=async_op,
+                                           specs=specs)
 
     def reduced_grads(params, batch, rstate=None):
         if microbatches == 1:
@@ -162,7 +166,7 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, *,
         return grads, loss, aux, rstate
 
     def finish(params, opt_state, grads, loss, aux):
-        gn = None if mesh is None else global_grad_norm(mesh, grads, fsdp)
+        gn = None if mesh is None else global_grad_norm(mesh, grads, specs)
         params, opt_state, om = adamw_update(params, grads, opt_state,
                                              opt_cfg, grad_norm=gn)
         return params, opt_state, {"loss": loss, "aux_loss": aux, **om}
@@ -182,26 +186,26 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, *,
     return train_step
 
 
-def make_prefill_step(cfg, mesh, *, serve_plan=None, serve_top_k=None,
-                      fsdp: bool = True):
+def make_prefill_step(cfg, layout=None, *, serve_plan=None,
+                      serve_top_k=None):
     """(params, batch) -> last-position logits [B, V]
-    (``lm.forward_prefill``)."""
+    (``lm.forward_prefill`` over ``layout``)."""
     def prefill_step(params, batch):
-        return lm_mod.forward_prefill(cfg, params, batch, mesh=mesh,
+        return lm_mod.forward_prefill(cfg, params, batch,
                                       serve_plan=serve_plan,
                                       serve_top_k=serve_top_k,
-                                      fsdp=fsdp).logits
+                                      layout=layout).logits
     return prefill_step
 
 
-def make_decode_step(cfg, mesh, *, serve_plan=None, serve_top_k=None,
-                     fsdp: bool = True):
+def make_decode_step(cfg, layout=None, *, serve_plan=None,
+                     serve_top_k=None):
     """(params, cache, token) -> (logits, cache, expert_choices)
-    (``lm.decode_step``)."""
+    (``lm.decode_step`` over ``layout``)."""
     def decode_step(params, cache, token):
-        return lm_mod.decode_step(cfg, params, cache, token, mesh=mesh,
+        return lm_mod.decode_step(cfg, params, cache, token,
                                   serve_plan=serve_plan,
-                                  serve_top_k=serve_top_k, fsdp=fsdp)
+                                  serve_top_k=serve_top_k, layout=layout)
     return decode_step
 
 

@@ -24,7 +24,6 @@ import traceback
 
 from repro_torch.configs import ASSIGNED, SHAPES, get_config, skip_reason
 from repro_torch.launch import dryrun
-from repro_torch.launch.mesh import make_production_mesh
 
 SHAPE_NAMES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
@@ -60,9 +59,7 @@ def load_done(path):
 
 def static_skip(arch: str, shape: str, multi_pod: bool):
     """The skip reason known without running the cell, or None."""
-    cfg = get_config(arch)
-    return skip_reason(cfg, SHAPES[shape]) or dryrun.mesh_skip_reason(
-        cfg, SHAPES[shape], make_production_mesh(multi_pod))
+    return skip_reason(get_config(arch), SHAPES[shape])
 
 
 def append(out: str, row: dict) -> None:

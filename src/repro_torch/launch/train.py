@@ -2,7 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-moe \\
         [--steps 50 --batch 8 --seq 1024] [--device cuda|cpu] \\
-        [--mesh DxE] [--schedule priority+partition+pipeline] \\
+        [--mesh DxE | DxExT] [--schedule priority+partition+pipeline] \\
         [--grad-compression bf16|int8_ef] [--n-microops 4] [--no-lina]
 
 Flags follow ``repro.launch.train``.  ``--device`` defaults to ``cuda`` and
@@ -11,9 +11,13 @@ raises without a card; ``--device cpu`` runs the kernels' plain versions.
 kernels), so with the arch's ``compute_backend`` "auto" every MoE op runs
 its kernel.
 
-``--mesh DxE`` trains on D x E ranks (``launch.mesh``: data x model, the
-experts split over E).  Under ``torchrun`` each process joins the job's
-group; otherwise, for D * E > 1, the driver spawns D * E local ranks (gloo
+``--mesh DxE`` trains on D x E ranks (``launch.mesh``: data x model),
+every leaf stored as the reference's specs place it (``launch.sharding``:
+FSDP over `data`, tensor parallel and the experts over `model`);
+``--mesh DxExT`` adds the `tp` axis (the experts' hidden dims sliced over
+T ranks, ``launch.mesh.arch_mesh``).  Under ``torchrun`` each process
+joins the job's group; otherwise, for a mesh of more than one rank, the
+driver spawns one local rank a mesh position (gloo
 with ``--device cpu``, NCCL with one GPU a rank, raising when the machine
 has too few GPUs), and at ``1x1`` it runs in-process on a one-rank group.
 Rank 0 prints and writes the metrics and the trace.
@@ -98,8 +102,8 @@ def parse_args(argv=None):
     ap.add_argument("--no-shortcut", dest="shortcut", action="store_false",
                     help="disable the shortcut even if the arch enables it")
     ap.add_argument("--mesh", default=None,
-                    help="data x model mesh DxE, e.g. 2x2 (see the module "
-                         "doc)")
+                    help="data x model (x tp) mesh DxE or DxExT, e.g. 2x2 "
+                         "(see the module doc)")
     return ap.parse_args(argv)
 
 

@@ -51,3 +51,14 @@ def ffn_branch(x, w_in, w_up, w_out, ffn_type: str):
     else:
         h = gelu(h)
     return h @ w_out
+
+
+def ffn_parallel(x, w_in, w_up, w_out, ffn_type: str, f: int, layout):
+    """The dense FFN of hidden width ``f`` on replicated x, with w_in /
+    w_up column-parallel and w_out row-parallel over ``layout``'s
+    model-parallel group where they are split (one all-reduce of the
+    partial output, ``layout.reduce_mp``); whole weights compute whole."""
+    y = ffn_branch(x, w_in, w_up, w_out, ffn_type)
+    if layout is not None and w_out.shape[-2] != f:
+        y = layout.reduce_mp(y)
+    return y

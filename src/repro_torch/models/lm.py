@@ -29,12 +29,30 @@ their prefill attention the flash kernel on the kernel route
 The transformer serve entry points take the reference's keywords: with a
 ``serve_plan`` (one ``PlanArrays`` for every MoE layer, or a stacked one,
 a plan a layer) each MoE layer is ``core.serving.serve_moe_layer``, else
-``core.moe.moe_layer``.  With a ``mesh`` the batch is the whole batch on
-every rank and ``params`` hold this rank's experts
-(``convert.shard_params``, with ``fsdp`` also cut over `data`): a
-plan-honoring layer shards the tokens itself, and ``moe_layer`` gets the
-reference's token shard (batch over `data` where B tiles it, sequence over
-`model` where S tiles it), its outputs all-gathered back.
+``core.moe.moe_layer``.
+
+With a ``layout`` (``launch.sharding.Layout``: a mesh, the spec tree of
+the stored params, the axes the batch rows are split over) every leaf is
+stored as its spec says and the entry points compute with the shards:
+each layer group's (each layer's) FSDP splits are all-gathered when it
+runs (again in the backward under remat; the gradient reduce-scattered),
+attention and the dense FFNs run tensor parallel over the `model` (and
+`tp`) ranks where their weights are split there, the embedding is looked
+up vocab-parallel (a masked local lookup and one all-reduce), the
+training loss is a vocab-parallel cross-entropy (a max, a sum-of-exp and
+a gold-logit all-reduce a chunk) and the serve logits are all-gathered
+over the vocab.  ``batch`` holds this rank's rows (``layout.batch_axes``;
+the reference's ``batch_specs``: B / dp rows where they split, else the
+whole batch), replicated over the other axes.  The MoE layer takes the
+reference's token shard of them (batch over `data` where B tiles it and
+the rows are not split there already, sequence over `model` where S tiles
+it and the rows are not split there), its outputs all-gathered back; its
+experts are this rank's E / ep, on a mesh with `tp` each expert's hidden
+slice (``core.moe``).  Decode reads a cache cut by ``cache_specs``: its
+sequence over the model-parallel ranks (``models.attention``).  The
+hybrid and RWKV stacks are FSDP only, but for zamba2's shared block.
+The expert-parallel layout (``launch.sharding.expert_layout``) is the
+special case whose experts alone are split.
 """
 from __future__ import annotations
 
@@ -44,8 +62,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import axes
-from repro_torch.core.moe import (MoEOutput, MoEParams, gather_axis,
-                                  gather_hidden, moe_layer)
+from repro_torch.core.collectives import gather_axis, gather_grad
+from repro_torch.core.moe import MoEOutput, MoEParams, moe_layer
 from repro_torch.core.serving import serve_moe_layer
 from repro_torch.devices import resolve_device
 from repro_torch.kernels.ops import kernel_route
@@ -53,7 +71,7 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (AttnParams, KVCache, attention,
                                           decode_attention)
-from repro_torch.models.layers import dense_init, ffn_branch, rms_norm
+from repro_torch.models.layers import dense_init, ffn_parallel, rms_norm
 from repro_torch.tree import tree_map
 
 FRAME_DIM = 512      # audio stub frame-embedding dim
@@ -243,8 +261,21 @@ def cast_for_compute(cfg, params: LMParams) -> LMParams:
     return tree_map(one, params)
 
 
+def lookup(cfg, embed, tokens, layout=None):
+    """Rows of the embedding for ``tokens``; with the vocab split over
+    ``layout``'s model-parallel ranks, a masked lookup of this rank's rows
+    summed over them (one all-reduce)."""
+    v_loc = embed.shape[0]
+    if layout is None or v_loc == cfg.vocab_size:
+        return embed[tokens.long()]
+    t = tokens.long() - layout.i * v_loc
+    inside = (t >= 0) & (t < v_loc)
+    x = embed[t.clamp(0, v_loc - 1)] * inside[..., None].to(embed.dtype)
+    return layout.reduce_mp(x)
+
+
 def embed_inputs(cfg, params: LMParams, *, tokens=None, patches=None,
-                 frames=None, mask=None):
+                 frames=None, mask=None, layout=None):
     """The model's input embedding x [B, S, d] in ``cfg.dtype``, as the
     reference's: the audio stub projects frames [B, S, FRAME_DIM] (frames
     where ``mask`` [B, S] is True replaced by ``mask_emb``) through
@@ -264,7 +295,7 @@ def embed_inputs(cfg, params: LMParams, *, tokens=None, patches=None,
         w = params.frame_proj
         pt = torch.promote_types(f.dtype, w.dtype)
         return (f.to(pt) @ w.to(pt)).to(dtype)
-    x = params.embed[tokens.long()].to(dtype)
+    x = lookup(cfg, params.embed, tokens, layout).to(dtype)
     if cfg.frontend == "vision_stub":
         pe = (patches.to(params.patch_proj.dtype) @ params.patch_proj
               ).to(dtype)
@@ -283,8 +314,10 @@ def unembed_weight(params: LMParams):
     return params.embed.T if params.lm_head is None else params.lm_head
 
 
-def _ffn_apply(p: FFNParams, x, ffn_type):
-    return ffn_branch(x, p.w_in, p.w_up, p.w_out, ffn_type)
+def _ffn_apply(p: FFNParams, x, ffn_type, layout=None, f: int = 0):
+    """The dense FFN of hidden width ``f`` (tensor parallel where
+    ``layout`` splits it: ``models.layers.ffn_parallel``)."""
+    return ffn_parallel(x, p.w_in, p.w_up, p.w_out, ffn_type, f, layout)
 
 
 def _ce_chunk(xc, w_unembed, lab, m):
@@ -294,22 +327,43 @@ def _ce_chunk(xc, w_unembed, lab, m):
     return ((lse - gold) * m).sum()
 
 
+def _ce_chunk_parallel(xc, w_unembed, lab, m, layout):
+    """``_ce_chunk`` with the vocab split over ``layout``'s model-parallel
+    ranks: the max, the sum of exp and the gold logit each summed (the max
+    maxed) over them."""
+    logits = (xc @ w_unembed).float()
+    v_loc = logits.shape[-1]
+    mx = logits.detach().amax(dim=-1).contiguous()
+    layout.mesh.all_reduce(mx, layout.mp, op="max")
+    se = layout.reduce_mp(torch.exp(logits - mx[..., None]).sum(dim=-1))
+    t = lab.long() - layout.i * v_loc
+    inside = (t >= 0) & (t < v_loc)
+    gold = torch.gather(logits, -1, t.clamp(0, v_loc - 1)[..., None])[..., 0]
+    gold = layout.reduce_mp(gold * inside)
+    return ((mx + torch.log(se) - gold) * m).sum()
+
+
 def chunked_ce_loss(x, w_unembed, labels, loss_mask, chunk=CE_CHUNK,
-                    remat: bool = False):
+                    remat: bool = False, layout=None, vocab: int = 0):
     """Cross-entropy over sequence chunks without [B, S, V] logits.  With
     ``remat`` each chunk's logits are recomputed in the backward instead of
-    saved, as the reference's checkpointed chunk scan."""
+    saved, as the reference's checkpointed chunk scan.  Where ``layout``
+    splits the unembedding's ``vocab`` columns the loss is vocab-parallel
+    (``_ce_chunk_parallel``)."""
     b, s, d = x.shape
     c = min(chunk, s)
     while s % c:
         c -= 1
     tot = torch.zeros((), device=x.device)
     cnt = torch.zeros((), device=x.device)
+    fn, extra = _ce_chunk, ()
+    if layout is not None and w_unembed.shape[-1] != vocab:
+        fn, extra = _ce_chunk_parallel, (layout,)
     for i in range(0, s, c):
         args = (x[:, i:i + c], w_unembed, labels[:, i:i + c],
                 loss_mask[:, i:i + c])
-        nll = checkpoint(_ce_chunk, *args, use_reentrant=False) if remat \
-            else _ce_chunk(*args)
+        nll = checkpoint(fn, *args, *extra, use_reentrant=False) if remat \
+            else fn(*args, *extra)
         tot = tot + nll
         cnt = cnt + args[3].sum()
     return tot / torch.clamp(cnt, min=1.0)
@@ -319,23 +373,28 @@ def chunked_ce_loss(x, w_unembed, labels, loss_mask, chunk=CE_CHUNK,
 # the transformer family's layer groups
 # ---------------------------------------------------------------------------
 
-def _moe_whole_batch(h, moe_p: MoEParams, cfg, *, mesh, lina: bool,
-                     fsdp: bool, top_k=None, shortcut=None,
-                     dispatch_backend: str = "scatter") -> MoEOutput:
-    """``moe_layer`` on the whole batch h [B, S, d].  With a mesh this rank
-    takes the reference's token shard (batch over `data` if B tiles it,
-    sequence over `model` if S tiles it, else the whole dim), and y and
-    the ids come back all-gathered: [B, S, d] and [B * S, k] in (b, s)
-    order (the reference keeps its ids in shard order).  Without one,
-    ``lina`` and ``fsdp`` have nothing to act on, as on the reference's
-    one-device default mesh."""
-    if mesh is None:
+def _moe_whole_batch(h, moe_p: MoEParams, cfg, *, layout, lina: bool,
+                     top_k=None, shortcut=None,
+                     dispatch_backend: str = "scatter",
+                     expert_slicing: bool = False) -> MoEOutput:
+    """``moe_layer`` on this rank's rows h [B, S, d].  Over a ``layout``
+    this rank takes the reference's token shard of them (batch over `data`
+    if B tiles it and the rows are not split there already, sequence over
+    `model` if S tiles it and the rows are not split there, else the whole
+    dim), and y and the ids come back all-gathered: [B, S, d] and [B * S,
+    k] in (b, s) order (the reference keeps its ids in shard order); y's
+    gathers are differentiable (their backward a reduce-scatter).  Without
+    one, ``lina`` has nothing to act on, as on the reference's one-device
+    default mesh."""
+    if layout is None:
         return moe_layer(h, moe_p, cfg.moe, ffn_type=cfg.ffn_type,
                          dispatch_backend=dispatch_backend, top_k=top_k,
                          shortcut_params=shortcut)
+    mesh = layout.mesh
     b, s, d = h.shape
     dp_n, ep = mesh.size(axes.DATA), mesh.size(axes.EP_AXIS)
-    bq, sq = b % dp_n == 0, s % ep == 0
+    bq = axes.DATA not in layout.batch_axes and b % dp_n == 0
+    sq = axes.EP_AXIS not in layout.batch_axes and s % ep == 0
     if bq:
         i, n = mesh.index(axes.DATA), b // dp_n
         h = h[i * n:(i + 1) * n]
@@ -344,14 +403,15 @@ def _moe_whole_batch(h, moe_p: MoEParams, cfg, *, mesh, lina: bool,
         h = h[:, i * n:(i + 1) * n]
     out = moe_layer(h, moe_p, cfg.moe, ffn_type=cfg.ffn_type,
                     dispatch_backend=dispatch_backend, top_k=top_k,
-                    mesh=mesh, lina=lina, fsdp=fsdp,
-                    shortcut_params=shortcut)
+                    mesh=mesh, lina=lina, shortcut_params=shortcut,
+                    expert_slicing=expert_slicing)
     bl, sl = h.shape[:2]
     y = out.y
     eidx = out.expert_idx.reshape(bl, sl, -1)
     for go, axis, dim in ((sq, axes.EP_AXIS, 1), (bq, axes.DATA, 0)):
         if go:
-            y, eidx = (gather_axis(a, mesh, axis, dim) for a in (y, eidx))
+            y = gather_grad(y, mesh, mesh.group(axis), dim)
+            eidx = gather_axis(eidx, mesh, axis, dim)
     return MoEOutput(y, out.aux_loss, eidx.reshape(b * s, -1), None)
 
 
@@ -361,68 +421,83 @@ def _plan_of(serve_plan, gi: int):
     return serve_plan.layer(gi)
 
 
-def _moe_sublayer(cfg, gp: GroupParams, h, plan, *, mesh, lina: bool,
-                  fsdp: bool, serve_top_k, fuse_shortcut: bool,
-                  dispatch_backend: str, replicated: bool):
-    """The MoE sublayer on h [B, S, d] -> (moe_y, aux, top-1 id per token
-    [B * S]).  Under ``plan`` it is the plan-honoring layer; else
-    ``moe_layer``, with ``fuse_shortcut`` taking the ScMoE shortcut into
-    it.  ``replicated``: h is the whole batch on every rank of the mesh
-    (the serve entry points), not this rank's own (training).  The shared
-    expert is added outside the plan dispatch."""
+def _moe_sublayer(cfg, gp: GroupParams, h, plan, *, layout, lina: bool,
+                  serve_top_k, fuse_shortcut: bool, dispatch_backend: str):
+    """The MoE sublayer on this rank's rows h [B, S, d] -> (moe_y, aux,
+    top-1 id per token [B * S]), its experts [E / ep, d, f / tp] after the
+    FSDP gather.  Under ``plan`` it is the plan-honoring layer, which
+    reads whole experts (the reference's ``P(EP_AXIS, None, None)``), so
+    their hidden slices are gathered over `tp` where its hosted stack is
+    built; else ``moe_layer``, which keeps them sliced (its expert
+    slicing), with ``fuse_shortcut`` taking the ScMoE shortcut into it.
+    The fused shortcut runs on the layer's own tokens, so its
+    tensor-parallel weights are gathered whole; the shared expert is added
+    outside the plan dispatch, tensor parallel on h."""
+    mesh = None if layout is None else layout.mesh
     b, s, d = h.shape
     moe_p = gp.moe
+    f_moe = cfg.moe.d_ff or cfg.d_ff
+    sliced = moe_p.wi.shape[-1] != f_moe
     sc = gp.shared if fuse_shortcut and cfg.moe.shortcut else None
+    if sc is not None and layout is not None:
+        sc = FFNParams(*(w if w is None or w.shape[dim] == f_moe
+                         else layout.gather_mp(w, dim)
+                         for w, dim in ((sc.w_in, 1), (sc.w_up, 1),
+                                        (sc.w_out, 0))))
     if plan is not None:
-        if fsdp and mesh is not None:
+        if sliced:
+            tpg = mesh.group(axes.TP)
             moe_p = moe_p._replace(
-                wi=gather_hidden(moe_p.wi, mesh, 2),
-                wu=None if moe_p.wu is None else gather_hidden(moe_p.wu,
-                                                               mesh, 2),
-                wo=gather_hidden(moe_p.wo, mesh, 1))
+                wi=gather_grad(moe_p.wi, mesh, tpg, 2),
+                wu=None if moe_p.wu is None else gather_grad(moe_p.wu, mesh,
+                                                             tpg, 2),
+                wo=gather_grad(moe_p.wo, mesh, tpg, 1))
+        local = layout is not None and axes.DATA in layout.batch_axes
         y2, eidx, _ = serve_moe_layer(h.reshape(b * s, d), moe_p, cfg.moe,
                                       plan, ffn_type=cfg.ffn_type,
-                                      top_k=serve_top_k, mesh=mesh)
+                                      top_k=serve_top_k, mesh=mesh,
+                                      local=local)
         moe_y, aux, sc = y2.reshape(b, s, d), torch.zeros(
             (), device=h.device), None
-    elif replicated:
-        out = _moe_whole_batch(h, moe_p, cfg, mesh=mesh, lina=lina,
-                               fsdp=fsdp, top_k=serve_top_k, shortcut=sc,
-                               dispatch_backend=dispatch_backend)
-        moe_y, aux, eidx = out.y, out.aux_loss, out.expert_idx
     else:
-        out = moe_layer(h, moe_p, cfg.moe, ffn_type=cfg.ffn_type,
-                        dispatch_backend=dispatch_backend, top_k=serve_top_k,
-                        mesh=mesh, lina=lina, fsdp=fsdp, shortcut_params=sc)
+        out = _moe_whole_batch(h, moe_p, cfg, layout=layout, lina=lina,
+                               top_k=serve_top_k, shortcut=sc,
+                               dispatch_backend=dispatch_backend,
+                               expert_slicing=sliced)
         moe_y, aux, eidx = out.y, out.aux_loss, out.expert_idx
     if gp.shared is not None and sc is None:
-        moe_y = moe_y + _ffn_apply(gp.shared, h, cfg.ffn_type)
+        moe_y = moe_y + _ffn_apply(gp.shared, h, cfg.ffn_type, layout, f_moe)
     return moe_y, aux, eidx[:, 0].to(torch.int32)
 
 
 def _group_apply(cfg, gp: GroupParams, x, *, plan=None, serve_top_k=None,
-                 dispatch_backend: str = "scatter", mesh=None,
-                 lina: bool = True, fsdp: bool = False,
-                 use_kernel: bool = False, replicated: bool = False):
+                 dispatch_backend: str = "scatter", lina: bool = True,
+                 use_kernel: bool = False, layout=None):
     """One layer group (``moe.every`` blocks) on [B, S, d] ->
     (x, aux loss, top-1 expert per token or None).  ``use_kernel`` runs
     the flash kernel for attention (no backward); the rest is
-    ``_moe_sublayer``'s, the ScMoE shortcut fused into ``moe_layer``."""
+    ``_moe_sublayer``'s, the ScMoE shortcut fused into ``moe_layer``.
+    With a ``layout`` the group's stored shards ``gp`` are gathered here
+    (so under remat again in the backward)."""
+    if layout is not None:
+        gp = layout.gather(gp, layout.specs.stack, lead=1)
     every = cfg.moe.every if cfg.moe.enabled else 1
     aux = torch.zeros((), device=x.device)
     top1 = None
     for j in range(every):
         h = rms_norm(x, gp.ln1[j], cfg.norm_eps)
-        y, _ = attention(tree_idx(gp.attn, j), h, cfg, use_kernel=use_kernel)
+        y, _ = attention(tree_idx(gp.attn, j), h, cfg, use_kernel=use_kernel,
+                         layout=layout)
         x = x + y
         h = rms_norm(x, gp.ln2[j], cfg.norm_eps)
         if not (cfg.moe.enabled and j == every - 1):
-            x = x + _ffn_apply(tree_idx(gp.ffn, j), h, cfg.ffn_type)
+            x = x + _ffn_apply(tree_idx(gp.ffn, j), h, cfg.ffn_type, layout,
+                               cfg.d_ff)
             continue
         moe_y, a, top1 = _moe_sublayer(
-            cfg, gp, h, plan, mesh=mesh, lina=lina, fsdp=fsdp,
+            cfg, gp, h, plan, layout=layout, lina=lina,
             serve_top_k=serve_top_k, fuse_shortcut=True,
-            dispatch_backend=dispatch_backend, replicated=replicated)
+            dispatch_backend=dispatch_backend)
         x = x + moe_y
         aux = aux + a
     return x, aux, top1
@@ -451,16 +526,36 @@ def run_stack(cfg, stack: GroupParams, x, *, serve_plan=None,
     return x, aux, torch.stack(top1s) if top1s else None
 
 
+def _top(p: LMParams, layout) -> LMParams:
+    """``p`` with its leaves outside the stack FSDP-gathered."""
+    if layout is None:
+        return p
+    top = layout.gather(p._replace(stack=None),
+                        layout.specs._replace(stack=None))
+    return top._replace(stack=p.stack)
+
+
+def logits_of(cfg, p: LMParams, x, layout=None):
+    """Logits [B, V] of x [B, d] (the unembedding's vocab split over
+    ``layout``'s model-parallel ranks: gathered)."""
+    w = unembed_weight(p)
+    logits = x @ w
+    if layout is not None and w.shape[-1] != cfg.vocab_size:
+        logits = layout.gather_mp(logits, 1)
+    return logits
+
+
 def forward_train(cfg, params: LMParams, batch: dict, *,
-                  dispatch_backend: str = "scatter", mesh=None,
-                  lina: bool = True, fsdp: bool = False) -> ModelOutput:
+                  dispatch_backend: str = "scatter", lina: bool = True,
+                  layout=None) -> ModelOutput:
     """Training forward on this rank's batch: loss (CE + aux), aux loss,
     and per-MoE-layer top-1 expert choices [n_moe_layers, B*S].  ``batch``
     holds ``tokens`` and ``labels`` [B, S] tensors on the params' device.
-    Without ``mesh`` it is the single-rank model; with one, the MoE layers
-    run expert parallel over it (``core.moe.moe_layer``'s ``mesh``,
-    ``lina`` and ``fsdp``; ``params`` hold this rank's experts).  The loss
-    is this rank's: its mean over the ranks is the global loss.
+    Without a ``layout`` it is the single-rank model; with one (see the
+    module doc) ``params`` are this rank's shards, ``batch`` its rows, and
+    the MoE layers run expert parallel (``core.moe.moe_layer``'s
+    ``lina``).  The loss is this rank's: its mean over the ranks is the
+    global loss (the same on ranks that hold the same rows).
 
     Differentiable in ``params`` (fp32 masters cast to ``cfg.dtype`` for
     compute).  With ``cfg.remat`` each layer group (each layer of the
@@ -480,7 +575,7 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
     [B, P, d] and ``labels`` [B, S_text]: the patch prefix gets zero
     labels and a zero loss mask, the text next-token labels."""
     _check_family(cfg)
-    p = cast_for_compute(cfg, params)
+    p = _top(cast_for_compute(cfg, params), layout)
     tokens = batch.get("tokens")
     if cfg.frontend == "audio_stub":
         frames = batch["frames"]
@@ -488,7 +583,8 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
         x = embed_inputs(cfg, p, frames=frames, mask=mask)
         labels, loss_mask = batch["labels"], mask.float()
     elif cfg.frontend == "vision_stub":
-        x = embed_inputs(cfg, p, tokens=tokens, patches=batch["patches"])
+        x = embed_inputs(cfg, p, tokens=tokens, patches=batch["patches"],
+                         layout=layout)
         lab_txt = batch["labels"]
         pad = torch.zeros((tokens.shape[0], batch["patches"].shape[1]),
                           dtype=lab_txt.dtype, device=lab_txt.device)
@@ -497,22 +593,24 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
                                torch.ones(lab_txt.shape, device=x.device)],
                               dim=1)
     else:
-        x = embed_inputs(cfg, p, tokens=tokens)
+        x = embed_inputs(cfg, p, tokens=tokens, layout=layout)
         labels = batch["labels"]
         loss_mask = torch.ones(labels.shape, device=x.device)
     if isinstance(p.stack, HybridParams):
-        x = _run_hybrid(cfg, p.stack, x, attn_kernel=False, remat=cfg.remat)
+        x = _run_hybrid(cfg, p.stack, x, attn_kernel=False, remat=cfg.remat,
+                        layout=layout)
         aux, experts = torch.zeros((), device=x.device), None
     elif isinstance(p.stack, RWKVStack):
-        x = _run_rwkv(cfg, p.stack, x, remat=cfg.remat)
+        x = _run_rwkv(cfg, p.stack, x, remat=cfg.remat, layout=layout)
         aux, experts = torch.zeros((), device=x.device), None
     else:
         x, aux, experts = run_stack(cfg, p.stack, x, remat=cfg.remat,
                                     dispatch_backend=dispatch_backend,
-                                    mesh=mesh, lina=lina, fsdp=fsdp)
+                                    lina=lina, layout=layout)
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
     loss = chunked_ce_loss(x, unembed_weight(p), labels, loss_mask,
-                           remat=cfg.remat)
+                           remat=cfg.remat, layout=layout,
+                           vocab=cfg.vocab_size)
     return ModelOutput(loss + aux, aux, experts)
 
 
@@ -525,25 +623,43 @@ def _taps(cfg) -> list:
     return [ch in "A*" for ch in cfg.layer_pattern]
 
 
-def _shared_block(cfg, hp: HybridParams, x, use_kernel: bool):
+def _shared_params(hp: HybridParams, layout):
+    """The shared block's (attention, FFN) weights, FSDP-gathered."""
+    if layout is None:
+        return hp.shared_attn, hp.shared_ffn
+    sp = layout.specs.stack
+    return (layout.gather(hp.shared_attn, sp.shared_attn),
+            layout.gather(hp.shared_ffn, sp.shared_ffn))
+
+
+def _layer(tree, specs, li: int, layout):
+    """Layer ``li`` of a stacked tree, FSDP-gathered over ``layout``."""
+    t = tree_idx(tree, li)
+    return t if layout is None else layout.gather(t, specs, lead=1)
+
+
+def _shared_block(cfg, hp: HybridParams, x, use_kernel: bool, layout=None):
+    attn_p, ffn_p = _shared_params(hp, layout)
     h = rms_norm(x, hp.ln_s1, cfg.norm_eps)
-    y, _ = attention(hp.shared_attn, h, cfg, use_kernel=use_kernel)
+    y, _ = attention(attn_p, h, cfg, use_kernel=use_kernel, layout=layout)
     x = x + y
     h = rms_norm(x, hp.ln_s2, cfg.norm_eps)
-    return x + _ffn_apply(hp.shared_ffn, h, cfg.ffn_type)
+    return x + _ffn_apply(ffn_p, h, cfg.ffn_type, layout, cfg.d_ff)
 
 
 def _hybrid_layer(cfg, hp: HybridParams, li: int, tap: bool, x,
-                  attn_kernel: bool):
+                  attn_kernel: bool, layout=None):
     """Mamba2 layer ``li``, then the shared block if it is a tap."""
+    mp = _layer(hp.mamba, None if layout is None
+                else layout.specs.stack.mamba, li, layout)
     h = rms_norm(x, hp.ln_m[li], cfg.norm_eps)
-    y, _ = ssm_mod.mamba_block(tree_idx(hp.mamba, li), cfg, h)
+    y, _ = ssm_mod.mamba_block(mp, cfg, h)
     x = x + y
-    return _shared_block(cfg, hp, x, attn_kernel) if tap else x
+    return _shared_block(cfg, hp, x, attn_kernel, layout) if tap else x
 
 
 def _run_hybrid(cfg, hp: HybridParams, x, *, attn_kernel: bool,
-                remat: bool = False):
+                remat: bool = False, layout=None):
     """Mamba2 layers, the shared block after each tap.  x: [B, S, d].
     ``attn_kernel``: the shared block's attention on the flash kernel
     (serving only: it has no backward).  With ``remat`` each layer runs
@@ -551,15 +667,16 @@ def _run_hybrid(cfg, hp: HybridParams, x, *, attn_kernel: bool,
     for li, tap in enumerate(_taps(cfg)):
         if remat:
             x = checkpoint(_hybrid_layer, cfg, hp, li, tap, x, attn_kernel,
-                           use_reentrant=False)
+                           layout, use_reentrant=False)
         else:
-            x = _hybrid_layer(cfg, hp, li, tap, x, attn_kernel)
+            x = _hybrid_layer(cfg, hp, li, tap, x, attn_kernel, layout)
     return x
 
 
-def _rwkv_layer(cfg, st: RWKVStack, li: int, x):
+def _rwkv_layer(cfg, st: RWKVStack, li: int, x, layout=None):
     """RWKV6 layer ``li``: time-mix then channel-mix."""
-    bp = tree_idx(st.blocks, li)
+    bp = _layer(st.blocks, None if layout is None
+                else layout.specs.stack.blocks, li, layout)
     h = rms_norm(x, st.ln1[li], cfg.norm_eps)
     y, _, _ = rwkv_mod.time_mix(bp, cfg, h)
     x = x + y
@@ -568,50 +685,54 @@ def _rwkv_layer(cfg, st: RWKVStack, li: int, x):
     return x + y
 
 
-def _run_rwkv(cfg, st: RWKVStack, x, *, remat: bool = False):
+def _run_rwkv(cfg, st: RWKVStack, x, *, remat: bool = False, layout=None):
     """RWKV6 layers.  x: [B, S, d].  With ``remat`` each layer runs under
     ``torch.utils.checkpoint`` (non-reentrant)."""
     for li in range(cfg.n_layers):
         if remat:
-            x = checkpoint(_rwkv_layer, cfg, st, li, x, use_reentrant=False)
+            x = checkpoint(_rwkv_layer, cfg, st, li, x, layout,
+                           use_reentrant=False)
         else:
-            x = _rwkv_layer(cfg, st, li, x)
+            x = _rwkv_layer(cfg, st, li, x, layout)
     return x
 
 
-def forward_prefill(cfg, params: LMParams, batch: dict, *, mesh=None,
+def forward_prefill(cfg, params: LMParams, batch: dict, *,
                     lina: bool = False, serve_plan=None, serve_top_k=None,
-                    fsdp: bool = False) -> ModelOutput:
+                    layout=None) -> ModelOutput:
     """Serving prefill: last-position logits [B, V] in ``cfg.dtype``
     (``ModelOutput.logits``), the aux loss and, for the transformer
     family, the per-MoE-layer top-1 expert choices [n_moe_layers, B * S].
-    ``batch`` holds ``tokens`` [B, S] on the params' device (the whole
-    batch on every rank of a mesh); hubert's ``frames`` [B, S, FRAME_DIM]
+    ``batch`` holds ``tokens`` [B, S] on the params' device (this rank's
+    rows over a ``layout``); hubert's ``frames`` [B, S, FRAME_DIM]
     instead (nothing masked), llava's ``tokens`` and ``patches`` [B, P, d]
     (the logits are the last text position's).  The transformer keywords
     are the reference's (see the module doc); a stacked ``serve_plan``
     gives each MoE layer its own plan (the reference's prefill takes one
     plan for every layer).  Builds no cache, as the reference's (decode starts from
     ``init_cache``).  The flash kernel has no backward: call it under
-    ``torch.inference_mode`` when the params require grad."""
+    ``torch.inference_mode`` when the params require grad.  With a
+    ``layout`` (see the module doc) ``params`` are this rank's shards and
+    ``batch`` its rows; the logits are whole."""
     _check_family(cfg)
-    p = cast_for_compute(cfg, params)
+    p = _top(cast_for_compute(cfg, params), layout)
     x = embed_inputs(cfg, p, tokens=batch.get("tokens"),
                      patches=batch.get("patches"),
-                     frames=batch.get("frames"))
+                     frames=batch.get("frames"), layout=layout)
     aux = torch.zeros((), device=x.device)
     experts = None
     if isinstance(p.stack, HybridParams):
-        x = _run_hybrid(cfg, p.stack, x, attn_kernel=kernel_route(cfg))
+        x = _run_hybrid(cfg, p.stack, x, attn_kernel=kernel_route(cfg),
+                        layout=layout)
     elif isinstance(p.stack, RWKVStack):
-        x = _run_rwkv(cfg, p.stack, x)
+        x = _run_rwkv(cfg, p.stack, x, layout=layout)
     else:
         x, aux, experts = run_stack(
-            cfg, p.stack, x, mesh=mesh, lina=lina, serve_plan=serve_plan,
-            serve_top_k=serve_top_k, fsdp=fsdp, use_kernel=kernel_route(cfg),
-            replicated=True)
+            cfg, p.stack, x, lina=lina, serve_plan=serve_plan,
+            serve_top_k=serve_top_k, use_kernel=kernel_route(cfg),
+            layout=layout)
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
-    logits = x[:, -1] @ unembed_weight(p)
+    logits = logits_of(cfg, p, x[:, -1], layout)
     return ModelOutput(None, aux, experts, logits)
 
 
@@ -650,32 +771,43 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     return LMCache(kv=None, mamba=None, rwkv=rs, pos=pos)
 
 
-def _decode_groups(cfg, stack: GroupParams, cache: LMCache, x, *, mesh,
-                   lina, serve_plan, serve_top_k, fsdp):
+def _seq_split(cache: LMCache, layout) -> bool:
+    """Whether ``layout`` splits the KV cache's sequence (its slots)."""
+    if layout is None or layout.cache_specs is None or cache.kv is None:
+        return False
+    lead = cache.kv.k.dim() - 4
+    return bool(layout.cache_specs.kv.k.axes_of(lead + 1))
+
+
+def _decode_groups(cfg, stack: GroupParams, cache: LMCache, x, *, lina,
+                   serve_plan, serve_top_k, layout=None):
     """The transformer's decode step on x [B, 1, d] -> (x, new cache,
     expert choices [n_moe_layers, B] or None)."""
     every = cfg.moe.every if cfg.moe.enabled else 1
     ks, vs, top1s = [], [], []
+    seq_split = _seq_split(cache, layout)
     for gi in range(cfg.n_layers // every):
-        gp = tree_idx(stack, gi)
+        gp = _layer(stack, None if layout is None else layout.specs.stack,
+                    gi, layout)
         ks_g, vs_g = [], []
         for j in range(every):
             h = rms_norm(x, gp.ln1[j], cfg.norm_eps)
             y, kv_new = decode_attention(
                 tree_idx(gp.attn, j), h,
                 KVCache(cache.kv.k[gi, j], cache.kv.v[gi, j]), cache.pos,
-                cfg)
+                cfg, layout=layout, seq_split=seq_split)
             ks_g.append(kv_new.k)
             vs_g.append(kv_new.v)
             x = x + y
             h = rms_norm(x, gp.ln2[j], cfg.norm_eps)
             if not (cfg.moe.enabled and j == every - 1):
-                x = x + _ffn_apply(tree_idx(gp.ffn, j), h, cfg.ffn_type)
+                x = x + _ffn_apply(tree_idx(gp.ffn, j), h, cfg.ffn_type,
+                                   layout, cfg.d_ff)
                 continue
             moe_y, _, top1 = _moe_sublayer(
-                cfg, gp, h, _plan_of(serve_plan, gi), mesh=mesh, lina=lina,
-                fsdp=fsdp, serve_top_k=serve_top_k, fuse_shortcut=False,
-                dispatch_backend="scatter", replicated=True)
+                cfg, gp, h, _plan_of(serve_plan, gi), layout=layout,
+                lina=lina, serve_top_k=serve_top_k, fuse_shortcut=False,
+                dispatch_backend="scatter")
             x = x + moe_y
             top1s.append(top1)
         ks.append(torch.stack(ks_g))
@@ -685,11 +817,11 @@ def _decode_groups(cfg, stack: GroupParams, cache: LMCache, x, *, mesh,
     return x, new_cache, torch.stack(top1s) if top1s else None
 
 
-def decode_step(cfg, params: LMParams, cache: LMCache, token, *, mesh=None,
+def decode_step(cfg, params: LMParams, cache: LMCache, token, *,
                 lina: bool = False, serve_plan=None, serve_top_k=None,
-                fsdp: bool = False) -> tuple:
-    """One decode step.  token: [B] on the params' device (the whole batch
-    on every rank of a mesh).  Returns (logits [B, V], cache,
+                layout=None) -> tuple:
+    """One decode step.  token: [B] on the params' device (this rank's
+    rows over a ``layout``).  Returns (logits [B, V], cache,
     expert_choices): the per-MoE-layer top-1 expert of each row
     [n_moe_layers, B] for the transformer family (callers roll path-ID
     state with it), None for the hybrid and RWKV stacks, as the reference
@@ -699,36 +831,45 @@ def decode_step(cfg, params: LMParams, cache: LMCache, token, *, mesh=None,
     ``mamba_decode`` (plain), the shared block the plain
     ``decode_attention``; each RWKV6 layer runs the WKV op at T = 1 from
     its cached state (the kernel on the kernel route).  llava decodes text
-    tokens only, as the reference's; an encoder-only config raises."""
+    tokens only, as the reference's; an encoder-only config raises.  With
+    a ``layout`` (see the module doc) ``params`` are this rank's shards,
+    ``token`` and ``cache`` its rows, the cache's sequence split as
+    ``layout.cache_specs`` says; the logits are whole."""
     _check_decodes(cfg)
-    p = cast_for_compute(cfg, params)
-    x = p.embed[token.long()][:, None].to(DTYPES[cfg.dtype])     # [B,1,d]
+    p = _top(cast_for_compute(cfg, params), layout)
+    x = lookup(cfg, p.embed, token, layout)[:, None].to(
+        DTYPES[cfg.dtype])                                      # [B,1,d]
     pos = cache.pos
     eps = cfg.norm_eps
     if isinstance(p.stack, GroupParams):
         x, new_cache, experts = _decode_groups(
-            cfg, p.stack, cache, x, mesh=mesh, lina=lina,
-            serve_plan=serve_plan, serve_top_k=serve_top_k, fsdp=fsdp)
+            cfg, p.stack, cache, x, lina=lina, serve_plan=serve_plan,
+            serve_top_k=serve_top_k, layout=layout)
         x = rms_norm(x, p.final_norm, eps)
-        return x[:, 0] @ unembed_weight(p), new_cache, experts
+        return logits_of(cfg, p, x[:, 0], layout), new_cache, experts
     if isinstance(p.stack, HybridParams):
         hp = p.stack
+        seq_split = _seq_split(cache, layout)
+        attn_p, ffn_p = _shared_params(hp, layout)
         states, ks, vs = [], [], []
         for li, tap in enumerate(_taps(cfg)):
             h = rms_norm(x, hp.ln_m[li], eps)
-            y, ms_new = ssm_mod.mamba_decode(tree_idx(hp.mamba, li), cfg, h,
+            mp = _layer(hp.mamba, None if layout is None
+                        else layout.specs.stack.mamba, li, layout)
+            y, ms_new = ssm_mod.mamba_decode(mp, cfg, h,
                                              tree_idx(cache.mamba, li))
             states.append(ms_new)
             x = x + y
             if tap:
                 h = rms_norm(x, hp.ln_s1, eps)
                 y, kv_new = decode_attention(
-                    hp.shared_attn, h, tree_idx(cache.kv, len(ks)), pos, cfg)
+                    attn_p, h, tree_idx(cache.kv, len(ks)), pos, cfg,
+                    layout=layout, seq_split=seq_split)
                 ks.append(kv_new.k)
                 vs.append(kv_new.v)
                 x = x + y
                 h2 = rms_norm(x, hp.ln_s2, eps)
-                x = x + _ffn_apply(hp.shared_ffn, h2, cfg.ffn_type)
+                x = x + _ffn_apply(ffn_p, h2, cfg.ffn_type, layout, cfg.d_ff)
         new_cache = LMCache(
             kv=KVCache(torch.stack(ks), torch.stack(vs)),
             mamba=tree_map(lambda *a: torch.stack(a), *states), rwkv=None,
@@ -739,7 +880,8 @@ def decode_step(cfg, params: LMParams, cache: LMCache, token, *, mesh=None,
         hh, hd = rwkv_mod._heads(cfg)
         states = []
         for li in range(cfg.n_layers):
-            bp = tree_idx(st.blocks, li)
+            bp = _layer(st.blocks, None if layout is None
+                        else layout.specs.stack.blocks, li, layout)
             rs = tree_idx(cache.rwkv, li)
             h = rms_norm(x, st.ln1[li], eps)
             # single-token time-mix through the sequence op (T = 1); the
@@ -759,5 +901,4 @@ def decode_step(cfg, params: LMParams, cache: LMCache, token, *, mesh=None,
             kv=None, mamba=None,
             rwkv=tree_map(lambda *a: torch.stack(a), *states), pos=pos + 1)
     x = rms_norm(x, p.final_norm, eps)
-    logits = x[:, 0] @ unembed_weight(p)
-    return logits, new_cache, None
+    return logits_of(cfg, p, x[:, 0], layout), new_cache, None

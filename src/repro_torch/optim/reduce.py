@@ -35,20 +35,27 @@ ranks' gradients differ, so the int8 grid's scale is shared first: the
 maximum of the ranks' scales, by a small ``all_reduce(MAX)``; with
 replicated gradients that is the reference's arithmetic.
 
-Which group reduces which gradient.  Each rank's autograd gives its own
-gradient of its own loss L_r, and the global loss is the ranks' mean,
-L = (1 / W) sum_r L_r over the W = dp * ep ranks.
-  * Replicated leaves (attention, dense FFNs, router, norms, embeddings):
-    dL/dθ = (1 / W) sum_r dL_r/dθ — the mean over the world group.
-  * Expert leaves (``wi``, ``wu``, ``wo``) of rank (d, m): the backward
-    all-to-all brings the gradients of every rank (d, m') of its `model`
-    group to the expert's owner, so its autograd gradient is
-    sum_m' dL_(d,m')/dw.  Rank (d', m) holds the same experts, so the mean
-    over the data-parallel group gives (1 / dp) sum_d sum_m' dL_(d,m')/dw,
-    which is ep times dL/dw: it is divided by ep.
-  * With ``fsdp`` the expert leaves' all-gather backward has already
-    summed them over the data-parallel group too, so they take no
-    collective here and are divided by W.
+Which group reduces which gradient.  Every leaf is stored as its
+``core.axes.Spec`` says (``launch.sharding``: the reference's specs, or
+the expert-parallel placement ``expert_specs``).  Every collective of the
+step's forward has its adjoint in the backward (an all-gather's is a
+reduce-scatter, a sum all-reduce's a sum all-reduce, an all-to-all's the
+inverse all-to-all), so a rank's autograd gradient of its shard is that of
+the sum of every rank's loss L_r over the ranks that hold it, and the
+global loss is the ranks' mean, L = (1 / W) sum_r L_r.  A leaf is then
+summed over the axes its spec does not name (the ranks holding the same
+shard) and divided by W:
+  * a replicated leaf (a norm; with ``expert_specs`` every dense leaf) is
+    summed over the world: the mean over the world group;
+  * an expert leaf of rank (d, m) over `model`: the backward all-to-all
+    brought the gradients of every rank (d, m') of its `model` group, and
+    rank (d', m) holds the same experts: the mean over the data-parallel
+    group, divided by ep;
+  * a tensor-parallel leaf is summed over the data axes, the router and
+    an FSDP-only leaf over `model` and `tp`;
+  * a leaf split over every axis (FSDP experts and tensor-parallel
+    weights: the FSDP gather's reduce-scatter summed it over `data`)
+    takes no collective here and is divided by W.
 
 ``mesh=None`` reduces over nothing (a one-rank group): values pass
 through, with compression's rounding.
@@ -63,8 +70,6 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import axes, microop
-from repro_torch.core.moe import expert_leaf_flags
-from repro_torch.launch.mesh import ep_size
 from repro_torch.optim.compression import (Int8State, compress_int8_ef,
                                            init_int8_state, int8_scales)
 from repro_torch.tree import tree_leaves, tree_unflatten_like
@@ -160,24 +165,35 @@ def _reduce_shard(grads, int8_state, after, *, group, cfg: ReduceConfig,
     return run(grads, True, lambda red: red), int8_state
 
 
-def reduce_plan(mesh, grads, cfg: ReduceConfig, fsdp: bool = False) -> list:
+def replica_axes(mesh, spec) -> tuple:
+    """The axes of ``mesh`` that ``spec`` does not split: the ranks along
+    them hold the same shard."""
+    named = spec.names()
+    return tuple(a for a in mesh.axis_names if a not in named)
+
+
+def reduce_plan(mesh, grads, cfg: ReduceConfig, specs=None) -> list:
     """[(leaf indices, group, divisor, chunk count)]: how
-    ``reduce_gradients`` splits ``grads`` (see the module doc).  A group
-    of None takes no collective."""
+    ``reduce_gradients`` splits ``grads`` (see the module doc): the leaves
+    with the same replica axes in their ``specs`` summed (a mean, times the
+    group's size) over their group and divided by W.  A group of None
+    takes no collective."""
     leaves = tree_leaves(grads)
     if mesh is None:
         parts = [(list(range(len(leaves))), None, 1)]
     else:
-        flags = expert_leaf_flags(grads)
-        if len(flags) != len(leaves):
-            raise ValueError("expert flags do not match the gradient tree")
-        rep = [i for i, f in enumerate(flags) if not f]
-        exp = [i for i, f in enumerate(flags) if f]
-        parts = [(rep, mesh.world_group, 1)]
-        if fsdp:
-            parts.append((exp, None, mesh.world))
-        else:
-            parts.append((exp, mesh.dp_group, ep_size(mesh)))
+        sp = tree_leaves(specs)
+        if len(sp) != len(leaves):
+            raise ValueError("the spec tree does not match the gradient "
+                             "tree")
+        by = {}
+        for i, s in enumerate(sp):
+            by.setdefault(replica_axes(mesh, s), []).append(i)
+        parts = []
+        for names, idx in by.items():
+            group = mesh.group_for(names)
+            n = 1 if group is None else mesh.group_size(group)
+            parts.append((idx, group, mesh.world // n))
     out = []
     for idx, group, div in parts:
         if not idx:
@@ -191,7 +207,7 @@ def reduce_plan(mesh, grads, cfg: ReduceConfig, fsdp: bool = False) -> list:
 
 def reduce_gradients(mesh, grads, cfg: ReduceConfig, *, after=None,
                      state: Optional[ReduceState] = None,
-                     fsdp: bool = False, async_op: bool = False):
+                     async_op: bool = False, specs=None):
     """Lina's gradient reduction of this rank's ``grads``.
 
     mesh:   the training mesh (``launch.mesh.Mesh``), or None (one rank).
@@ -199,7 +215,7 @@ def reduce_gradients(mesh, grads, cfg: ReduceConfig, *, after=None,
             (``backward_a2a_token``), or None: nothing to wait for;
             ignored by ``baseline``.
     state:  ``ReduceState`` for int8-EF, else None.
-    fsdp:   the expert leaves are hidden-dim shards (see the module doc).
+    specs:  the leaves' ``Spec`` tree (with a mesh).
 
     Returns (reduced grads, new state); with ``async_op`` the first is a
     pending reduction whose ``wait()`` gives them."""
@@ -212,12 +228,12 @@ def reduce_gradients(mesh, grads, cfg: ReduceConfig, *, after=None,
     res = tree_leaves(int8_state.residual) if int8_state is not None \
         else None
     pends, new_res = [], list(res) if res is not None else None
-    for idx, group, div, n in reduce_plan(mesh, grads, cfg, fsdp):
+    for idx, group, div, n in reduce_plan(mesh, grads, cfg, specs):
         sub = tuple(leaves[i] for i in idx)
         sub_state = Int8State(tuple(res[i] for i in idx)) \
             if res is not None else None
         if group is None and mesh is not None:
-            # fsdp expert shards: summed over the world already
+            # shards split over every axis: summed over the world already
             pend = SimpleNamespace(wait=lambda sub=sub: sub)
         else:
             pend, st = _reduce_shard(sub, sub_state, after, group=group,

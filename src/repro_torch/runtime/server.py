@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import shard_params
+from repro_torch.launch import sharding as shard_mod
 from repro_torch.core import axes
 from repro_torch.core.gating import capacity
 from repro_torch.core.placement import (PlacementPlan, PlanCache,
@@ -162,8 +163,10 @@ class MoEServer:
         self.device = mesh.device if mesh is not None \
             else resolve_device(device)
         self.cfg = cfg
-        self.params = shard_params(
-            tree_map(lambda a: a.to(self.device), params), mesh)
+        params = tree_map(lambda a: a.to(self.device), params)
+        self.params = shard_params(params, mesh,
+                                   None if mesh is None else
+                                   shard_mod.expert_specs(mesh, params))
         self.profile = profile
         self.scfg = scfg
         self.obs = obs or ObsContext.disabled()
@@ -726,13 +729,16 @@ def profile_from_training(cfg: ModelConfig, params, batches,
     dev = mesh.device if mesh is not None else resolve_device(device)
     prof = PathProfile(n_layers=cfg.n_moe_layers,
                        n_experts=cfg.moe.n_experts, path_len=path_len)
+    params = tree_map(lambda a: a.to(dev), params)
+    layout = None if mesh is None else \
+        shard_mod.expert_layout(mesh, params, "prefill")
     p = lm_mod.cast_for_compute(cfg, shard_params(
-        tree_map(lambda a: a.to(dev), params), mesh))
+        params, mesh, None if layout is None else layout.specs))
     with torch.inference_mode():
         for batch in batches:
             tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=dev)
             x = p.embed[tokens.long()].to(lm_mod.DTYPES[cfg.dtype])
-            choices = lm_mod.run_stack(cfg, p.stack, x, mesh=mesh,
-                                       lina=False, replicated=True)[2]
+            choices = lm_mod.run_stack(cfg, p.stack, x, lina=False,
+                                       layout=layout)[2]
             prof.profile_batch(choices.cpu().numpy())
     return prof

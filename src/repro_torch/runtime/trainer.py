@@ -16,17 +16,22 @@ an expert-parallel mesh (the reference's ``src/repro/runtime/trainer.py``):
     model (``core.packing`` on the H100) picks experts-per-device for the
     mesh's expert-parallel size.
 
-With a ``mesh`` (``launch.mesh``) every rank initialises the same full
-params from the seed and keeps its shard (``convert.shard_params``), and
-reads its own B / W rows of each step's global batch (W ranks).  Lina's
+With a ``mesh`` (``launch.mesh``) every leaf is stored as the reference's
+specs place it (``launch.sharding.param_specs``: FSDP over `data`, tensor
+parallel over `model` and `tp`, the experts over `model`), the AdamW
+moments likewise: every rank initialises the same full params from the
+seed and keeps its shards (``convert.shard_params``), and reads the B / dp
+rows of its `data` index of each step's global batch (the same rows on its
+model-parallel ranks; the whole batch where B does not split).  Lina's
 knobs (``lina``, ``schedule``, ``partition_bytes``, ``grad_compression``,
 and ``n_microops`` / ``pipeline_ffn`` / ``shortcut`` applied onto the model
 config) reach the step (``launch.steps``).  A checkpoint stays one tree:
-rank 0 writes the full params and optimizer state, gathered over the
-`model` group, and every rank restores the full tree and takes its shard,
-so a run saved on one mesh resumes on another.  The int8 residuals
-(``reduce_state``) differ per rank and are saved as a ``[world, ...]``
-stack; a resume at another world size zeroes them and logs it.
+rank 0 writes the full params and optimizer state, gathered by the specs,
+and every rank restores the full tree and takes its shards, so a run saved
+on one mesh resumes on another or on none (the reference's elastic
+resharding).  The int8 residuals (``reduce_state``) differ per rank and
+are saved as a ``[world, ...]`` stack; a resume at another world size
+zeroes them and logs it.
 
 Spans (``obs``): ``train.step`` > ``data.batch``, ``fwd_bwd``,
 ``checkpoint``, the first two with ``schedule=``; counters
@@ -47,10 +52,11 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.convert import shard_params, unshard_params
+from repro_torch.convert import block_index, shard_params, unshard_params
 from repro_torch.core.packing import choose_packing
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.devices import resolve_device
+from repro_torch.launch import sharding as shard_mod
 from repro_torch.launch.mesh import ep_size
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import lm as lm_mod
@@ -118,14 +124,21 @@ class Trainer:
         self.mesh = mesh
         self.world = mesh.world if mesh is not None else 1
         self.rank = mesh.rank if mesh is not None else 0
-        if data_cfg.global_batch % self.world:
-            raise ValueError(f"global batch {data_cfg.global_batch} does not "
-                             f"split over {self.world} ranks")
+        self.layout = None
+        # the rows a rank reads: its block over the layout's batch axes
+        self.row_index, self.row_split = 0, 1
+        if mesh is not None:
+            self.layout = shard_mod.layout_for(
+                model_cfg, mesh, lm_mod.init_params(model_cfg, None,
+                                                    device="meta"),
+                "train", global_batch=data_cfg.global_batch)
+            self.row_index, self.row_split = block_index(
+                mesh, self.layout.batch_axes)
         self.ckpt = CheckpointManager(cfg.ckpt_dir, keep=cfg.keep)
         self.dataset = SyntheticLM(data_cfg)
         self.stateful_reduce = cfg.grad_compression == "int8_ef"
         self.step_fn = make_train_step(
-            model_cfg, opt_cfg, mesh=mesh, lina=cfg.lina,
+            model_cfg, opt_cfg, layout=self.layout, lina=cfg.lina,
             dispatch_backend=cfg.dispatch_backend,
             microbatches=cfg.microbatches, schedule=cfg.schedule,
             partition_bytes=cfg.partition_bytes,
@@ -147,7 +160,7 @@ class Trainer:
                  "opt_state": init_opt_state(params, self.opt_cfg)}
         if self.stateful_reduce:
             rs = reduce_mod.init_reduce_state(
-                shard_params(params, self.mesh), reduce_mod.ReduceConfig(
+                self._cut(params), reduce_mod.ReduceConfig(
                     schedule=self.cfg.schedule,
                     partition_bytes=self.cfg.partition_bytes,
                     compression=self.cfg.grad_compression))
@@ -157,12 +170,24 @@ class Trainer:
             state["reduce_state"] = rs
         return state
 
+    def _specs(self, tree):
+        """The spec tree of ``tree`` (params or an ``OptState``), None
+        without a mesh."""
+        if self.layout is None:
+            return None
+        if hasattr(tree, "m"):
+            return shard_mod.opt_state_specs(self.layout.specs)
+        return self.layout.specs
+
+    def _cut(self, tree):
+        return shard_params(tree, self.mesh, self._specs(tree))
+
     def _shard(self, full: dict) -> dict:
         """This rank's part of a full state."""
         if self.mesh is None:
             return full
-        st = {"params": shard_params(full["params"], self.mesh),
-              "opt_state": shard_params(full["opt_state"], self.mesh)}
+        st = {"params": self._cut(full["params"]),
+              "opt_state": self._cut(full["opt_state"])}
         if "reduce_state" in full:
             st["reduce_state"] = tree_map(lambda r: r[self.rank].clone(),
                                           full["reduce_state"])
@@ -172,8 +197,8 @@ class Trainer:
         """The full state from every rank's shard (every rank calls it)."""
         if self.mesh is None:
             return state
-        full = {"params": unshard_params(state["params"], self.mesh),
-                "opt_state": unshard_params(state["opt_state"], self.mesh)}
+        full = {k: unshard_params(state[k], self.mesh, self._specs(state[k]))
+                for k in ("params", "opt_state")}
         if "reduce_state" in state:
             def stack(r):
                 out = r.new_empty((self.world, *r.shape))
@@ -211,9 +236,9 @@ class Trainer:
         return step, self._shard(full)
 
     def _batch(self, step: int) -> dict:
-        b = self.data_cfg.global_batch // self.world
-        return {k: torch.from_numpy(v[self.rank * b:(self.rank + 1) * b])
-                .to(self.device)
+        b = self.data_cfg.global_batch // self.row_split
+        i = self.row_index
+        return {k: torch.from_numpy(v[i * b:(i + 1) * b]).to(self.device)
                 for k, v in self.dataset.batch(step).items()}
 
     def run(self, on_step: Optional[Callable] = None) -> dict:

@@ -152,6 +152,7 @@ def moe_body(rank, inp_path, shape, cases):
     from repro_torch.convert import shard_params
     from repro_torch.core.moe import MoEParams, moe_layer
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import expert_specs
     mesh = make_mesh(shape, device="cpu")
     inp = np.load(inp_path)
     dp_n, ep_n = shape
@@ -168,7 +169,8 @@ def moe_body(rank, inp_path, shape, cases):
         full = MoEParams(t["router"], t["wi"],
                          t["wu"] if ffn == "swiglu" else None, t["wo"])
         ps = MoEParams(*(None if a is None else a.clone().requires_grad_()
-                         for a in shard_params(full, mesh, fsdp=fsdp)))
+                         for a in shard_params(full, mesh, expert_specs(
+                             mesh, full, fsdp))))
         scp = None
         if sc:
             scp = tuple(t[k].clone().requires_grad_()
@@ -212,24 +214,27 @@ def reduce_body(rank, shape, combos, partition_bytes):
     compression): the reduced leaves, the plan's chunk counts, and the
     int8 state after two reductions."""
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import expert_specs
     from repro_torch.optim import reduce as R
     from repro_torch.tree import tree_leaves
     mesh = make_mesh(shape, device="cpu")
     grads = reduce_tree(rank)
+    specs = expert_specs(mesh, grads)
     out = {}
     for sched, comp in combos:
         cfg = R.ReduceConfig(sched, partition_bytes=partition_bytes,
                              compression=comp)
         state = R.init_reduce_state(grads, cfg)
-        red, state = R.reduce_gradients(mesh, grads, cfg, state=state)
+        red, state = R.reduce_gradients(mesh, grads, cfg, state=state,
+                                        specs=specs)
         pend, _ = R.reduce_gradients(mesh, grads, cfg, state=state,
-                                     async_op=True)
+                                     async_op=True, specs=specs)
         again = pend.wait()
         out[(sched, comp)] = {
             "red": [r.numpy() for r in tree_leaves(red)],
             "again": [r.numpy() for r in tree_leaves(again)],
             "plan": [(idx, n) for idx, _, _, n in
-                     R.reduce_plan(mesh, grads, cfg)],
+                     R.reduce_plan(mesh, grads, cfg, specs)],
             "residual": None if state is None else
             [r.numpy() for r in tree_leaves(state.int8.residual)]}
     return out
@@ -263,10 +268,12 @@ def full_params(cfg, seed: int = 0):
 
 def schedules_body(rank, combos, steps, microbatches):
     """Each (schedule, compression) trains gpt2-moe-smoke ``steps`` steps
-    on a (2, 2) mesh from the same seed; rank 0 returns the full params
-    (gathered), every rank its losses."""
+    on a (2, 2) mesh from the same seed, the experts alone sharded
+    (``expert_layout``: the replicated leaves take the schedules); rank 0
+    returns the full params (gathered), every rank its losses."""
     from repro_torch.convert import shard_params, unshard_params
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import expert_layout
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import reduce as R
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
@@ -276,9 +283,11 @@ def schedules_body(rank, combos, steps, microbatches):
     ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
     out = {}
     for sched, comp in combos:
-        params = shard_params(full_params(cfg), mesh)
+        full = full_params(cfg)
+        layout = expert_layout(mesh, full)
+        params = shard_params(full, mesh, layout.specs)
         opt = init_opt_state(params, ocfg)
-        step = make_train_step(cfg, ocfg, mesh=mesh, schedule=sched,
+        step = make_train_step(cfg, ocfg, layout=layout, schedule=sched,
                                grad_compression=comp,
                                microbatches=microbatches,
                                dispatch_backend="pallas")
@@ -292,7 +301,7 @@ def schedules_body(rank, combos, steps, microbatches):
             else:
                 params, opt, m = step(params, opt, batch)
             losses.append(float(m["loss"]))
-        full = unshard_params(params, mesh)
+        full = unshard_params(params, mesh, layout.specs)
         out[(sched, comp)] = {
             "losses": losses,
             "params": [p.numpy() for p in tree_leaves(full)]
@@ -315,17 +324,19 @@ def grads_body(rank, remat, fsdp=False):
     full shapes (rank 0), their global norm and the loss."""
     from repro_torch.convert import shard_params, unshard_params
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import expert_layout
     from repro_torch.launch.steps import global_grad_norm, make_train_step
     from repro_torch.tree import tree_leaves
     mesh = make_mesh((2, 2), device="cpu")
     cfg = grads_config(remat)
-    params = shard_params(full_params(cfg), mesh, fsdp=fsdp)
-    step = make_train_step(cfg, mesh=mesh, schedule="priority+partition",
-                           partition_bytes=4096, dispatch_backend="pallas",
-                           fsdp=fsdp)
+    full = full_params(cfg)
+    layout = expert_layout(mesh, full, fsdp=fsdp)
+    params = shard_params(full, mesh, layout.specs)
+    step = make_train_step(cfg, layout=layout, schedule="priority+partition",
+                           partition_bytes=4096, dispatch_backend="pallas")
     grads, loss, _, _ = step.reduced_grads(params, _local_batch(cfg, 0, mesh))
-    norm = float(global_grad_norm(mesh, grads, fsdp))
-    full = unshard_params(grads, mesh, fsdp=fsdp)
+    norm = float(global_grad_norm(mesh, grads, layout.specs))
+    full = unshard_params(grads, mesh, layout.specs)
     return {"loss": float(loss), "norm": norm,
             "grads": [g.numpy() for g in tree_leaves(full)]
             if rank == 0 else None}
@@ -448,6 +459,7 @@ def serve_layer_body(rank, inp_path, shape):
     from repro_torch.core import serving
     from repro_torch.core.moe import MoEParams
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.sharding import expert_specs
     mesh = make_mesh(shape, device="cpu")
     inp = np.load(inp_path)
     t = {k: torch.from_numpy(inp[k]) for k in inp.files}
@@ -460,7 +472,7 @@ def serve_layer_body(rank, inp_path, shape):
                         compute_backend=backend)
         full = MoEParams(t["router"], t["wi"],
                          t["wu"] if ffn == "swiglu" else None, t["wo"])
-        ps = shard_params(full, mesh)
+        ps = shard_params(full, mesh, expert_specs(mesh, full))
         plan = serving.PlanArrays(*(t[f"{name}/{f}"] for f in (
             "slot_expert", "replica_of", "n_replicas", "route_weight")))
         kw = dict(ffn_type=ffn, top_k=k,
@@ -570,6 +582,7 @@ def serve_steps(cfg, params, mesh, inp, device="cpu"):
     final cache."""
     from repro_torch.convert import shard_params
     from repro_torch.core.serving import PlanArrays
+    from repro_torch.launch.sharding import expert_layout
     from repro_torch.launch.steps import (make_decode_step,
                                           make_prefill_step, make_serve_plan)
     from repro_torch.models import lm
@@ -578,13 +591,15 @@ def serve_steps(cfg, params, mesh, inp, device="cpu"):
                            for f in PlanArrays._fields))
     plans = {"none": None, "single": make_serve_plan(cfg, mesh, device),
              "stacked": stacked}
-    ps = shard_params(params, mesh, fsdp=True)
+    layout = None if mesh is None else \
+        expert_layout(mesh, params, "prefill", fsdp=True)
+    ps = shard_params(params, mesh, None if layout is None else layout.specs)
     tokens = torch.from_numpy(inp["tokens"])
     out = {"plan": [a.numpy() for a in plans["single"]]}
     with torch.inference_mode():
         for name, plan in plans.items():
-            pre = make_prefill_step(cfg, mesh, serve_plan=plan)
-            dec = make_decode_step(cfg, mesh, serve_plan=plan)
+            pre = make_prefill_step(cfg, layout, serve_plan=plan)
+            dec = make_decode_step(cfg, layout, serve_plan=plan)
             cache = lm.init_cache(cfg, tokens.shape[0], 12,
                                   dtype=torch.float32, device=device)
             steps = []
@@ -600,19 +615,21 @@ def decode_matches_prefill(cfg, params, mesh, tokens, device="cpu"):
     """Max |prefill's last logits - the logits of decoding the prompt a
     token at a time|, with no plan and under the identity plan."""
     from repro_torch.convert import shard_params
+    from repro_torch.launch.sharding import expert_layout
     from repro_torch.launch.steps import make_serve_plan
     from repro_torch.models import lm
-    ps = shard_params(params, mesh)
+    layout = None if mesh is None else expert_layout(mesh, params, "prefill")
+    ps = shard_params(params, mesh, None if layout is None else layout.specs)
     out = []
     with torch.inference_mode():
         for plan in (None, make_serve_plan(cfg, mesh, device)):
             want = lm.forward_prefill(cfg, ps, {"tokens": tokens},
-                                      mesh=mesh, serve_plan=plan).logits
+                                      layout=layout, serve_plan=plan).logits
             cache = lm.init_cache(cfg, tokens.shape[0], tokens.shape[1],
                                   dtype=torch.float32, device=device)
             for i in range(tokens.shape[1]):
                 got, cache, _ = lm.decode_step(cfg, ps, cache, tokens[:, i],
-                                               mesh=mesh, serve_plan=plan)
+                                               layout=layout, serve_plan=plan)
             out.append(float((got - want).abs().max()))
     return out
 
@@ -659,3 +676,176 @@ def record_steps_body(rank, shape, train_batch, serve_batch, seq):
         step(*args)
         out[kind] = [tuple(r) for r in mesh.records]
     return out
+
+
+# ---------------------------------------------------------------------------
+# the dense-sharded path (launch.sharding): tests/test_torch_sharding.py and
+# tests/test_torch_tp.py
+# ---------------------------------------------------------------------------
+
+def _tokens(cfg, b, s, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (b, s), generator=g)
+
+
+def mirror_body(rank, mirror):
+    """Rank 0's dense-sharded train step (loss and reduced gradients) and
+    prefill logits, on ``MirrorMesh`` in one process (``mirror``) or on a
+    real gloo mesh whose every rank holds rank 0's shards, batch and
+    coordinates; with the collectives each recorded."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.convert import shard_params
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import MirrorMesh, RecordingMesh, make_mesh
+    from repro_torch.launch.steps import make_serve_plan, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+    out = {}
+    # the MoE case keeps one `model` rank: after a real all-to-all a rank
+    # holds the blocks sent to it, which no longer equal rank 0's, so a
+    # real world of equal ranks exists only for an exchange of one
+    for arch, shape in (("qwen3-8b-smoke", (2, 2)),
+                        ("mixtral-8x22b-smoke", (2, 1, 2))):
+        cfg = get_config(arch)
+        if cfg.moe.enabled:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=4.0))
+        if mirror:
+            mesh = MirrorMesh(shape, device="cpu")
+        else:
+            mesh = make_mesh(shape, device="cpu")
+            mesh.coords = {a: 0 for a in mesh.axis_names}
+            mesh.records = []
+        rank0 = RecordingMesh(shape, mesh.axis_names)
+        params = full_params(cfg)
+        b, s = 4, 16
+        toks = _tokens(cfg, b, s, 1)
+        batch = S.local_rows({"tokens": toks, "labels": _tokens(
+            cfg, b, s, 2)}, rank0, b)
+        res = {}
+        lt = S.layout_for(cfg, mesh, params, "train", global_batch=b)
+        local = shard_params(params, rank0, specs=lt.specs)
+        step = make_train_step(cfg, layout=lt)
+        grads, loss, aux, _ = step.reduced_grads(local, batch)
+        res["loss"] = loss.numpy()
+        for i, g in enumerate(tree_leaves(grads)):
+            res[f"grad{i}"] = g.numpy()
+        ls = S.layout_for(cfg, mesh, params, "prefill", global_batch=b)
+        sp = lm.cast_for_compute(cfg, shard_params(params, rank0,
+                                                   specs=ls.specs))
+        with torch.no_grad():
+            res["logits"] = lm.forward_prefill(
+                cfg, sp, {"tokens": batch["tokens"]}, layout=ls,
+                serve_plan=make_serve_plan(cfg, mesh, device="cpu")
+            ).logits.numpy()
+        out[arch] = res
+        out[arch + "/records"] = [tuple(r) for r in mesh.records]
+    return out
+
+
+def tp_body(rank, root):
+    """The dense-sharded path on gloo ranks against the port with no mesh
+    (the test compares the no-mesh side with the reference): per case the
+    rank's loss, its gathered reduced gradients and (rank 0) the no-mesh
+    gradients; prefill and decode logits over the sequence-sharded cache;
+    a trainer saved on (2, 2) (resumed by the test with no mesh)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.convert import shard_params, unshard_params
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (global_grad_norm, make_serve_plan,
+                                          make_train_step)
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves, tree_unflatten_like
+    out = {}
+    meshes = {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, device="cpu")
+        return meshes[shape]
+    for name, arch, shape, over in TP_CASES:
+        cfg = get_config(arch)
+        if over:
+            cfg = dataclasses.replace(cfg, **over)
+        if cfg.moe.enabled:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=8.0, aux_loss_weight=0.0))
+        mesh = mesh_of(shape)
+        params = full_params(cfg)
+        b, s = 4, 16
+        batch = {"tokens": _tokens(cfg, b, s, 1),
+                 "labels": _tokens(cfg, b, s, 2)}
+        lt = S.layout_for(cfg, mesh, params, "train", global_batch=b)
+        step = make_train_step(cfg, layout=lt)
+        local = shard_params(params, mesh, specs=lt.specs)
+        grads, loss, _, _ = step.reduced_grads(
+            local, S.local_rows(batch, mesh, b))
+        norm = global_grad_norm(mesh, grads, specs=lt.specs)
+        full = unshard_params(grads, mesh, specs=lt.specs)
+        res = {"loss": float(loss), "norm": float(norm)}
+        if rank == 0:
+            res["grads"] = [g.numpy() for g in tree_leaves(full)]
+            ps = [p.detach().requires_grad_() for p in tree_leaves(params)]
+            want = lm.forward_train(cfg, tree_unflatten_like(params, ps),
+                                    batch)
+            res["want_loss"] = float(want.loss)
+            res["want"] = [g.numpy() for g in torch.autograd.grad(
+                want.loss, ps, allow_unused=True, materialize_grads=True)]
+        # prefill and DECODE_STEPS decode steps over a cache of
+        # DECODE_SLOTS slots (its sequence split): past the first rank's
+        # slice, and round the ring of a sliding window
+        ls = S.layout_for(cfg, mesh, params, "prefill", global_batch=b)
+        sp = shard_params(params, mesh, specs=ls.specs)
+        plan = make_serve_plan(cfg, mesh, device="cpu")
+        with torch.no_grad():
+            pre = lm.forward_prefill(cfg, sp, S.local_rows(
+                {"tokens": batch["tokens"]}, mesh, b), layout=ls,
+                serve_plan=plan)
+            cache = lm.init_cache(cfg, b, DECODE_SLOTS, torch.float32,
+                                  device="cpu")
+            ld = S.layout_for(cfg, mesh, params, "decode", global_batch=b,
+                              cache=cache)
+            lc = shard_params(cache, mesh, specs=ld.cache_specs)
+            steps = []
+            for t in range(DECODE_STEPS):
+                logits, lc, _ = lm.decode_step(
+                    cfg, sp, lc, S.local_rows(batch["tokens"][:, t], mesh,
+                                              b), layout=ld,
+                    serve_plan=plan)
+                steps.append(logits.numpy())
+        res["prefill"] = pre.logits.numpy()
+        res["decode"] = steps
+        res["cache_shape"] = tuple(lc.kv.k.shape)
+        res["rows"] = S.local_rows(torch.arange(b), mesh, b).tolist()
+        out[name] = res
+    # a trainer saved on (2, 2), dense-sharded
+    from repro_torch.tree import tree_items
+    tr = _trainer(get_config("qwen3-8b-smoke"), root, mesh_of((2, 2)),
+                  schedule="priority+partition", partition_bytes=4096)
+    state = tr.run()
+    full = tr._gather(state)
+    out["trainer"] = {"losses": [r["loss"] for r in tr.metrics_log],
+                      "state": {k: v.numpy() for k, v in
+                                tree_items(full)} if rank == 0 else None}
+    return out
+
+
+# decode: 6 steps over 8 slots write 2 ranks' slices on (2, 2) (4 slots a
+# rank) and 3 on mixtral's (1, 2, 2) (2 a rank); the window of 4 keeps 4
+# slots, 2 a rank, and its ring wraps from rank 1's slice to rank 0's
+DECODE_STEPS = 6
+DECODE_SLOTS = 8
+# (name, arch, mesh, config overrides): GQA, MQA, heads that do not split,
+# a sliding window, Mixtral's expert slicing on (data, model, tp)
+TP_CASES = (
+    ("gqa", "qwen3-8b-smoke", (2, 2), {"n_kv_heads": 2}),
+    ("mqa", "granite-34b-smoke", (2, 2), None),
+    ("odd_heads", "qwen3-8b-smoke", (2, 2), {"n_heads": 3,
+                                             "n_kv_heads": 1}),
+    ("window", "qwen3-8b-smoke", (2, 2), {"n_kv_heads": 2,
+                                          "sliding_window": 4}),
+    ("mixtral", "mixtral-8x22b-smoke", (1, 2, 2), None),
+)

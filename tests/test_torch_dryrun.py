@@ -128,13 +128,18 @@ def test_one_cell_keeps_the_references_keys(monkeypatch):
 
 
 def test_cells_the_port_cannot_run_are_skips_with_their_reason():
+    """Only the reference's skips and a kernel's refusal skip a cell:
+    mixtral-8x22b runs on its ``arch_mesh`` (16, 8, 2) (expert slicing),
+    a multi-pod training batch splits over its 32 data ranks."""
     mix = dryrun.run_cell("mixtral-8x22b", "train_4k", verbose=False)
-    assert mix["status"] == "skip" and "expert slicing" in mix["reason"]
+    assert mix["status"] == "ok" and mix["mesh_shape"] == [16, 8, 2]
+    assert mix["rank0_batch"] == 16 and mix["fits"] is True
     enc = dryrun.run_cell("hubert-xlarge", "decode_32k", verbose=False)
     assert enc["status"] == "skip" and "encoder-only" in enc["reason"]
     pod = dryrun.run_cell("qwen3-8b", "train_4k", multi_pod=True,
                           verbose=False)
-    assert pod["status"] == "skip" and "does not split" in pod["reason"]
+    assert pod["status"] == "ok" and pod["rank0_batch"] == 8
+    assert pod["fits"] is True
     smoke = dryrun.run_cell("gpt2-moe-smoke", "prefill_32k",
                             mesh_shape=(2, 2), batch=2, seq=64,
                             verbose=False)
