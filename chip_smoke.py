@@ -327,11 +327,21 @@ Phase 15 holds the dense sharding (``launch.sharding``: every leaf stored
          and 8 decode steps, and qwen3-8b at depth 4's prefill and 8
          decode steps, against no mesh: bitwise, or within 1e-6 relative
          where a difference is by design (each result printed with which);
-         (b) rank 0 of three production cells at full width on the card
+         then gpt2-moe's training steps and qwen3-8b's prefill and decode
+         again with Megatron sequence parallelism on
+         (``cfg.seq_parallel``): the model-parallel group has one rank,
+         so nothing is split and each must be bitwise;
+         (b) rank 0 of four production cells at full width on the card
          through a ``MirrorMesh`` (each collective filled with what a
          world of ranks holding this rank's tensors returns: rank 0's
          program and allocations, not its values): qwen3-8b train_4k (16
-         x 4096 on the rank, remat, AdamW; 16 x 16), qwen2-72b prefill_32k
+         x 4096 on the rank, remat, AdamW; 16 x 16) twice, with sequence
+         parallelism off (the trainer's path: every tensor-parallel
+         all-reduce over the 16-rank model group, forward and backward)
+         and on (the dry run's default: the carry 256 tokens a rank
+         between layers), qwen2-72b train_4k with it on at depth
+         MIRROR_72B_DEPTH (the dry run's full-depth peak printed beside),
+         qwen2-72b prefill_32k
          (2 x 32768, TP-only residency, flash at 4 local heads; 16 x 16),
          mixtral-8x22b prefill_32k at depth 2 on (16, 8, 2): the dry run's
          peak (``meta``, a ``RecordingMesh``) against
@@ -341,10 +351,16 @@ Phase 15 holds the dense sharding (``launch.sharding``: every leaf stored
          a finite loss or logits of the expected shape (the mirror's
          backward multiplies a cotangent by n at each all-reduce, so its
          gradients may overflow: printed, not held);
-         (c) the sweep's counts (phase 14's): ok, skip, fitting, each cell
-         that does not fit.  Counters zeroed before each sharded run and
+         (c) the sweep's counts (phase 14's, sequence parallelism on, the
+         dry run's default): ok, skip, fitting, each cell that does not
+         fit; (d) wall-clock serving on a one-rank NCCL mesh: gpt2-moe at
+         full width, WALL_REQUESTS requests submitted on rank 0 and
+         drained by ``ServingEngine.run()`` (the request router:
+         ``Mesh.broadcast`` at each step) give the tokens of ``simulate``
+         replaying them on the same server, and the broadcasts are
+         recorded.  Counters zeroed before each sharded run and
          summed after it (``launches_sharded``): rows 1-8 of REPLACES must
-         launch.
+         launch.  Each part prints its seconds.
 
 Prints one ``{"kernels": [...]}`` line (twelve kernels: the ten of
 ``REPLACES`` and the two of ``BACKWARD``, with ``"replaces": null`` and
@@ -4938,21 +4954,30 @@ WORLD1_SERVE = (4, 64, 8)        # prefill batch x prompt, decode steps
 WORLD1_REL = 1e-6                # a by-design difference, where one shows
 # phase 15 (b): rank 0 of a production cell on one card through a
 # MirrorMesh: (arch, step, shape, depth or None for the config's own,
-# steps run, the CUDA kernel whose device time the profile prints)
-MIRROR_CASES = (("qwen3-8b", "train", "train_4k", None, 3, ""),
+# steps run, the CUDA kernel whose device time the profile prints,
+# Megatron sequence parallelism)
+MIRROR_72B_DEPTH = 8
+MIRROR_CASES = (("qwen3-8b", "train", "train_4k", None, 3, "", False),
+                ("qwen3-8b", "train", "train_4k", None, 3, "", True),
+                ("qwen2-72b", "train", "train_4k", MIRROR_72B_DEPTH, 3, "",
+                 True),
                 ("qwen2-72b", "prefill", "prefill_32k", None, 3,
-                 "flash_kernel"),
+                 "flash_kernel", False),
                 ("mixtral-8x22b", "prefill", "prefill_32k", 2, 3,
-                 "ffn_gemm_kernel"))
+                 "ffn_gemm_kernel", False))
+# phase 15 (d): gpt2-moe requests, prompt tokens, tokens each generates
+WALL_REQUESTS = (6, 48, 8)
 MIRROR_PEAK_REL = 0.02
 # the kernels on the sharded path (the recurrences' stacks are FSDP only
 # and run in phases 5, 6 and 13)
 SHARDED_PATH = set(REPLACES) - {"rwkv6_wkv", "ssd_scan"}
 
 
-def _held(tag: str, what: str, got, want, rows: list) -> None:
+def _held(tag: str, what: str, got, want, rows: list,
+          bitwise: bool = False) -> None:
     """Append (what, bitwise, max relative gap) for tensors ``got`` and
-    ``want`` (lists); raise past WORLD1_REL."""
+    ``want`` (lists); raise past WORLD1_REL, or, with ``bitwise``, unless
+    bitwise."""
     import torch
     bit = all(torch.equal(a, b) for a, b in zip(got, want))
     rel = max(float((a.float() - b.float()).abs().max()
@@ -4961,9 +4986,10 @@ def _held(tag: str, what: str, got, want, rows: list) -> None:
     rows.append((what, bit, rel))
     print(f"phase 15 (a) {tag} {what}: bitwise {bit}, max relative gap "
           f"{rel:.3e}", flush=True)
-    if not rel <= WORLD1_REL:
-        raise AssertionError(f"phase 15 (a) {tag} {what}: {rel:.3e} past "
-                             f"{WORLD1_REL}")
+    if not rel <= WORLD1_REL or (bitwise and not bit):
+        raise AssertionError(f"phase 15 (a) {tag} {what}: {rel:.3e} (past "
+                             f"{WORLD1_REL}, or not bitwise where it must "
+                             f"be)")
 
 
 def phase15_world1(dev, launches: dict) -> None:
@@ -4971,8 +4997,10 @@ def phase15_world1(dev, launches: dict) -> None:
     dense-sharded path on (``launch.sharding``'s specs through
     ``layout``): gpt2-moe's 5 training steps and a served prefill and 8
     decode steps (its identity plan), qwen3-8b at depth 4's prefill and 8
-    decode steps, against no mesh.  Counters zeroed before each mesh run
-    and added to ``launches`` after it."""
+    decode steps, against no mesh; then the training steps and qwen3-8b's
+    steps with sequence parallelism on, bitwise (the group has one rank,
+    so nothing is split).  Counters zeroed before each mesh run and added
+    to ``launches`` after it."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.convert import shard_params
@@ -5005,13 +5033,13 @@ def phase15_world1(dev, launches: dict) -> None:
     ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=n_steps,
                        state_dtype=cfg.opt_state_dtype)
 
-    def train(mesh):
+    def train(mesh, c=cfg):
         layout = None if mesh is None else S.layout_for(
-            cfg, mesh, params, "train", global_batch=b)
+            c, mesh, params, "train", global_batch=b)
         p = params if mesh is None else shard_params(params, mesh,
                                                      layout.specs)
         opt = init_opt_state(p, ocfg)
-        step = make_train_step(cfg, ocfg, dispatch_backend="pallas",
+        step = make_train_step(c, ocfg, dispatch_backend="pallas",
                                layout=layout)
         losses = []
         for batch in batches:
@@ -5063,6 +5091,19 @@ def phase15_world1(dev, launches: dict) -> None:
         count()
         _held(tag, "gpt2-moe prefill and 8 decode steps (logits, expert "
               "choices)", got, base_serve, rows)
+    t_sp = time.perf_counter()
+    sp_cfg = dataclasses.replace(cfg, seq_parallel=True)
+    for tag, mesh in meshes:
+        reset_counters()
+        got = train(mesh, sp_cfg)
+        count()
+        _held(tag + " SP", f"gpt2-moe {n_steps} training steps' losses",
+              got[0], base_train[0], rows, bitwise=True)
+        _held(tag + " SP", f"gpt2-moe params and AdamW state after "
+              f"{n_steps} steps", tree_leaves(got[1:]),
+              tree_leaves(base_train[1:]), rows, bitwise=True)
+        del got
+    sp_s = time.perf_counter() - t_sp
     del params, served, base_serve, base_train
     gc.collect()
     torch.cuda.empty_cache()
@@ -5076,6 +5117,16 @@ def phase15_world1(dev, launches: dict) -> None:
         count()
         _held(tag, "qwen3-8b (4 layers) prefill and 8 decode steps", got,
               base, rows)
+    t_sp = time.perf_counter()
+    for tag, mesh in meshes:
+        reset_counters()
+        got = serve(dataclasses.replace(qcfg, seq_parallel=True), qp, mesh)
+        count()
+        _held(tag + " SP", "qwen3-8b (4 layers) prefill and 8 decode "
+              "steps", got, base, rows, bitwise=True)
+    sp_s += time.perf_counter() - t_sp
+    print(f"phase 15 (a): the sequence-parallel runs took {sp_s:.1f} s",
+          flush=True)
     del qp, base
     gc.collect()
     torch.cuda.empty_cache()
@@ -5099,7 +5150,8 @@ def phase15_mirror(dev, launches: dict) -> None:
     peak and records (the same ``step_program`` on ``meta`` with a
     ``RecordingMesh``) against ``max_memory_allocated`` and the mirror's
     records, the step's wall time (median after the first) and busy
-    share, a finite output of the expected shape."""
+    share, a finite output of the expected shape.  A case cut in depth
+    also prints the dry run's peak at the config's full depth."""
     import numpy as np
     import torch
     from repro_torch.configs import SHAPES, get_config
@@ -5110,9 +5162,14 @@ def phase15_mirror(dev, launches: dict) -> None:
           "world of ranks holding this rank's tensors returns: the values "
           "are not rank 0's in the real model; what runs and allocates "
           "is", flush=True)
-    for arch, kind, sname, depth, n_steps, watch in MIRROR_CASES:
-        cfg = get_config(arch)
+    for arch, kind, sname, depth, n_steps, watch, sp in MIRROR_CASES:
+        t_case = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), seq_parallel=sp)
+        full_peak = None
         if depth:
+            full_peak = dryrun.run_cell(
+                arch, sname, seq_parallel=sp, verbose=False)[
+                "memory_analysis"]["peak_bytes_estimate"]
             cfg = depth_cut(cfg, depth)
         shape = SHAPES[sname]
         rec = arch_mesh(cfg)
@@ -5184,7 +5241,8 @@ def phase15_mirror(dev, launches: dict) -> None:
         gap = (pred - meas) / meas
         same = got == want
         print(f"phase 15 (b) {arch} {sname} on {rec.shape} "
-              f"{rec.axis_names}, rank 0: {b} x {s}, {cfg.n_layers} layers:"
+              f"{rec.axis_names}, rank 0: {b} x {s}, {cfg.n_layers} layers,"
+              f" sequence parallel {sp}:"
               f" predicted peak {pred} bytes ({pred / 2**30:.2f} GiB), "
               f"measured {meas} ({meas / 2**30:.2f} GiB), gap "
               f"{100 * gap:+.3f}%; step {float(np.median(dts[1:])):.4f} s "
@@ -5197,6 +5255,14 @@ def phase15_mirror(dev, launches: dict) -> None:
                   flush=True)
         print(f"phase 15 (b) {arch}: {len(got)} collectives recorded, the "
               f"dry run's {len(want)}: equal {same}", flush=True)
+        if full_peak is not None:
+            print(f"phase 15 (b) {arch} {sname}: the dry run's peak at the "
+                  f"full depth, {get_config(arch).n_layers} layers, "
+                  f"{full_peak} bytes ({full_peak / 1e9:.2f} GB, fits 80 GB "
+                  f"{full_peak <= 80e9}), beside this depth's {pred} "
+                  f"predicted and {meas} measured", flush=True)
+        print(f"phase 15 (b) {arch} {kind}: {time.perf_counter() - t_case:.1f}"
+              f" s", flush=True)
         del step, args, mm
         gc.collect()
         torch.cuda.empty_cache()
@@ -5214,8 +5280,10 @@ def phase15_sweep(src: Path, cells) -> None:
     cs = list(cells.values())
     ok = [c for c in cs if c["status"] == "ok"]
     fit = [c for c in ok if c["fits"]]
+    sp = sorted({c.get("seq_parallel") for c in ok}, key=str)
     print(f"phase 15 (c): {len(cs)} cells, {len(ok)} ok, "
-          f"{len(cs) - len(ok)} skip, {len(fit)} fit in 80 GB", flush=True)
+          f"{len(cs) - len(ok)} skip, {len(fit)} fit in 80 GB (sequence "
+          f"parallel {sp})", flush=True)
     for c in ok:
         if not c["fits"]:
             print(f"    does not fit: {c['arch']} {c['shape']} {c['mesh']}"
@@ -5228,11 +5296,85 @@ def phase15_sweep(src: Path, cells) -> None:
                              f"sharding: {bad}")
 
 
+def phase15_wallclock(dev, launches: dict) -> None:
+    """(d) Wall-clock serving on a one-rank NCCL mesh: gpt2-moe at full
+    width served by a ``MoEServer`` on the (1, 1) mesh; WALL_REQUESTS
+    requests submitted on rank 0 and drained by ``ServingEngine.run()``
+    (each step opens with rank 0's clock, its new requests and whether
+    work remains, broadcast through ``Mesh.broadcast``) against
+    ``simulate`` replaying them on the same server: the same tokens, the
+    broadcasts recorded.  Counters zeroed before the wall-clock run and
+    added to ``launches`` after it."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import COUNTERS, reset_counters
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.runtime.engine import (EngineConfig, ServingEngine,
+                                            simulate)
+    from repro_torch.runtime.server import MoEServer, profile_from_training
+    t0 = time.perf_counter()
+    n_req, n_tok, new = WALL_REQUESTS
+    mesh = make_mesh((1, 1), device=str(dev))
+    cfg = get_config("gpt2-moe")
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                global_batch=4, seed=0))
+    prof = profile_from_training(cfg, params,
+                                 (ds.batch(i) for i in range(3)), mesh=mesh)
+    srv = MoEServer(cfg, params, prof, mesh=mesh)
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, cfg.vocab_size, n_tok) for _ in range(n_req)]
+    ecfg = EngineConfig(max_batch_tokens=128, max_batch_requests=4)
+    with torch.inference_mode():
+        eng = ServingEngine(srv, ecfg)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=new)
+        mesh.records = []
+        reset_counters()
+        t_run = time.perf_counter()
+        wall = eng.run()
+        torch.cuda.synchronize(dev)
+        t_run = time.perf_counter() - t_run
+        for n, c in COUNTERS.items():
+            launches[n] = launches.get(n, 0) + c.count
+        kinds = Counter(r.kind for r in mesh.records)
+        mesh.records = None
+        rep = simulate(ServingEngine(srv, ecfg), [(p, 0.0) for p in prompts],
+                       max_new_tokens=new)
+    wall = sorted(wall, key=lambda r: r.rid)
+    rep = sorted(rep, key=lambda r: r.rid)
+    same = [r.rid for r in wall] == [r.rid for r in rep] == \
+        list(range(n_req)) and all(
+            a.tokens.tolist() == b.tokens.tolist() for a, b in zip(wall, rep))
+    logits_bit = all(np.array_equal(a.logits, b.logits)
+                     for a, b in zip(wall, rep))
+    lat = [r.latency for r in wall]
+    print(f"phase 15 (d) wall-clock serving on {mesh}: gpt2-moe, {n_req} "
+          f"requests of {n_tok} tokens, {new} new each, {eng.step_idx} "
+          f"engine steps in {t_run:.3f} s (latency p50 "
+          f"{float(np.median(lat)):.4f} s); the tokens of simulate "
+          f"{same}, its logits bitwise {logits_bit}; collectives "
+          f"{dict(kinds)}; {time.perf_counter() - t0:.1f} s", flush=True)
+    del eng, srv, params, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not same or not kinds.get("broadcast"):
+        raise AssertionError(f"phase 15 (d): tokens as simulate's {same}, "
+                             f"broadcasts {kinds.get('broadcast', 0)}")
+
+
 def phase15(dev, src: Path, cells=None) -> dict:
     """The dense sharding (``launch.sharding``): (a) world size 1 against
-    no mesh, (b) rank 0 of three production cells through a
-    ``MirrorMesh``, (c) the sweep's counts.  Returns the launches of the
-    sharded runs; every kernel of SHARDED_PATH must have launched."""
+    no mesh, (b) rank 0 of four production cells through a
+    ``MirrorMesh``, (c) the sweep's counts, (d) wall-clock serving on a
+    one-rank mesh.  Returns the launches of the sharded runs; every kernel
+    of SHARDED_PATH must have launched."""
     t0 = time.perf_counter()
     launches: dict = {}
     phase15_world1(dev, launches)
@@ -5240,6 +5382,9 @@ def phase15(dev, src: Path, cells=None) -> dict:
     phase15_mirror(dev, launches)
     print(f"phase 15: (b) by {time.perf_counter() - t0:.1f} s", flush=True)
     phase15_sweep(src, cells)
+    print(f"phase 15: (c) by {time.perf_counter() - t0:.1f} s", flush=True)
+    phase15_wallclock(dev, launches)
+    print(f"phase 15: (d) by {time.perf_counter() - t0:.1f} s", flush=True)
     print("phase 15 launches: " + json.dumps(launches), flush=True)
     missing = sorted(n for n in SHARDED_PATH if not launches.get(n))
     if missing:

@@ -1,6 +1,7 @@
 """Differentiable collectives over a mesh's process groups
 (``launch.mesh.Mesh``): gathers of a tensor's shards along one dim, whose
-backward reduce-scatters the gradient (their adjoint), and a sum
+backward reduce-scatters the gradient (their adjoint), reduce-scatters
+along one dim, whose backward all-gathers the gradient, and a sum
 all-reduce whose backward sums the gradient too.  Every collective goes
 through one ``Mesh`` method of its kind, which records it."""
 from __future__ import annotations
@@ -38,6 +39,16 @@ def gather_group(t, mesh, group, dim: int):
     return out.movedim(0, dim).contiguous()
 
 
+def scatter_group(t, mesh, group, dim: int):
+    """This rank's block along ``dim`` of ``t`` summed over ``group``
+    (blocks in rank order; no autograd)."""
+    tm = t.movedim(dim, 0).contiguous()
+    out = tm.new_empty((tm.shape[0] // mesh.group_size(group),
+                        *tm.shape[1:]))
+    mesh.reduce_scatter(out, tm, group)
+    return out.movedim(0, dim).contiguous()
+
+
 class _Gather(torch.autograd.Function):
     """All-gather of ``t``'s shards along ``dim`` over ``group``, in rank
     order; the backward is its adjoint, the reduce-scatter of the gradient
@@ -50,12 +61,8 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        mesh, group = ctx.mesh, ctx.group
-        n = mesh.group_size(group)
-        gm = g.movedim(ctx.dim, 0).contiguous()
-        out = gm.new_empty((gm.shape[0] // n, *gm.shape[1:]))
-        mesh.reduce_scatter(out, gm, group)
-        return out.movedim(0, ctx.dim).contiguous(), None, None, None
+        return scatter_group(g, ctx.mesh, ctx.group, ctx.dim), None, None, \
+            None
 
 
 def gather_grad(t, mesh, group, dim: int):
@@ -70,6 +77,28 @@ def gather_axes(t, mesh, names, dim: int):
     for group in axis_groups(mesh, names):
         t = gather_grad(t, mesh, group, dim)
     return t
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Reduce-scatter of ``t`` along ``dim`` over ``group``: this rank's
+    block of the group's sum; the backward is its adjoint, the all-gather
+    of the gradient's blocks."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, group, dim):
+        ctx.mesh, ctx.group, ctx.dim = mesh, group, dim
+        return scatter_group(t, mesh, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_group(g, ctx.mesh, ctx.group, ctx.dim), None, None, \
+            None
+
+
+def reduce_scatter_grad(t, mesh, group, dim: int):
+    """This rank's block along ``dim`` of ``t`` summed over ``group``
+    (autograd: the gradient's blocks are all-gathered back)."""
+    return _ReduceScatter.apply(t, mesh, group, dim)
 
 
 class _AllReduce(torch.autograd.Function):

@@ -26,7 +26,8 @@ from repro_torch.configs.base import MoEConfig
 from repro_torch.core import axes
 from repro_torch.core import dispatch as D
 from repro_torch.core import microop
-from repro_torch.core.collectives import gather_grad
+from repro_torch.core.collectives import (all_reduce_grad, gather_grad,
+                                          reduce_scatter_grad)
 from repro_torch.core.gating import (capacity, kept_counts,
                                      router_top_k_gating)
 from repro_torch.kernels.ops import (grouped_ffn_grads, grouped_ffn_op,
@@ -95,16 +96,12 @@ class _Plan:
     """What ``_ExpertParallel`` needs besides tensors."""
 
     def __init__(self, mesh, n_experts, n_chunks, pipeline, ffn_type,
-                 backend, counts, shadow, expert_slicing=False):
+                 backend, counts, shadow):
         self.mesh, self.e, self.n_chunks = mesh, n_experts, n_chunks
         self.pipeline, self.ffn_type, self.backend = pipeline, ffn_type, \
             backend
         self.counts, self.shadow, self.side = counts, shadow, None
         self.ep = mesh.size(axes.EP_AXIS)
-        # expert slicing: each rank of the `tp` group holds a slice of
-        # every local expert's hidden dim, and the FFN's output is summed
-        # over the group
-        self.tp = mesh.group(axes.TP) if expert_slicing else None
 
     def to_rows(self, recv):
         """[ep * E_local, c, d] received -> the FFN's [E_local, ep * c, d]
@@ -134,10 +131,9 @@ class _ExpertParallel(torch.autograd.Function):
     the single-rank layer's, so its gradients are bitwise that layer's.
     The ScMoE shortcut (``plan.shadow``) runs, with autograd, while the
     first dispatch is in flight; its output comes back in ``plan.side``.
-    On a mesh with `tp` the experts' hidden dims are this rank's slice:
-    each chunk's FFN output is summed over the `tp` group before it goes
-    back (the reference's psum over `tp`), and the backward sums dy there
-    too, its adjoint."""
+    Where the experts' hidden dims are this rank's `tp` slice the output
+    is this rank's partial sum, which ``moe_layer`` sums over `tp` after
+    the combine."""
 
     @staticmethod
     def forward(ctx, buf, wi, wu, wo, plan):
@@ -151,8 +147,6 @@ class _ExpertParallel(torch.autograd.Function):
             rows.append(rs)
             out = expert_ffn(wi, wu, wo, rs, plan.ffn_type, plan.backend,
                              group_rows=gr)
-            if plan.tp is not None:
-                plan.mesh.all_reduce(out, plan.tp)
             return plan.from_rows(out, c)
 
         def shadow():
@@ -177,8 +171,6 @@ class _ExpertParallel(torch.autograd.Function):
         recv = [microop.all_to_all_ec(p, mesh, async_op=True)
                 for p in torch.split(dy, c, dim=1)]
         d_rows = torch.cat([plan.to_rows(r.wait()) for r in recv], 1)
-        if plan.tp is not None:       # the adjoint of the forward's sum
-            mesh.all_reduce(d_rows, plan.tp)
         if plan.backend == "pallas":
             dx, dwi, dwu, dwo = grouped_ffn_grads(x_rows, wi, wu, wo,
                                                   plan.ffn_type, d_rows)
@@ -206,7 +198,8 @@ def moe_layer(x, params: MoEParams, cfg: MoEConfig, *,
               ffn_type: str = "swiglu", dispatch_backend: str = "scatter",
               top_k: int | None = None, mesh=None, lina: bool = True,
               fsdp: bool = False, shortcut_params=None,
-              expert_slicing: bool = False) -> MoEOutput:
+              expert_slicing: bool = False,
+              tp_scatter: bool = False) -> MoEOutput:
     """x: [B, S, d], this rank's tokens -> MoEOutput on them.
 
     ``params`` hold this rank's experts: E / ep of them (``wi``, ``wu``,
@@ -223,7 +216,15 @@ def moe_layer(x, params: MoEParams, cfg: MoEConfig, *,
     local tokens while the first dispatch all-to-all is in flight and is
     summed into the combine.  With a mesh the aux loss has the value of
     its mean over every rank (each holds its own tokens), the reference's
-    ``pmean``, and this rank's own gradient (``world_mean_value``)."""
+    ``pmean``, and this rank's own gradient (``world_mean_value``).
+
+    With ``expert_slicing`` the experts' outputs are this rank's partial
+    sums over `tp` (the reference's psum over `tp`): the sum is taken
+    after the combine, which is linear, on y [B, S, d] (fewer rows than
+    the capacity buffer): an all-reduce (autograd: dy summed too), or with
+    ``tp_scatter`` (Megatron-SP) a reduce-scatter along the sequence (S
+    must tile tp), y then this rank's [B, S / tp, d] and the shortcut's
+    output cut to it."""
     b, s, d_model = x.shape
     x2 = x.reshape(b * s, d_model)
     e = cfg.n_experts
@@ -263,13 +264,20 @@ def moe_layer(x, params: MoEParams, cfg: MoEConfig, *,
             if backend == "pallas" and mesh.size(axes.EP_AXIS) == 1 else None
         plan = _Plan(mesh, e, cfg.n_microops if lina else 1,
                      lina and cfg.pipeline_ffn, ffn_type, backend, counts,
-                     shortcut if shortcut_params is not None else None,
-                     expert_slicing)
+                     shortcut if shortcut_params is not None else None)
         out_buf = _ExpertParallel.apply(buf, wi, wu, wo, plan)
         sc_out = plan.side
         aux = world_mean_value(aux, mesh)
-    y = comb(out_buf, g, e, cap)
+    y = comb(out_buf, g, e, cap).reshape(b, s, d_model)
+    if sc_out is not None:
+        sc_out = sc_out.reshape(b, s, d_model)
+    if expert_slicing and tp_scatter:     # the `tp` sum, to this rank's slice
+        y = reduce_scatter_grad(y, mesh, mesh.group(axes.TP), 1)
+        if sc_out is not None:
+            k = s // mesh.size(axes.TP)
+            sc_out = sc_out.narrow(1, mesh.index(axes.TP) * k, k)
+    elif expert_slicing:                  # the `tp` sum
+        y = all_reduce_grad(y, mesh, mesh.group(axes.TP))
     if sc_out is not None:
         y = y + sc_out                    # summed into the combine (ScMoE)
-    return MoEOutput(y.reshape(b, s, d_model), aux, g.expert_idx,
-                     g.router_probs)
+    return MoEOutput(y, aux, g.expert_idx, g.router_probs)

@@ -3,7 +3,9 @@ counterpart of the reference's ``src/repro/launch/dryrun.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-8b \\
         --shape train_4k [--multi-pod] [--mesh DxE] \\
-        [--batch B --seq S --layers L] [--json F]
+        [--batch B --seq S --layers L] [--json F] \\
+        [--no-sp] [--no-lina] [--microbatches N] [--dp-only] \\
+        [--kv-split] [--cache-batch-only] [--tag T]
 
 It runs rank 0's train, prefill or decode step (``launch.steps``'
 ``make_train_step``, ``make_prefill_step``, ``make_decode_step``) on the
@@ -42,6 +44,27 @@ sheet (989 TFLOP/s bf16, 3.35 TB/s, NVLink 450 GB/s as one link), not a
 measurement, and a 16-way group spans two 8-GPU nodes, so the collective
 term (NVLink's rate) is a lower bound.
 
+The reference's variants, with its defaults
+(``src/repro/launch/dryrun.py:52-135, 225-241``): Megatron sequence
+parallelism is on (``cfg.seq_parallel``; ``--no-sp`` the paper's
+baseline), Lina's schedule on (``--no-lina``: one all-to-all, the whole
+FFN, one all-to-all), one microbatch (``--microbatches``), tensor
+parallelism on (``--dp-only``: ``cfg.tensor_parallel`` False, every axis
+FSDP); two decode hill-climbs place the KV cache otherwise:
+``--kv-split`` re-views `model` as (kv heads, `tp`)
+(``launch.mesh.kv_split_mesh``) and splits the cache's kv heads over
+`model` and its sequence over `tp`, ``--cache-batch-only`` splits its
+rows alone (``launch.sharding.cache_specs``).  ``--tag`` labels the
+result.  Under ``--dp-only`` the reference's carry constraint
+``P(dp, tp_axes, None)`` still splits the sequence over `model` (and
+`tp`), while every weight is whole after its FSDP gather: so SP keeps
+the carry S / n a rank, attention gathers its input and cuts its whole
+output back to the slice, and the FFNs run on the slice; the experts'
+spec there names `model` once (the reference's names it twice, which
+JAX refuses: ``launch.sharding.param_specs``).  Where the kv heads do
+not divide 16 the reference's ``kv_split`` names a `tp` axis its mesh
+lacks; the port skips such a cell with that reason.
+
 A cell is ``skip`` with its reason where the reference skips it
 (``configs.skip_reason``) or where a kernel's contract refuses a shape on
 the path (``refused``: a ``KernelRefused``).  Any other fault is
@@ -74,8 +97,8 @@ from repro_torch.kernels._build import KernelRefused
 from repro_torch.launch.analytic import analytic_cost
 from repro_torch.launch.hlo_analysis import collective_summary
 from repro_torch.launch import sharding as shard_mod
-from repro_torch.launch.mesh import (RecordingMesh, arch_mesh, mesh_axes,
-                                     parse_mesh)
+from repro_torch.launch.mesh import (RecordingMesh, arch_mesh,
+                                     kv_split_mesh, mesh_axes, parse_mesh)
 from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
                                       make_serve_plan, make_train_step)
 from repro_torch.models import lm as lm_mod
@@ -174,7 +197,8 @@ def batch_for(cfg, kind: str, b: int, s: int, device, gen=None) -> dict:
 
 
 def _sharded_program(cfg, kind: str, b: int, s: int, mesh, dev, gen,
-                     global_batch: int):
+                     global_batch: int, lina: bool, microbatches: int,
+                     cache_split: str):
     """``step_program`` with a mesh: the dense-sharded step and rank's
     shards (see the module doc)."""
     full = lm_mod.init_params(cfg, None, device="meta")
@@ -183,7 +207,8 @@ def _sharded_program(cfg, kind: str, b: int, s: int, mesh, dev, gen,
         cache = lm_mod.init_cache(cfg, global_batch, s,
                                   dtype=DTYPES[cfg.dtype], device="meta")
     layout = shard_mod.layout_for(cfg, mesh, full, kind,
-                                  global_batch=global_batch, cache=cache)
+                                  global_batch=global_batch, cache=cache,
+                                  cache_split=cache_split)
     mirror = dev.type != "meta" and isinstance(mesh, RecordingMesh)
     if not mirror:
         params = shard_params(lm_mod.init_params(cfg, gen, device=dev),
@@ -203,8 +228,9 @@ def _sharded_program(cfg, kind: str, b: int, s: int, mesh, dev, gen,
     if kind == "train":
         opt = init_opt_state(params, AdamWConfig(
             state_dtype=cfg.opt_state_dtype))
-        step = make_train_step(cfg, layout=layout,
-                               dispatch_backend="pallas")
+        step = make_train_step(cfg, layout=layout, lina=lina,
+                               dispatch_backend="pallas",
+                               microbatches=microbatches)
         return step, (params, opt, batch)
     params = lm_mod.cast_for_compute(cfg, params)
     plan = make_serve_plan(cfg, mesh, device=dev)
@@ -219,7 +245,9 @@ def _sharded_program(cfg, kind: str, b: int, s: int, mesh, dev, gen,
 
 
 def step_program(cfg, kind: str, b: int, s: int, *, mesh=None,
-                 device="meta", global_batch: int | None = None):
+                 device="meta", global_batch: int | None = None,
+                 lina: bool = True, microbatches: int = 1,
+                 cache_split: str = "seq"):
     """(step, args): rank 0's ``kind`` step ("train", "prefill",
     "decode") and its arguments on ``device``, so that ``step(*args)``
     runs it once.  The same program on ``meta`` (the dry run) and on the
@@ -228,20 +256,24 @@ def step_program(cfg, kind: str, b: int, s: int, *, mesh=None,
     depth).  With a ``mesh`` the step is dense-sharded by the reference's
     specs (``global_batch``: the batch whose rows ``b`` are rank 0's,
     which decides whether they split over the data axes); without, the
-    one-rank step.  Off ``meta`` the weights and inputs are drawn from
-    seed 0."""
+    one-rank step.  ``lina`` and ``microbatches`` are the train step's
+    (the reference's serve steps take neither), ``cache_split`` the
+    decode cache's placement (``launch.sharding.cache_specs``).  Off
+    ``meta`` the weights and inputs are drawn from seed 0."""
     dev = torch.device(device)
     gen = None if dev.type == "meta" else \
         torch.Generator(device=dev).manual_seed(0)
     if mesh is not None:
         return _sharded_program(cfg, kind, b, s, mesh, dev, gen,
-                                global_batch or b)
+                                global_batch or b, lina, microbatches,
+                                cache_split)
     params = lm_mod.init_params(cfg, gen, device=dev)
     if kind == "train":
         opt = init_opt_state(params, AdamWConfig(
             state_dtype=cfg.opt_state_dtype))
         # the trainer's step: dispatch and combine on the kernel route
-        step = make_train_step(cfg, dispatch_backend="pallas")
+        step = make_train_step(cfg, dispatch_backend="pallas", lina=lina,
+                               microbatches=microbatches)
         return step, (params, opt, batch_for(cfg, kind, b, s, dev, gen))
     params = lm_mod.cast_for_compute(cfg, params)      # the served copy
     plan = make_serve_plan(cfg, None, device=dev)
@@ -286,11 +318,21 @@ def cell_shape(cfg, shape: ShapeConfig, mesh) -> tuple:
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
+             lina: bool = True, seq_parallel: bool = True,
+             microbatches: int = 1, cache_batch_only: bool = False,
+             dp_only: bool = False, kv_split: bool = False, tag: str = "",
              mesh_shape=None, batch=None, seq=None, layers=None,
              verbose: bool = True) -> dict:
     """One cell (see the module doc): ``ok``, ``skip`` with its reason, or
-    ``error`` with the traceback of a fault that is no kernel's refusal."""
-    cfg = get_config(arch)
+    ``error`` with the traceback of a fault that is no kernel's refusal.
+    The keywords before ``mesh_shape`` are the reference's, with its
+    defaults.  ``kv_split`` re-views the cell's production mesh
+    (``kv_split_mesh``), so it takes no ``mesh_shape``."""
+    if kv_split and mesh_shape:
+        raise ValueError("kv_split re-views the production mesh's `model` "
+                         "axis as (model, tp): give no mesh_shape")
+    cfg = dataclasses.replace(get_config(arch), seq_parallel=seq_parallel,
+                              tensor_parallel=not dp_only)
     if layers:
         pattern = cfg.layer_pattern[:layers - 1] + "*" \
             if cfg.layer_pattern else ""
@@ -306,6 +348,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
         ("2x16x16" if multi_pod else "16x16")
     head = {"arch": arch, "shape": shape_name, "mesh": mesh_name}
     reason = skip_reason(cfg, shape)
+    if not reason and kv_split:
+        mesh = kv_split_mesh(cfg, multi_pod)
+        if mesh is None:
+            reason = (f"kv_split: {cfg.n_kv_heads} kv heads do not divide "
+                      f"the 16-way model axis")
     if reason:
         return {**head, "status": "skip", "reason": reason}
     if shape.kind == "long_decode":
@@ -315,8 +362,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
     b, s = cell_shape(cfg, shape, mesh)
     t0 = time.time()
     try:
+        cache_split = "kv" if kv_split else \
+            "batch" if cache_batch_only else "seq"
         step, args = step_program(cfg, kind, b, s, mesh=mesh,
-                                  global_batch=shape.global_batch)
+                                  global_batch=shape.global_batch,
+                                  lina=lina, microbatches=microbatches,
+                                  cache_split=cache_split)
         mesh.records.clear()
         mem = meta_peak(step, args)
     except KernelRefused as e:
@@ -337,7 +388,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
     model_flops = mult * cfg.active_param_count() * tokens
     result = {
         **head, "mesh_shape": list(mesh.shape), "n_chips": n_chips,
-        "status": "ok", "lina": True,
+        "status": "ok", "lina": lina, "seq_parallel": seq_parallel,
+        "microbatches": microbatches, "dp_only": dp_only,
+        "kv_split": kv_split, "cache_batch_only": cache_batch_only,
+        "tag": tag,
         "layers": cfg.n_layers, "rank0_batch": b, "seq": s,
         "run_s": round(t_run, 1),
         "analytic_flops_global": ana.flops_global,
@@ -355,8 +409,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False, *,
     result["roofline_fraction"] = terms["compute_s"] / max(
         terms["compute_s"], terms["memory_s"], terms["collective_s"])
     if verbose:
-        print(f"== {arch} x {shape_name} on {mesh_name} ({n_chips} ranks), "
-              f"rank 0: batch {b} x {s}, {cfg.n_layers} layers ==")
+        print(f"== {arch} x {shape_name} on {mesh_name} {list(mesh.shape)} "
+              f"({n_chips} ranks), rank 0: batch {b} x {s}, {cfg.n_layers} "
+              f"layers, lina={lina} seq_parallel={seq_parallel} "
+              f"microbatches={microbatches} ==")
         print(f"memory_analysis: {mem} fits={result['fits']}")
         print(f"analytic: flops={ana.flops_global:.3e} "
               f"hbm={ana.hbm_bytes_global:.3e} ({ana.notes})")
@@ -386,9 +442,29 @@ def main(argv=None):
                     help="the shape's sequence length instead")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers")
+    ap.add_argument("--no-lina", action="store_true",
+                    help="baseline schedule (one all-to-all, no micro-ops)")
+    ap.add_argument("--no-sp", action="store_true",
+                    help="no sequence parallelism (the paper's baseline)")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--cache-batch-only", action="store_true",
+                    help="decode: split the KV cache over its rows alone")
+    ap.add_argument("--dp-only", action="store_true",
+                    help="no tensor parallelism: every axis FSDP / data")
+    ap.add_argument("--kv-split", action="store_true",
+                    help="decode: re-view `model` as (kv heads x tp), the "
+                    "cache's kv heads over it and its sequence over tp")
+    ap.add_argument("--tag", default="", help="a label for the result")
     ap.add_argument("--json", default=None, help="append the result here")
     args = ap.parse_args(argv)
+    if args.kv_split and args.mesh:
+        ap.error("--kv-split re-views the production mesh: drop --mesh")
     res = run_cell(args.arch, args.shape, args.multi_pod,
+                   lina=not args.no_lina, seq_parallel=not args.no_sp,
+                   microbatches=args.microbatches,
+                   cache_batch_only=args.cache_batch_only,
+                   dp_only=args.dp_only, kv_split=args.kv_split,
+                   tag=args.tag,
                    mesh_shape=parse_mesh(args.mesh) if args.mesh else None,
                    batch=args.batch, seq=args.seq, layers=args.layers)
     if res["status"] == "skip":

@@ -15,6 +15,8 @@ Byte conventions (per rank, 'wire bytes' on a ring), the reference's:
     all-gather          out_size * (n-1)/n      (each rank receives the rest)
     reduce-scatter      in_size  * (n-1)/n
     all-to-all          size * (n-1)/n
+    broadcast           size * (n-1)/n          (each rank but the root
+                                                 receives it)
     collective-permute  size
 ``size`` is the byte size of the collective's result (``Record.nbytes``:
 the gathered tensor of an all-gather, this rank's block of a
@@ -25,7 +27,7 @@ from __future__ import annotations
 from collections import defaultdict
 
 COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
-                  "collective-permute")
+                  "broadcast", "collective-permute")
 
 
 def wire_bytes(op: str, size: int, n: int) -> float:
@@ -37,8 +39,8 @@ def wire_bytes(op: str, size: int, n: int) -> float:
     if op == "all-gather":
         return size * f                  # size = gathered result
     if op == "reduce-scatter":
-        return size * n * f              # size = scattered result; input n*size
-    if op == "all-to-all":
+        return size * n * f        # size = scattered result; input n*size
+    if op in ("all-to-all", "broadcast"):
         return size * f
     return float(size)                   # collective-permute
 

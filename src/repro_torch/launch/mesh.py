@@ -27,8 +27,8 @@ raises, and so does a failed NCCL init.
 
 Every collective of the port goes through one ``Mesh`` method a kind
 (``all_to_all``, ``all_reduce``, ``all_gather``, ``reduce_scatter``,
-``barrier``).  With ``records`` a list, each call appends a ``Record``
-(kind, axis, group size, dtype, bytes) before it issues.  A
+``broadcast``, ``barrier``).  With ``records`` a list, each call appends
+a ``Record`` (kind, axis, group size, dtype, bytes) before it issues.  A
 ``RecordingMesh`` is rank 0 of a mesh of any shape with stand-in groups:
 it records every collective and issues none, on ``meta`` tensors (the
 dry run, ``launch.dryrun``); ``make_production_mesh`` gives the
@@ -37,7 +37,8 @@ reference's 16 x 16 and 2 x 16 x 16 meshes as recording meshes, and
 not fill the `model` axis.  A ``MirrorMesh`` is a recording mesh whose
 collectives also fill their results with what a world of ranks that all
 hold this rank's tensors would return, so that rank 0 of a large mesh runs
-its whole step on one card (``chip_smoke.py`` phase 15).
+its whole step on one card (``chip_smoke.py`` phase 15); there a
+broadcast leaves its tensor as it is.
 """
 from __future__ import annotations
 
@@ -286,6 +287,18 @@ class Mesh:
             dist.reduce_scatter_tensor
         self._issue(lambda: fn(out, x, group=group))
 
+    def broadcast(self, t, src: int, group) -> None:
+        """``t`` replaced in place by the tensor of the group's rank
+        ``src`` (its index in ``group``): the serving engine's request
+        router (``runtime.engine``)."""
+        self._record("broadcast", group, t)
+
+        def run():
+            root = src if group is self.world_group else \
+                dist.get_global_rank(group, src)
+            return dist.broadcast(t, src=root, group=group)
+        self._issue(run)
+
     def barrier(self) -> None:
         if self.records is not None:
             self.records.append(Record("barrier", WORLD, self.world,
@@ -412,8 +425,8 @@ class MirrorMesh(RecordingMesh):
     holds this rank's tensor (an all-gather tiles the input n times, a sum
     all-reduce multiplies it by n and a max one keeps it, a reduce-scatter
     gives n times this rank's block, an all-to-all this rank's block n
-    times), in place and with no allocation beyond a recording mesh's.
-    Those are the values of a world whose ranks all hold equal shards, not
+    times, a broadcast keeps it: ``RecordingMesh.broadcast``), in place
+    and with no allocation beyond a recording mesh's.  Those are the values of a world whose ranks all hold equal shards, not
     rank 0's values in a real world; what it runs and allocates is rank
     0's, so the dry run's peak and records can be held against a card."""
 
@@ -474,6 +487,21 @@ def arch_mesh(cfg, multi_pod: bool = False, device="meta"):
     if not e or 16 % e or e >= 16:
         return make_production_mesh(multi_pod, device=device)
     return RecordingMesh((32 if multi_pod else 16, e, 16 // e),
+                         (axes.DATA, axes.MODEL, axes.TP), device=device)
+
+
+def kv_split_mesh(cfg, multi_pod: bool = False, device="meta"):
+    """The production mesh re-viewed for the reference's ``kv_split``
+    decode variant (``src/repro/launch/dryrun.py:66-78``): where the kv
+    heads divide 16, the 16-way `model` axis splits into (`model` = kv
+    heads, `tp` = 16 / kv heads), so that the KV cache's kv heads split
+    over `model` and its sequence over `tp`
+    (``launch.sharding.cache_specs``' "kv"); None where they do not
+    divide.  Ranks keep their order."""
+    kvh = cfg.n_kv_heads
+    if not kvh or 16 % kvh:
+        return None
+    return RecordingMesh((32 if multi_pod else 16, kvh, 16 // kvh),
                          (axes.DATA, axes.MODEL, axes.TP), device=device)
 
 

@@ -32,13 +32,14 @@ The functions take any mesh with ``axis_names`` and ``shape``: the port's
 """
 from __future__ import annotations
 
+import copy
 import math
 
 from repro_torch.convert import block_index
 from repro_torch.core import axes
 from repro_torch.core.axes import Spec
 from repro_torch.core.collectives import (all_reduce_grad, gather_axes,
-                                          gather_grad)
+                                          gather_grad, reduce_scatter_grad)
 from repro_torch.core.moe import EXPERT_FIELDS, MoEParams
 from repro_torch.models.attention import AttnParams, KVCache
 from repro_torch.models.lm import (FFNParams, GroupParams, HybridParams,
@@ -144,6 +145,11 @@ def param_specs(cfg, mesh, params: LMParams) -> LMParams:
                           ln2=Spec(None, None))
     else:
         hid = ((axes.TP,) + dp) if axes.TP in mesh.axis_names else dp
+        # without tensor parallelism dp holds `model`, the experts' own
+        # split, and `tp`: the reference's spec then names an axis twice,
+        # which JAX refuses (its dp-only MoE cells do not compile); here
+        # the hidden dim keeps each other axis once
+        hid = tuple(dict.fromkeys(a for a in hid if a != axes.EP_AXIS))
         stack = GroupParams(
             attn=_attn_specs(dp, tp, 2),
             ln1=Spec(None, None, None), ln2=Spec(None, None, None),
@@ -225,16 +231,27 @@ def batch_specs(cfg, mesh, shape) -> dict:
     return out
 
 
-def cache_specs(cfg, mesh, cache: LMCache) -> LMCache:
+CACHE_SPLITS = ("seq", "kv", "batch")
+
+
+def cache_specs(cfg, mesh, cache: LMCache, split: str = "seq") -> LMCache:
     """The decode cache: batch over the data axes (where it splits), the
     KV cache's sequence over the model-parallel axes (decode attention
-    then runs sequence-parallel, ``models.attention.decode_attention``)."""
+    then runs sequence-parallel, ``models.attention.decode_attention``).
+    ``split`` takes the reference's dry-run variants of the KV cache
+    (``src/repro/launch/dryrun.py:96-117``): "kv" (``kv_split``, on
+    ``launch.mesh.kv_split_mesh``) its sequence over `tp` and its kv heads
+    over `model`; "batch" (``cache_batch_only``) its rows alone split."""
+    if split not in CACHE_SPLITS:
+        raise ValueError(f"cache split {split!r}: one of {CACHE_SPLITS}")
     dp = _dp(mesh)
     bs = dp if batch_split(mesh, cache.pos.shape[0]) else None
     kv = mamba = rwkv = None
     if cache.kv is not None:
         lead = cache.kv.k.dim() - 4
-        kv = KVCache(*(Spec(*(None,) * lead, bs, _tp(mesh), None, None)
+        seq, heads = {"seq": (_tp(mesh), None), "kv": (axes.TP, axes.MODEL),
+                      "batch": (None, None)}[split]
+        kv = KVCache(*(Spec(*(None,) * lead, bs, seq, heads, None)
                        for _ in range(2)))
     if cache.mamba is not None:
         mamba = MambaState(h=Spec(None, bs, None, None, None),
@@ -259,7 +276,19 @@ class Layout:
     reduce-scattered back), which leaves each dim split over the
     model-parallel axes at most: that is tensor parallelism, over
     ``mp`` (the `model` and `tp` axes' group) of ``n`` ranks, this rank
-    ``i``.  A split over a group of one rank moves nothing."""
+    ``i``.  A split over a group of one rank moves nothing.
+
+    ``for_sequence`` gives the view a Megatron sequence-parallel stack
+    runs under (``cfg.seq_parallel``, the reference's carry constraint
+    ``P(dp, tp_axes, None)`` in ``models/lm.py``; ``sp`` True): the
+    carry is then rank i's slice [B, S / n, d] of the sequence.  The
+    layers read the carry through three methods, which on a layout
+    without SP are today's tensor parallelism: ``whole_seq`` gathers the
+    slice whole before attention and a tensor-parallel FFN (its backward
+    a reduce-scatter), ``reduce_out`` reduce-scatters their partial
+    outputs back to the slice in place of ``reduce_mp``'s all-reduce (its
+    backward an all-gather) and cuts a whole output to it, as
+    ``own_seq`` does.  ``base`` is the layout without SP."""
 
     def __init__(self, mesh, specs, *, tensor_parallel: bool = True,
                  batch_axes: tuple = (), cache_specs=None):
@@ -271,6 +300,7 @@ class Layout:
         self.fsdp_axes = set(axes.dp_axes(mesh))
         if not tensor_parallel:
             self.fsdp_axes |= set(axes.mp_axes(mesh))
+        self.sp, self.base = False, self
 
     def _gather_leaf(self, w, spec, keep=()):
         for d in range(w.dim()):
@@ -316,20 +346,60 @@ class Layout:
         model-parallel group (autograd)."""
         return all_reduce_grad(y, self.mesh, self.mp)
 
+    def for_sequence(self, s: int) -> "Layout":
+        """The Megatron-SP view of this layout for a sequence of ``s``
+        tokens (see the class doc), where it splits: a group of more than
+        one rank, ``s`` tiling it (the reference's ``safe_spec``) and the
+        same rows on every rank of it (a layout whose rows are split over
+        `model` has no common sequence to split); else this layout."""
+        if self.n == 1 or s % self.n or \
+                set(axes.mp_axes(self.mesh)) & set(self.batch_axes):
+            return self
+        view = copy.copy(self)
+        view.sp = True
+        return view
+
+    def whole_seq(self, x):
+        """x [B, S, ...] whole along the sequence: under SP the group's
+        slices [B, S / n, ...] gathered (autograd: the gradient
+        reduce-scattered), else x itself."""
+        return gather_grad(x, self.mesh, self.mp, 1) if self.sp else x
+
+    def own_seq(self, x):
+        """This rank's part of a whole x [B, S, ...]: under SP its
+        sequence slice, else x itself."""
+        if not self.sp:
+            return x
+        k = x.shape[1] // self.n
+        return x.narrow(1, self.i * k, k)
+
+    def reduce_out(self, y, partial: bool = True):
+        """A layer's output y [B, S, ...] on the whole sequence as the
+        carry holds it: a row-parallel partial sum (``partial``) summed
+        over the model-parallel group, under SP reduce-scattered to this
+        rank's slice (autograd: the gradient all-gathered), else
+        all-reduced (``reduce_mp``); a whole y ``own_seq``'s part."""
+        if not partial:
+            return self.own_seq(y)
+        if self.sp:
+            return reduce_scatter_grad(y, self.mesh, self.mp, 1)
+        return self.reduce_mp(y)
+
 
 def layout_for(cfg, mesh, params: LMParams, kind: str = "train", *,
-               global_batch: int | None = None, cache: LMCache = None
-               ) -> Layout:
+               global_batch: int | None = None, cache: LMCache = None,
+               cache_split: str = "seq") -> Layout:
     """The reference's ``Layout`` of a ``kind`` step ("train", "prefill",
     "decode") on ``mesh``: ``param_specs`` (training) or
     ``serve_param_specs``, after ``safe_spec`` against ``params``' full
     shapes (``meta`` tensors do), the batch's rows over the data axes
     where a batch of ``global_batch`` rows splits there (None: it does)
-    and, with the full ``cache``, its ``cache_specs``."""
+    and, with the full ``cache``, its ``cache_specs`` (``cache_split``
+    its variant)."""
     rule = param_specs if kind == "train" else serve_param_specs
     specs = safe_specs(mesh, rule(cfg, mesh, params), params)
     cspecs = None if cache is None else safe_specs(
-        mesh, cache_specs(cfg, mesh, cache), cache)
+        mesh, cache_specs(cfg, mesh, cache, cache_split), cache)
     split = True if global_batch is None else batch_split(mesh, global_batch)
     return Layout(mesh, specs, tensor_parallel=cfg.tensor_parallel,
                   batch_axes=_dp(mesh) if split else (), cache_specs=cspecs)

@@ -3,7 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-moe \\
         [--steps 50 --batch 8 --seq 1024] [--device cuda|cpu] \\
         [--mesh DxE | DxExT] [--schedule priority+partition+pipeline] \\
-        [--grad-compression bf16|int8_ef] [--n-microops 4] [--no-lina]
+        [--grad-compression bf16|int8_ef] [--n-microops 4] [--no-lina] \\
+        [--profile-dir D]
 
 Flags follow ``repro.launch.train``.  ``--device`` defaults to ``cuda`` and
 raises without a card; ``--device cpu`` runs the kernels' plain versions.
@@ -21,6 +22,13 @@ driver spawns one local rank a mesh position (gloo
 with ``--device cpu``, NCCL with one GPU a rank, raising when the machine
 has too few GPUs), and at ``1x1`` it runs in-process on a one-rank group.
 Rank 0 prints and writes the metrics and the trace.
+
+``--profile-dir D`` is the port's ``--jax-profile-dir``: a
+``torch.profiler`` capture of steps 2..5 (``obs.StepProfiler``; with a
+card its device activity too) written to D as a Chrome trace (under
+``D/rank<r>`` on a mesh of more than one rank), and rank 0 prints the
+device time by kernel.  A capture that fails to start or to stop is
+printed and training goes on without it.
 """
 from __future__ import annotations
 
@@ -28,13 +36,14 @@ import argparse
 import dataclasses
 import json
 import os
+import traceback
 
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.obs import ObsContext
+from repro_torch.obs import ObsContext, StepProfiler
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.reduce import DEFAULT_PARTITION_BYTES, SCHEDULES
 from repro_torch.runtime.trainer import (Trainer, TrainerConfig,
@@ -104,6 +113,9 @@ def parse_args(argv=None):
     ap.add_argument("--mesh", default=None,
                     help="data x model (x tp) mesh DxE or DxExT, e.g. 2x2 "
                          "(see the module doc)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="capture a torch.profiler trace of steps 2..5 "
+                         "into this directory (see the module doc)")
     return ap.parse_args(argv)
 
 
@@ -148,14 +160,45 @@ def run(argv=None) -> dict:
     obs = ObsContext.enabled() if args.trace_dir else ObsContext.disabled()
     trainer = Trainer(cfg, data_cfg, opt_cfg, tcfg, mesh=mesh, obs=obs)
     lead = mesh is None or mesh.rank == 0
+    profiler = None
+    if args.profile_dir:
+        logdir = args.profile_dir if mesh is None or mesh.world == 1 else \
+            os.path.join(args.profile_dir, f"rank{mesh.rank}")
+        profiler = StepProfiler(logdir, start=2, steps=3)
+
+    def profile(step=None):
+        """Drive the capture (close it without ``step``); a failure is
+        printed and ends it."""
+        nonlocal profiler
+        try:
+            if step is None:
+                profiler.close()
+            else:
+                profiler.on_step(step)
+        except Exception as e:       # the capture only: training goes on
+            print(f"profiler: the capture failed at step {step}: {e!r}",
+                  flush=True)
+            traceback.print_exc()
+            profiler = None
 
     def log(step, m):
+        if profiler is not None:
+            profile(step)
         if lead and step % tcfg.log_every == 0:
             print(f"step {step:5d}  loss {m['loss']:.4f}  "
                   f"aux {m['aux_loss']:.4f}  gnorm {m['grad_norm']:.3f}",
                   flush=True)
 
     state = trainer.run(on_step=log)
+    if profiler is not None:
+        profile()
+    if profiler is not None and lead:
+        path = profiler.session.path
+        times = profiler.kernel_times()
+        print(f"profile: {path or 'no capture (fewer than 3 steps)'}; "
+              + (", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in
+                           list(times.items())[:8])
+                 or "no device activity"), flush=True)
     return {"trainer": trainer, "state": state, "obs": obs, "args": args}
 
 

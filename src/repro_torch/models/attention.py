@@ -25,7 +25,11 @@ is computed whole.  Decode reads a cache whose sequence is split over the
 model-parallel ranks (``launch.sharding.cache_specs``): the rank owning
 the step's slot writes it, each rank attends its slice with every head,
 and the partial (max, sum, weighted V) is combined with one max and two
-sum all-reduces.
+sum all-reduces.  The cache's other splits (the dry run's variants) are
+read the same way: under ``kv_split`` its kv heads go over `model` and its
+sequence over `tp`, so each rank attends with the q heads of its kv heads
+only, combines over `tp` and all-gathers the heads' outputs over `model`;
+under ``cache_batch_only`` every rank holds its rows' whole cache.
 """
 from __future__ import annotations
 
@@ -183,7 +187,14 @@ def attention(p: AttnParams, x, cfg, *, use_kernel: bool = False,
     """Full-sequence path (prefill / profiling / training).  x: [B, S, d]
     -> (y [B, S, d], KVCache(k, v) of this layer: this rank's kv heads).
     ``use_kernel`` takes the flash-attention op (forward only) instead of
-    the plain path; ``layout`` runs it tensor parallel (module doc)."""
+    the plain path; ``layout`` runs it tensor parallel (module doc).  On a
+    Megatron-SP view (``launch.sharding.Layout.for_sequence``) x and y are
+    this rank's sequence slice [B, S / n, d]: x is gathered whole first,
+    and the row-parallel partial output is reduce-scattered back to the
+    slice (a whole one, where the heads do not split, is cut to it); k and
+    v are the whole sequence's."""
+    if layout is not None:
+        x = layout.whole_seq(x)
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
     p, hs = tp_weights(p, cfg, layout)
@@ -200,29 +211,56 @@ def attention(p: AttnParams, x, cfg, *, use_kernel: bool = False,
         o = _sdpa(q, k, v, causal=cfg.causal, window=cfg.sliding_window)
     o = o.reshape(b, s, hs.hl * hd)
     y = o @ p.wo
-    if hs.partial:
-        y = layout.reduce_mp(y)
+    if layout is not None:
+        y = layout.reduce_out(y, hs.partial)
     return y, KVCache(k, v)
 
 
+class CacheSplit(NamedTuple):
+    """The axes a KV cache [.., B, S_max, KV, hd] splits its slots and its
+    kv heads over (``launch.sharding.cache_specs``; () for whole)."""
+    seq: tuple
+    kv: tuple
+
+
+def _group_of(mesh, names):
+    """(group, its size, this rank's index) over the axes ``names``; no
+    group, one rank, for none."""
+    g = mesh.group_for(names) if names else None
+    return (g, 1, 0) if g is None else \
+        (g, mesh.group_size(g), mesh.group_index(g))
+
+
 def _decode_parallel(p: AttnParams, x, cache: KVCache, pos, cfg, layout,
-                     seq_split: bool):
+                     split: Optional[CacheSplit]):
     """``decode_attention`` over ``layout`` (see the module doc): the
-    cache [B, S_max / n, KV, hd] with ``seq_split``, else whole.  Every
-    rank computes the step's token with every head: its columns of each
-    projection, all-gathered (a token's, not the weights), and its rows of
-    ``wo`` over its block of the heads' output, summed by one
+    cache [B, S_max / sn, KV / kn, hd], its slots split over the ``sn``
+    ranks of ``split.seq``, its kv heads over the ``kn`` of ``split.kv``
+    (whole without a ``split``).  Every rank computes the step's token with
+    every head: its columns of each projection, all-gathered (a token's,
+    not the weights); it attends with the q heads of its kv heads (every
+    head where they are whole), combines the partial softmax over the
+    slots' group, gathers the heads' outputs over the kv heads' group and
+    multiplies its rows of ``wo`` over its block of them, summed by one
     all-reduce."""
     b = x.shape[0]
-    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     mesh, mp = layout.mesh, layout.mp
 
     def cols(t, full):
         return t if t.shape[-1] == full else gather_group(t, mesh, mp, 2)
-    q, k_new, v_new = _project_qkv(p, x, h, cfg.n_kv_heads, hd,
+    q, k_new, v_new = _project_qkv(p, x, h, kv, hd,
                                    pos[:, None], cfg.rope_theta,
                                    cfg.norm_eps, cols=cols)
-    sn, si = (layout.n, layout.i) if seq_split else (1, 0)
+    split = split or CacheSplit((), ())
+    sg, sn, si = _group_of(mesh, split.seq)
+    kg, kn, ki = _group_of(mesh, split.kv)
+    if kn > 1:                          # this rank's kv heads and their q
+        kvl = kv // kn
+        hq = kvl * (h // kv)
+        q = q[:, :, ki * hq:(ki + 1) * hq]
+        k_new = k_new[:, :, ki * kvl:(ki + 1) * kvl]
+        v_new = v_new[:, :, ki * kvl:(ki + 1) * kvl]
     s_loc = cache.k.shape[1]
     s_max = s_loc * sn
     slot = pos % s_max if cfg.sliding_window else \
@@ -253,15 +291,17 @@ def _decode_parallel(p: AttnParams, x, cache: KVCache, pos, cfg, layout,
                          torch.full((), -1e30, device=x.device))
     m = logits.amax(dim=-1, keepdim=True)
     if sn > 1:
-        mesh.all_reduce(m, mp, op="max")
+        mesh.all_reduce(m, sg, op="max")
     e = torch.exp(logits - m)
     tot = e.sum(dim=-1, keepdim=True)
     if sn > 1:
-        mesh.all_reduce(tot, mp)
+        mesh.all_reduce(tot, sg)
     probs = (e / tot).to(x.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", probs, vv).contiguous()
     if sn > 1:
-        mesh.all_reduce(o, mp)
+        mesh.all_reduce(o, sg)
+    if kn > 1:
+        o = gather_group(o, mesh, kg, 2)
     o = o.reshape(b, 1, h * hd)
     rows = p.wo.shape[-2]
     if rows == h * hd:
@@ -272,17 +312,18 @@ def _decode_parallel(p: AttnParams, x, cache: KVCache, pos, cfg, layout,
 
 
 def decode_attention(p: AttnParams, x, cache: KVCache, pos, cfg,
-                     layout=None, seq_split: bool = False):
+                     layout=None, split: Optional[CacheSplit] = None):
     """One-token decode.  x: [B, 1, d]; pos: [B] absolute position; the
     cache holds S_max slots (ring-buffered with a sliding window).  Returns
     (y, KVCache) with the new token written into a copy of the cache.
     With a ``layout`` it runs tensor parallel where the weights are split
-    and (``seq_split``: the cache holds this rank's slice of the slots)
-    sequence parallel, no autograd; with whole weights and cache, or over
-    a model-parallel group of one rank, it is this plain step."""
-    if layout is not None and layout.n > 1 and (seq_split or
+    and (``split``: the cache holds this rank's slice of the slots or of
+    the kv heads) sequence parallel, no autograd; with whole weights and
+    cache, or over a model-parallel group of one rank, it is this plain
+    step."""
+    if layout is not None and layout.n > 1 and (split is not None or
                                                  _split(p, cfg)):
-        return _decode_parallel(p, x, cache, pos, cfg, layout, seq_split)
+        return _decode_parallel(p, x, cache, pos, cfg, layout, split)
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     q, k_new, v_new = _project_qkv(p, x, cfg.n_heads, cfg.n_kv_heads, hd,

@@ -57,8 +57,14 @@ def ffn_parallel(x, w_in, w_up, w_out, ffn_type: str, f: int, layout):
     """The dense FFN of hidden width ``f`` on replicated x, with w_in /
     w_up column-parallel and w_out row-parallel over ``layout``'s
     model-parallel group where they are split (one all-reduce of the
-    partial output, ``layout.reduce_mp``); whole weights compute whole."""
+    partial output, ``layout.reduce_out``); whole weights compute whole.
+    On a Megatron-SP view x [B, S / n, d] is this rank's sequence slice:
+    split weights take it gathered whole and reduce-scatter the partial
+    output back to the slice; whole weights compute on the slice."""
+    split = layout is not None and w_out.shape[-2] != f
+    if split:
+        x = layout.whole_seq(x)
     y = ffn_branch(x, w_in, w_up, w_out, ffn_type)
-    if layout is not None and w_out.shape[-2] != f:
-        y = layout.reduce_mp(y)
+    if split:
+        y = layout.reduce_out(y)
     return y

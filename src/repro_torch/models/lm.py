@@ -49,8 +49,12 @@ the rows are not split there already, sequence over `model` where S tiles
 it and the rows are not split there), its outputs all-gathered back; its
 experts are this rank's E / ep, on a mesh with `tp` each expert's hidden
 slice (``core.moe``).  Decode reads a cache cut by ``cache_specs``: its
-sequence over the model-parallel ranks (``models.attention``).  The
-hybrid and RWKV stacks are FSDP only, but for zamba2's shared block.
+sequence over the model-parallel ranks (``models.attention``), or its kv
+heads too (the dry run's variants).  With ``cfg.seq_parallel`` the
+transformer stack runs Megatron-SP in training and prefill
+(``_stack_layout``, ``launch.sharding.Layout.for_sequence``): its carry
+between layer groups is this rank's slice of the sequence.  The hybrid
+and RWKV stacks are FSDP only, but for zamba2's shared block.
 The expert-parallel layout (``launch.sharding.expert_layout``) is the
 special case whose experts alone are split.
 """
@@ -69,8 +73,8 @@ from repro_torch.devices import resolve_device
 from repro_torch.kernels.ops import kernel_route
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.attention import (AttnParams, KVCache, attention,
-                                          decode_attention)
+from repro_torch.models.attention import (AttnParams, CacheSplit, KVCache,
+                                          attention, decode_attention)
 from repro_torch.models.layers import dense_init, ffn_parallel, rms_norm
 from repro_torch.tree import tree_map
 
@@ -264,14 +268,18 @@ def cast_for_compute(cfg, params: LMParams) -> LMParams:
 def lookup(cfg, embed, tokens, layout=None):
     """Rows of the embedding for ``tokens``; with the vocab split over
     ``layout``'s model-parallel ranks, a masked lookup of this rank's rows
-    summed over them (one all-reduce)."""
+    summed over them (one all-reduce).  On a Megatron-SP view the rows of
+    this rank's sequence slice of ``tokens`` [B, S]: the masked lookup's
+    sum reduce-scattered to it, a whole vocab looked up on it."""
     v_loc = embed.shape[0]
-    if layout is None or v_loc == cfg.vocab_size:
+    if layout is None:
         return embed[tokens.long()]
+    if v_loc == cfg.vocab_size:
+        return embed[layout.own_seq(tokens).long()]
     t = tokens.long() - layout.i * v_loc
     inside = (t >= 0) & (t < v_loc)
     x = embed[t.clamp(0, v_loc - 1)] * inside[..., None].to(embed.dtype)
-    return layout.reduce_mp(x)
+    return layout.reduce_out(x)
 
 
 def embed_inputs(cfg, params: LMParams, *, tokens=None, patches=None,
@@ -286,7 +294,9 @@ def embed_inputs(cfg, params: LMParams, *, tokens=None, patches=None,
     The products are taken in the dtype JAX promotes the operands to (fp32
     frames against a bf16 ``frame_proj`` multiply in fp32, where torch would
     refuse the mix), then cast to ``cfg.dtype``; patches are first cast to
-    ``patch_proj``'s dtype, as there."""
+    ``patch_proj``'s dtype, as there.  On a Megatron-SP view it is this
+    rank's sequence slice of x (the frontends' x is cut after it is
+    whole)."""
     dtype = DTYPES[cfg.dtype]
     if cfg.frontend == "audio_stub":
         f = frames
@@ -294,13 +304,14 @@ def embed_inputs(cfg, params: LMParams, *, tokens=None, patches=None,
             f = torch.where(mask[..., None], params.mask_emb.to(f.dtype), f)
         w = params.frame_proj
         pt = torch.promote_types(f.dtype, w.dtype)
-        return (f.to(pt) @ w.to(pt)).to(dtype)
-    x = lookup(cfg, params.embed, tokens, layout).to(dtype)
-    if cfg.frontend == "vision_stub":
-        pe = (patches.to(params.patch_proj.dtype) @ params.patch_proj
-              ).to(dtype)
-        x = torch.cat([pe, x], dim=1)
-    return x
+        x = (f.to(pt) @ w.to(pt)).to(dtype)
+        return x if layout is None else layout.own_seq(x)
+    if cfg.frontend != "vision_stub":
+        return lookup(cfg, params.embed, tokens, layout).to(dtype)
+    x = lookup(cfg, params.embed, tokens, layout and layout.base).to(dtype)
+    pe = (patches.to(params.patch_proj.dtype) @ params.patch_proj).to(dtype)
+    x = torch.cat([pe, x], dim=1)
+    return x if layout is None else layout.own_seq(x)
 
 
 def frame_mask(shape, device):
@@ -385,34 +396,53 @@ def _moe_whole_batch(h, moe_p: MoEParams, cfg, *, layout, lina: bool,
     k] in (b, s) order (the reference keeps its ids in shard order); y's
     gathers are differentiable (their backward a reduce-scatter).  Without
     one, ``lina`` has nothing to act on, as on the reference's one-device
-    default mesh."""
+    default mesh.
+
+    On a Megatron-SP view h [B, S / n, d] is this rank's slice over the
+    model-parallel group (`model`, then `tp`) and y comes back as that
+    slice: without `tp` the slice is the `model` shard itself, so y is not
+    gathered over `model` (the ids are); with `tp` the slice is 1 / tp of
+    it, so the splits differ: the tp ranks' slices are gathered into the
+    `model` shard first (the tp ranks of an expert slice must hold the same
+    tokens), and the layer's `tp` sum becomes a reduce-scatter back to the
+    slice (``moe_layer``'s ``tp_scatter``; experts whole over `tp` give a
+    whole y, cut to it)."""
     if layout is None:
         return moe_layer(h, moe_p, cfg.moe, ffn_type=cfg.ffn_type,
                          dispatch_backend=dispatch_backend, top_k=top_k,
                          shortcut_params=shortcut)
-    mesh = layout.mesh
-    b, s, d = h.shape
+    mesh, sp = layout.mesh, layout.sp
     dp_n, ep = mesh.size(axes.DATA), mesh.size(axes.EP_AXIS)
+    tp = mesh.size(axes.TP) if sp else 1
+    if tp > 1:
+        h = gather_grad(h, mesh, mesh.group(axes.TP), 1)
+    b, s, d = h.shape
     bq = axes.DATA not in layout.batch_axes and b % dp_n == 0
-    sq = axes.EP_AXIS not in layout.batch_axes and s % ep == 0
+    sq = sp or (axes.EP_AXIS not in layout.batch_axes and s % ep == 0)
     if bq:
         i, n = mesh.index(axes.DATA), b // dp_n
         h = h[i * n:(i + 1) * n]
-    if sq:
+    if sq and not sp:
         i, n = mesh.index(axes.EP_AXIS), s // ep
         h = h[:, i * n:(i + 1) * n]
+    scatter = tp > 1 and expert_slicing
     out = moe_layer(h, moe_p, cfg.moe, ffn_type=cfg.ffn_type,
                     dispatch_backend=dispatch_backend, top_k=top_k,
                     mesh=mesh, lina=lina, shortcut_params=shortcut,
-                    expert_slicing=expert_slicing)
+                    expert_slicing=expert_slicing, tp_scatter=scatter)
     bl, sl = h.shape[:2]
     y = out.y
     eidx = out.expert_idx.reshape(bl, sl, -1)
     for go, axis, dim in ((sq, axes.EP_AXIS, 1), (bq, axes.DATA, 0)):
         if go:
-            y = gather_grad(y, mesh, mesh.group(axis), dim)
+            if not (sp and axis == axes.EP_AXIS):
+                y = gather_grad(y, mesh, mesh.group(axis), dim)
             eidx = gather_axis(eidx, mesh, axis, dim)
-    return MoEOutput(y, out.aux_loss, eidx.reshape(b * s, -1), None)
+    if tp > 1 and not scatter:
+        k = s // tp
+        y = y.narrow(1, mesh.index(axes.TP) * k, k)
+    s_all = eidx.shape[1]
+    return MoEOutput(y, out.aux_loss, eidx.reshape(b * s_all, -1), None)
 
 
 def _plan_of(serve_plan, gi: int):
@@ -432,7 +462,18 @@ def _moe_sublayer(cfg, gp: GroupParams, h, plan, *, layout, lina: bool,
     slicing), with ``fuse_shortcut`` taking the ScMoE shortcut into it.
     The fused shortcut runs on the layer's own tokens, so its
     tensor-parallel weights are gathered whole; the shared expert is added
-    outside the plan dispatch, tensor parallel on h."""
+    outside the plan dispatch, tensor parallel on h.
+
+    On a Megatron-SP view h and moe_y are this rank's slice [B, S / n, d]
+    (``_moe_whole_batch``); the plan-honoring layer shards tokens over
+    `data` alone, so under a plan the splits differ: h is gathered whole
+    first and moe_y cut back to the slice.  The ids are every token's."""
+    if plan is not None and layout is not None and layout.sp:
+        moe_y, aux, top1 = _moe_sublayer(
+            cfg, gp, layout.whole_seq(h), plan, layout=layout.base,
+            lina=lina, serve_top_k=serve_top_k,
+            fuse_shortcut=fuse_shortcut, dispatch_backend=dispatch_backend)
+        return layout.own_seq(moe_y), aux, top1
     mesh = None if layout is None else layout.mesh
     b, s, d = h.shape
     moe_p = gp.moe
@@ -478,7 +519,10 @@ def _group_apply(cfg, gp: GroupParams, x, *, plan=None, serve_top_k=None,
     the flash kernel for attention (no backward); the rest is
     ``_moe_sublayer``'s, the ScMoE shortcut fused into ``moe_layer``.
     With a ``layout`` the group's stored shards ``gp`` are gathered here
-    (so under remat again in the backward)."""
+    (so under remat again in the backward).  On a Megatron-SP view x is
+    this rank's slice [B, S / n, d]: the norms and residual adds run on
+    it, attention and the FFNs gather and scatter it (``attention``,
+    ``_ffn_apply``, ``_moe_sublayer``)."""
     if layout is not None:
         gp = layout.gather(gp, layout.specs.stack, lead=1)
     every = cfg.moe.every if cfg.moe.enabled else 1
@@ -508,7 +552,10 @@ def run_stack(cfg, stack: GroupParams, x, *, serve_plan=None,
     """The transformer stack on x [B, S, d] -> (x, aux, expert choices
     [n_moe_layers, B * S] or None).  ``kw`` are ``_group_apply``'s; a
     stacked ``serve_plan`` gives MoE layer g its plan g.  With ``remat``
-    each group runs under ``torch.utils.checkpoint`` (non-reentrant)."""
+    each group runs under ``torch.utils.checkpoint`` (non-reentrant), so
+    only the group boundaries' carries are kept: on a Megatron-SP view
+    (x this rank's slice [B, S / n, d], ``_stack_layout``) a slice
+    each."""
     every = cfg.moe.every if cfg.moe.enabled else 1
     aux = torch.zeros((), device=x.device)
     top1s = []
@@ -524,6 +571,22 @@ def run_stack(cfg, stack: GroupParams, x, *, serve_plan=None,
         if top1 is not None:
             top1s.append(top1)
     return x, aux, torch.stack(top1s) if top1s else None
+
+
+def _stack_layout(cfg, p: LMParams, layout, batch: dict):
+    """The layout the stack of ``p`` runs under on ``batch``: with
+    ``cfg.seq_parallel`` the transformer stack's Megatron-SP view of
+    ``layout`` (``Layout.for_sequence`` of the model's sequence: the
+    frames, or the patches and the tokens), else ``layout`` (the
+    reference's hybrid and RWKV stacks ignore the flag)."""
+    if layout is None or not cfg.seq_parallel or \
+            not isinstance(p.stack, GroupParams):
+        return layout
+    if cfg.frontend == "audio_stub":
+        return layout.for_sequence(batch["frames"].shape[1])
+    patches = batch.get("patches")
+    return layout.for_sequence(batch["tokens"].shape[1] + (
+        0 if patches is None else patches.shape[1]))
 
 
 def _top(p: LMParams, layout) -> LMParams:
@@ -562,7 +625,12 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
     hybrid and RWKV stacks) runs under ``torch.utils.checkpoint``
     (non-reentrant): only the group boundaries are kept and the backward
     recomputes the group, kernels and all-to-alls included, as the
-    reference's ``jax.checkpoint`` over the scan body.  The hybrid and RWKV
+    reference's ``jax.checkpoint`` over the scan body.  With
+    ``cfg.seq_parallel`` over a ``layout`` (``_stack_layout``) the
+    transformer stack runs Megatron-SP: the embedding enters as this
+    rank's sequence slice and the carry stays one between groups (the
+    saved boundaries S / n tokens a rank), gathered whole before the
+    final norm and the loss.  The hybrid and RWKV
     stacks' recurrences run the WKV / SSD kernels forward and backward on
     the kernel route; the shared block's attention is plain (the flash
     kernel has no backward).  They return a zero aux loss and no expert
@@ -577,14 +645,15 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
     _check_family(cfg)
     p = _top(cast_for_compute(cfg, params), layout)
     tokens = batch.get("tokens")
+    stack = _stack_layout(cfg, p, layout, batch)
     if cfg.frontend == "audio_stub":
         frames = batch["frames"]
         mask = frame_mask(frames.shape[:2], frames.device)
-        x = embed_inputs(cfg, p, frames=frames, mask=mask)
+        x = embed_inputs(cfg, p, frames=frames, mask=mask, layout=stack)
         labels, loss_mask = batch["labels"], mask.float()
     elif cfg.frontend == "vision_stub":
         x = embed_inputs(cfg, p, tokens=tokens, patches=batch["patches"],
-                         layout=layout)
+                         layout=stack)
         lab_txt = batch["labels"]
         pad = torch.zeros((tokens.shape[0], batch["patches"].shape[1]),
                           dtype=lab_txt.dtype, device=lab_txt.device)
@@ -593,7 +662,7 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
                                torch.ones(lab_txt.shape, device=x.device)],
                               dim=1)
     else:
-        x = embed_inputs(cfg, p, tokens=tokens, layout=layout)
+        x = embed_inputs(cfg, p, tokens=tokens, layout=stack)
         labels = batch["labels"]
         loss_mask = torch.ones(labels.shape, device=x.device)
     if isinstance(p.stack, HybridParams):
@@ -606,7 +675,9 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
     else:
         x, aux, experts = run_stack(cfg, p.stack, x, remat=cfg.remat,
                                     dispatch_backend=dispatch_backend,
-                                    lina=lina, layout=layout)
+                                    lina=lina, layout=stack)
+    if stack is not None:   # the vocab-parallel loss: every mp rank on
+        x = stack.whole_seq(x)                  # every token
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
     loss = chunked_ce_loss(x, unembed_weight(p), labels, loss_mask,
                            remat=cfg.remat, layout=layout,
@@ -713,12 +784,15 @@ def forward_prefill(cfg, params: LMParams, batch: dict, *,
     ``init_cache``).  The flash kernel has no backward: call it under
     ``torch.inference_mode`` when the params require grad.  With a
     ``layout`` (see the module doc) ``params`` are this rank's shards and
-    ``batch`` its rows; the logits are whole."""
+    ``batch`` its rows; the logits are whole.  Megatron-SP applies as in
+    ``forward_train``; the last position's row comes from its owner, the
+    last rank (one all-gather of each rank's last row)."""
     _check_family(cfg)
     p = _top(cast_for_compute(cfg, params), layout)
+    stack = _stack_layout(cfg, p, layout, batch)
     x = embed_inputs(cfg, p, tokens=batch.get("tokens"),
                      patches=batch.get("patches"),
-                     frames=batch.get("frames"), layout=layout)
+                     frames=batch.get("frames"), layout=stack)
     aux = torch.zeros((), device=x.device)
     experts = None
     if isinstance(p.stack, HybridParams):
@@ -730,7 +804,9 @@ def forward_prefill(cfg, params: LMParams, batch: dict, *,
         x, aux, experts = run_stack(
             cfg, p.stack, x, lina=lina, serve_plan=serve_plan,
             serve_top_k=serve_top_k, use_kernel=kernel_route(cfg),
-            layout=layout)
+            layout=stack)
+    if stack is not None and stack.sp:  # the last position: the last
+        x = stack.whole_seq(x[:, -1:])       # rank's last row
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
     logits = logits_of(cfg, p, x[:, -1], layout)
     return ModelOutput(None, aux, experts, logits)
@@ -771,12 +847,15 @@ def init_cache(cfg, batch: int, seq_len: int, dtype=torch.bfloat16,
     return LMCache(kv=None, mamba=None, rwkv=rs, pos=pos)
 
 
-def _seq_split(cache: LMCache, layout) -> bool:
-    """Whether ``layout`` splits the KV cache's sequence (its slots)."""
+def _cache_split(cache: LMCache, layout) -> Optional[CacheSplit]:
+    """The axes ``layout`` splits the KV cache's slots and kv heads over
+    (``launch.sharding.cache_specs``), None where it splits neither."""
     if layout is None or layout.cache_specs is None or cache.kv is None:
-        return False
+        return None
     lead = cache.kv.k.dim() - 4
-    return bool(layout.cache_specs.kv.k.axes_of(lead + 1))
+    spec = layout.cache_specs.kv.k
+    split = CacheSplit(spec.axes_of(lead + 1), spec.axes_of(lead + 2))
+    return split if split.seq or split.kv else None
 
 
 def _decode_groups(cfg, stack: GroupParams, cache: LMCache, x, *, lina,
@@ -785,7 +864,7 @@ def _decode_groups(cfg, stack: GroupParams, cache: LMCache, x, *, lina,
     expert choices [n_moe_layers, B] or None)."""
     every = cfg.moe.every if cfg.moe.enabled else 1
     ks, vs, top1s = [], [], []
-    seq_split = _seq_split(cache, layout)
+    split = _cache_split(cache, layout)
     for gi in range(cfg.n_layers // every):
         gp = _layer(stack, None if layout is None else layout.specs.stack,
                     gi, layout)
@@ -795,7 +874,7 @@ def _decode_groups(cfg, stack: GroupParams, cache: LMCache, x, *, lina,
             y, kv_new = decode_attention(
                 tree_idx(gp.attn, j), h,
                 KVCache(cache.kv.k[gi, j], cache.kv.v[gi, j]), cache.pos,
-                cfg, layout=layout, seq_split=seq_split)
+                cfg, layout=layout, split=split)
             ks_g.append(kv_new.k)
             vs_g.append(kv_new.v)
             x = x + y
@@ -849,7 +928,7 @@ def decode_step(cfg, params: LMParams, cache: LMCache, token, *,
         return logits_of(cfg, p, x[:, 0], layout), new_cache, experts
     if isinstance(p.stack, HybridParams):
         hp = p.stack
-        seq_split = _seq_split(cache, layout)
+        split = _cache_split(cache, layout)
         attn_p, ffn_p = _shared_params(hp, layout)
         states, ks, vs = [], [], []
         for li, tap in enumerate(_taps(cfg)):
@@ -864,7 +943,7 @@ def decode_step(cfg, params: LMParams, cache: LMCache, token, *,
                 h = rms_norm(x, hp.ln_s1, eps)
                 y, kv_new = decode_attention(
                     attn_p, h, tree_idx(cache.kv, len(ks)), pos, cfg,
-                    layout=layout, seq_split=seq_split)
+                    layout=layout, split=split)
                 ks.append(kv_new.k)
                 vs.append(kv_new.v)
                 x = x + y

@@ -29,11 +29,19 @@ Latency accounting supports both wall-clock serving (``submit`` stamps
 arrivals from the engine clock) and open-loop trace replay (``simulate``):
 virtual arrival times drive queueing delay while the measured wall time of
 each step drives service time.  On a server with a multi-rank mesh every
-rank runs the same engine on the same trace; a step's service time is the
-max over the ranks (what one SPMD step that waits on every device
-measures), so every rank stamps the same completions.  Wall-clock serving
-there needs a request router and raises.  Per-request TTFT (time of the first
-generated token) and completion times support time-per-output-token
+rank runs the same engine: in replay on the same trace; a step's service
+time is the max over the ranks (what one SPMD step that waits on every
+device measures), so every rank stamps the same completions.  In
+wall-clock mode on a mesh (of one rank too) rank 0 is the request router,
+as the reference's single controller: ``submit`` is called on rank 0 (the
+other ranks' refuses), and at the start of each step rank 0 broadcasts
+its clock, the requests submitted since the last step and whether work
+remains (``Mesh.broadcast``); every rank admits those requests as rank 0
+did and so forms the same batch, every rank stamps completions at rank
+0's step start plus the time since it on the slowest rank (where the
+step stamps without a mesh: the same span, each rank's own clock), and
+``run()``'s loop ends on rank 0's word.  Per-request TTFT (time of the
+first generated token) and completion times support time-per-output-token
 reporting.
 """
 from __future__ import annotations
@@ -87,6 +95,7 @@ class Request:
     arrival: float                           # queue-entry timestamp
     path_state: Optional[np.ndarray] = None  # [S] rolling path ids
     max_new_tokens: int = 0                  # 0 => score-only (no decode)
+    prev_rid: Optional[int] = None           # the stream's earlier request
 
 
 @dataclass
@@ -216,6 +225,12 @@ class ServingEngine:
         # the batch membership is unchanged, so steady-state decoding does
         # not re-pad/re-stack every request's cache each token
         self._dec_batch: Optional[tuple] = None
+        # wall-clock mode on a mesh: rank 0's submits since the
+        # last step, a clock reading already agreed for the next step and
+        # this rank's own clock when it was
+        self._outbox: List[Request] = []
+        self._agreed: Optional[float] = None
+        self._routed_at = 0.0
 
     # --- queueing -----------------------------------------------------------
     def submit(self, tokens, arrival: Optional[float] = None,
@@ -230,20 +245,42 @@ class ServingEngine:
         With ``EngineConfig.max_queue`` set, a full queue REJECTS the
         request: returns -1 (no id is consumed) and counts it in
         ``n_rejected`` — explicit backpressure the caller can retry on
-        (see ``simulate``'s retry-with-backoff client)."""
+        (see ``simulate``'s retry-with-backoff client).
+
+        On a mesh a wall-clock submit (``arrival`` None) is
+        rank 0's alone: it reaches the other ranks at the next step (see
+        the module doc), and another rank's raises.  A submit with an
+        ``arrival`` (trace replay, a fault injector's burst inside a step)
+        stays on its rank, as every rank makes it."""
+        mesh = self.server.mesh
+        routed = arrival is None and mesh is not None
+        if routed and mesh.rank != 0:
+            raise RuntimeError(
+                f"rank {mesh.rank}: on a multi-rank mesh rank 0 admits "
+                f"wall-clock requests and broadcasts them at each step; "
+                f"submit there (or replay a trace with simulate())")
         if self.ecfg.max_queue and len(self._queue) >= self.ecfg.max_queue:
             self.n_rejected += 1
             self.obs.metrics.counter("engine_requests_rejected_total").inc()
             return -1
         tokens = np.asarray(tokens).reshape(-1)
         rid = self._next_rid
-        self._next_rid += 1
+        req = self._admit(rid, tokens,
+                          self.clock() if arrival is None else arrival,
+                          prev_rid, int(max_new_tokens))
+        if routed:
+            self._outbox.append(req)
+        return rid
+
+    def _admit(self, rid: int, tokens: np.ndarray, arrival: float,
+               prev_rid: Optional[int], max_new_tokens: int) -> Request:
+        """Queue request ``rid`` (``submit``'s bookkeeping)."""
+        self._next_rid = rid + 1
         self.n_submitted += 1
         self.obs.metrics.counter("engine_requests_offered_total").inc()
         state = None if prev_rid is None else self.request_path_state(prev_rid)
-        req = Request(rid, tokens,
-                      self.clock() if arrival is None else arrival,
-                      path_state=state, max_new_tokens=int(max_new_tokens))
+        req = Request(rid, tokens, arrival, path_state=state,
+                      max_new_tokens=max_new_tokens, prev_rid=prev_rid)
         self._queue.append(req)
         tr = self.obs.tracer
         if tr.enabled:
@@ -252,7 +289,48 @@ class ServingEngine:
                             max_new_tokens=int(max_new_tokens))
             root.begin_child("queued", req.arrival)
             self._req_spans[rid] = root
-        return rid
+        return req
+
+    def _route(self) -> tuple:
+        """Wall-clock mode on a mesh: rank 0's clock, the
+        requests it admitted since the last call (rid, tokens, arrival,
+        ``prev_rid``, ``max_new_tokens``) and whether work remains,
+        broadcast from rank 0 over the world (``Mesh.broadcast``); every
+        other rank admits the requests as rank 0 did.  Returns (rank 0's
+        clock, work remains); this rank's own reading stays in
+        ``_routed_at``."""
+        mesh = self.server.mesh
+        lead = mesh.rank == 0
+        box = self._outbox if lead else []
+        f64 = dict(dtype=torch.float64, device=mesh.device)
+        self._routed_at = self.clock()
+        head = torch.tensor([self._routed_at if lead else 0.0, len(box),
+                             sum(r.tokens.shape[0] for r in box),
+                             float(self.has_work())], **f64)
+        mesh.broadcast(head, 0, mesh.world_group)
+        t_now, n, n_tok, more = head.tolist()
+        n, n_tok = int(n), int(n_tok)
+        if n:
+            meta = torch.tensor(
+                [[r.rid, r.tokens.shape[0],
+                  -1 if r.prev_rid is None else r.prev_rid,
+                  r.max_new_tokens, r.arrival] for r in box], **f64) \
+                if lead else torch.zeros((n, 5), **f64)
+            toks = torch.from_numpy(np.concatenate(
+                [r.tokens for r in box]).astype(np.int64)).to(mesh.device) \
+                if lead else torch.zeros(n_tok, dtype=torch.int64,
+                                         device=mesh.device)
+            mesh.broadcast(meta, 0, mesh.world_group)
+            mesh.broadcast(toks, 0, mesh.world_group)
+            if not lead:
+                toks, at = toks.cpu().numpy(), 0
+                for rid, k, prev, new, arrival in meta.tolist():
+                    k = int(k)
+                    self._admit(int(rid), toks[at:at + k], arrival,
+                                None if prev < 0 else int(prev), int(new))
+                    at += k
+        self._outbox = []
+        return t_now, bool(more)
 
     def record_shed(self, rid: int, arrival: float, time: float,
                     reason: str) -> None:
@@ -364,13 +442,15 @@ class ServingEngine:
         (virtual-clock replay); otherwise from the engine clock."""
         ecfg = self.ecfg
         mesh = self.server.mesh
-        if now is None and mesh is not None and mesh.world > 1:
-            raise NotImplementedError(
-                "wall-clock serving on a multi-rank mesh needs a request "
-                "router that feeds every rank the same requests; replay a "
-                "trace with simulate()")
+        routed = now is None and mesh is not None
+        if routed:
+            # every rank at rank 0's clock, with rank 0's new requests
+            t_now = self._agreed if self._agreed is not None \
+                else self._route()[0]
+            self._agreed = None
+        else:
+            t_now = self.clock() if now is None else now
         self.step_idx += 1
-        t_now = self.clock() if now is None else now
         if self.fault_injector is not None:
             # faults fire before batch formation: an overload burst's
             # requests are admissible this step, a device failure degrades
@@ -414,10 +494,13 @@ class ServingEngine:
                 out.extend(self._finish_prefills(group, res, pending))
         # on a mesh the step ends when its slowest rank does: every rank
         # stamps that, so the virtual clock, admission and shedding agree
-        service = agree_max(mesh, sw_dec.dt + sw_pre.dt + sw_ins.dt)
-        if now is None:
+        if routed:      # rank 0's start plus the slowest rank's time since
+            completion = t_now + agree_max(mesh,
+                                           self.clock() - self._routed_at)
+        elif now is None:
             completion = self.clock()
         else:
+            service = agree_max(mesh, sw_dec.dt + sw_pre.dt + sw_ins.dt)
             completion = now + service * time_scale + extra
         self.last_step_end = completion
         for r in out:
@@ -683,11 +766,20 @@ class ServingEngine:
                                   max_new_tokens=max_new_tokens)
 
     def run(self) -> List[RequestResult]:
-        """Drain queue AND in-flight generation in wall-clock mode."""
+        """Drain queue AND in-flight generation in wall-clock mode.  On a
+        mesh every rank calls it, and the loop ends on rank 0's word
+        (``_route``)."""
         results: List[RequestResult] = []
-        while self.has_work():
+        if self.server.mesh is None:
+            while self.has_work():
+                results.extend(self.step())
+            return results
+        while True:
+            t_now, more = self._route()
+            if not more:
+                return results
+            self._agreed = t_now
             results.extend(self.step())
-        return results
 
     # --- metrics ------------------------------------------------------------
     @property

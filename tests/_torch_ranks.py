@@ -849,3 +849,320 @@ TP_CASES = (
                                           "sliding_window": 4}),
     ("mixtral", "mixtral-8x22b-smoke", (1, 2, 2), None),
 )
+
+
+# ---------------------------------------------------------------------------
+# Megatron sequence parallelism (cfg.seq_parallel): tests/test_torch_sp.py
+# ---------------------------------------------------------------------------
+
+def sp_config(get_config, arch, over):
+    """``arch`` from ``get_config`` (the port's or the reference's) with a
+    case's overrides (a "moe" entry holds the MoE config's) and the MoE
+    cases' capacity 8 and no aux loss."""
+    import dataclasses
+    cfg = get_config(arch)
+    over = dict(over or {})
+    moe = over.pop("moe", {})
+    if over:
+        cfg = dataclasses.replace(cfg, **over)
+    if cfg.moe.enabled:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0, aux_loss_weight=0.0, **moe))
+    return cfg
+
+
+def sp_batch(cfg, b, s):
+    """A train batch of ``s`` positions: tokens and next-token labels, the
+    vision stub's patches ahead of s - P tokens, the audio stub's frames
+    (float32, seeded)."""
+    from repro_torch.models.lm import FRAME_DIM
+    if cfg.frontend == "audio_stub":
+        g = torch.Generator().manual_seed(4)
+        return {"frames": torch.randn((b, s, FRAME_DIM), generator=g),
+                "labels": _tokens(cfg, b, s, 2)}
+    st = s - cfg.n_patches if cfg.frontend == "vision_stub" else s
+    out = {"tokens": _tokens(cfg, b, st, 1), "labels": _tokens(cfg, b, st, 2)}
+    if cfg.frontend == "vision_stub":
+        g = torch.Generator().manual_seed(3)
+        out["patches"] = torch.randn((b, cfg.n_patches, cfg.d_model),
+                                     generator=g)
+    return out
+
+
+def _sp_run(cfg, mesh, params, batch, sp: bool):
+    """One case's results with ``cfg.seq_parallel`` = ``sp``: the rank's
+    loss, the reduced gradients gathered whole, the global norm and the
+    prefill logits; the records of the train step and of the prefill."""
+    import dataclasses
+    from repro_torch.convert import shard_params, unshard_params
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.steps import (global_grad_norm, make_serve_plan,
+                                          make_train_step)
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(cfg, seq_parallel=sp)
+    b = batch["labels"].shape[0]
+    rows = S.local_rows(batch, mesh, b)
+    lt = S.layout_for(cfg, mesh, params, "train", global_batch=b)
+    step = make_train_step(cfg, layout=lt)
+    local = shard_params(params, mesh, specs=lt.specs)
+    mesh.records = []
+    g, loss, _, _ = step.reduced_grads(local, rows)
+    res = {"train_records": [tuple(r) for r in mesh.records]}
+    mesh.records = None
+    res["norm"] = float(global_grad_norm(mesh, g, specs=lt.specs))
+    res["loss"] = float(loss)
+    res["grads"] = [t.numpy() for t in tree_leaves(
+        unshard_params(g, mesh, specs=lt.specs))]
+    ls = S.layout_for(cfg, mesh, params, "prefill", global_batch=b)
+    sp_params = shard_params(params, mesh, specs=ls.specs)
+    mesh.records = []
+    with torch.no_grad():
+        res["prefill"] = lm.forward_prefill(
+            cfg, sp_params, {k: v for k, v in rows.items() if k != "labels"},
+            layout=ls, serve_plan=make_serve_plan(cfg, mesh, device="cpu")
+        ).logits.numpy()
+    res["prefill_records"] = [tuple(r) for r in mesh.records]
+    mesh.records = None
+    res["rows"] = S.local_rows(torch.arange(b), mesh, b).tolist()
+    return res
+
+
+def _dropped_gather(ctx, g):
+    """A mutant backward of the reduce-scatter: the local adjoint of a
+    slice (this rank's block of the gradient, zeros elsewhere), its
+    all-gather dropped."""
+    full = torch.zeros(*g.shape[:ctx.dim],
+                       g.shape[ctx.dim] * ctx.mesh.group_size(ctx.group),
+                       *g.shape[ctx.dim + 1:], dtype=g.dtype)
+    i = ctx.mesh.group_index(ctx.group)
+    full.narrow(ctx.dim, i * g.shape[ctx.dim], g.shape[ctx.dim]).copy_(g)
+    return full, None, None, None
+
+
+def sp_body(rank):
+    """Megatron-SP on gloo ranks: per case of SP_CASES the results of
+    ``_sp_run`` with the flag on and off, and (rank 0) the no-mesh loss
+    and gradients; a sequence that does not tile the group (S = 15); the
+    hybrid and RWKV stacks with the flag on and off; the dry run's decode
+    variants (DECODE_VARIANTS) against the no-mesh step; and the gqa case
+    with the reduce-scatter's backward all-gather dropped (a mutation)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves, tree_unflatten_like
+    out = {}
+    meshes = {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, device="cpu")
+        return meshes[shape]
+    b, s = SP_BATCH
+    for name, arch, shape, over in SP_CASES:
+        cfg = sp_config(get_config, arch, over)
+        mesh = mesh_of(shape)
+        params = full_params(cfg)
+        batch = sp_batch(cfg, b, s)
+        res = {"on": _sp_run(cfg, mesh, params, batch, True),
+               "off": _sp_run(cfg, mesh, params, batch, False)}
+        if rank == 0:
+            ps = [p.detach().requires_grad_() for p in tree_leaves(params)]
+            want = lm.forward_train(cfg, tree_unflatten_like(params, ps),
+                                    batch)
+            res["want_loss"] = float(want.loss)
+            res["want"] = [g.numpy() for g in torch.autograd.grad(
+                want.loss, ps, allow_unused=True, materialize_grads=True)]
+        out[name] = res
+    _, arch, shape, over = SP_CASES[0]
+    gqa = sp_config(get_config, arch, over)
+    mesh = mesh_of(shape)
+    params = full_params(gqa)
+    out["untiled"] = {sp: _sp_run(gqa, mesh, params, sp_batch(gqa, b, 15),
+                                  sp) for sp in (True, False)}
+    for arch in ("zamba2-1.2b-smoke", "rwkv6-1.6b-smoke"):
+        cfg = get_config(arch)
+        stack = full_params(cfg)
+        out[arch] = {sp: _sp_run(cfg, mesh, stack, sp_batch(cfg, 2, s), sp)
+                     for sp in (True, False)}
+    for name, shape, split, over in DECODE_VARIANTS:
+        cfg = sp_config(get_config, "qwen3-8b-smoke", over)
+        dmesh = mesh_of(shape)
+        dparams = full_params(cfg)
+        got, local = decode_variant(cfg, dmesh, dparams, split)
+        res = {"logits": got, "cache_shape": local,
+               "rows": S.local_rows(torch.arange(4), dmesh, 4).tolist(),
+               "coords": dict(dmesh.coords)}
+        if rank == 0:
+            res["want"] = decode_variant(cfg, None, dparams, split)[0]
+        out[name] = res
+    keep = collectives._ReduceScatter.backward
+    collectives._ReduceScatter.backward = staticmethod(_dropped_gather)
+    try:
+        out["mutant"] = _sp_run(gqa, mesh, params, sp_batch(gqa, b, s), True)
+    finally:
+        collectives._ReduceScatter.backward = keep
+    return out
+
+
+SP_BATCH = (4, 16)          # rows, positions
+# (name, arch, mesh, config overrides): TP_CASES, the gqa case under
+# remat (the carry's slices saved at each group boundary, the group's
+# gathers and scatters recomputed in the backward) and without tensor
+# parallelism (every weight whole after its FSDP gather: the carry still
+# split, each layer's whole output cut to the slice), llama4's shared
+# expert beside its MoE layers (every other block), the ScMoE shortcut
+# fused into the layer (gpt2-moe; mixtral's, whose `tp` sum is deferred
+# to a reduce-scatter, cut to the slice), and the two frontends (llava's
+# 8 patches ahead of 8 tokens; hubert's frames, a bidirectional encoder)
+SP_CASES = TP_CASES + (
+    ("remat", "qwen3-8b-smoke", (2, 2), {"n_kv_heads": 2, "remat": True}),
+    ("dp_only", "qwen3-8b-smoke", (2, 2), {"n_kv_heads": 2,
+                                           "tensor_parallel": False}),
+    ("shared_expert", "llama4-maverick-400b-a17b-smoke", (2, 2), None),
+    ("shortcut", "gpt2-moe-smoke", (2, 2), {"moe": {"shortcut": True}}),
+    ("tp_shortcut", "mixtral-8x22b-smoke", (1, 2, 2),
+     {"moe": {"shortcut": True}}),
+    ("vision", "llava-next-34b-smoke", (2, 2), None),
+    ("audio", "hubert-xlarge-smoke", (2, 2), None),
+)
+# the dry run's decode variants on gloo ranks: (name, mesh, cache split,
+# config overrides); kv_split's (1, 2, 2) is `model` = the 2 kv heads,
+# `tp` = 2 (the ring of a window of 4 wraps across the `tp` ranks)
+DECODE_VARIANTS = (
+    ("kv_split", (1, 2, 2), "kv", {"n_kv_heads": 2}),
+    ("kv_split_window", (1, 2, 2), "kv", {"n_kv_heads": 2,
+                                          "sliding_window": 4}),
+    ("cache_batch_only", (2, 2), "batch", {"n_kv_heads": 2}),
+)
+
+
+def decode_variant(cfg, mesh, params, split, b=4):
+    """DECODE_STEPS decode steps from an empty cache of DECODE_SLOTS
+    slots placed by ``cache_specs``' ``split`` (no mesh: the plain step)
+    -> (this rank's rows' logits a step, its local cache shape)."""
+    from repro_torch.convert import shard_params
+    from repro_torch.launch import sharding as S
+    from repro_torch.models import lm
+    toks = _tokens(cfg, b, DECODE_STEPS, 1)
+    cache = lm.init_cache(cfg, b, DECODE_SLOTS, torch.float32, device="cpu")
+    layout, p, rows = None, params, toks
+    if mesh is not None:
+        layout = S.layout_for(cfg, mesh, params, "decode", global_batch=b,
+                              cache=cache, cache_split=split)
+        p = shard_params(params, mesh, specs=layout.specs)
+        cache = shard_params(cache, mesh, specs=layout.cache_specs)
+        rows = S.local_rows(toks, mesh, b)
+    out = []
+    with torch.no_grad():
+        for t in range(DECODE_STEPS):
+            logits, cache, _ = lm.decode_step(cfg, p, cache, rows[:, t],
+                                              layout=layout)
+            out.append(logits.numpy())
+    return out, tuple(cache.kv.k.shape)
+
+
+# ---------------------------------------------------------------------------
+# wall-clock serving on a mesh (runtime.engine's request router):
+# tests/test_torch_serve_wallclock.py
+# ---------------------------------------------------------------------------
+
+WALL_PROMPTS = (5, 9, 3, 12, 7)     # prompt lengths
+WALL_NEW = 3                        # tokens each generates
+
+
+def wallclock_body(rank, shape):
+    """gpt2-moe-smoke's ``MoEServer`` on ``shape``: rank 0 submits
+    WALL_PROMPTS and every rank calls ``run()``; rank 0 then submits a
+    follow-up of request 0 and every rank runs again; a second engine
+    replays the first requests through ``simulate``; another rank's
+    wall-clock submit is refused.  -> the results, the records of the
+    first run, the follow-up's path state, the refusal's message."""
+    import numpy as np
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.engine import (EngineConfig, ServingEngine,
+                                            simulate)
+    from repro_torch.runtime.server import MoEServer, profile_from_training
+    mesh = make_mesh(shape, device="cpu")
+    cfg = _smoke()
+    params = full_params(cfg)
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                global_batch=4, seed=0))
+    prof = profile_from_training(cfg, params,
+                                 (ds.batch(i) for i in range(2)), mesh=mesh)
+    srv = MoEServer(cfg, params, prof, mesh=mesh)
+    g = np.random.default_rng(3)
+    prompts = [g.integers(0, cfg.vocab_size, n) for n in WALL_PROMPTS]
+    ecfg = EngineConfig(max_batch_tokens=24, max_batch_requests=2)
+
+    def rows(res):
+        return sorted((r.rid, r.n_tokens, r.tokens.tolist(), r.arrival,
+                       r.completion, r.ttft, r.logits.tolist())
+                      for r in res)
+    out = {}
+    with torch.inference_mode():
+        eng = ServingEngine(srv, ecfg)
+        if rank == 0:
+            for p in prompts:
+                eng.submit(p, max_new_tokens=WALL_NEW)
+        else:
+            try:
+                eng.submit(prompts[0])
+            except RuntimeError as e:
+                out["refused"] = str(e)
+        mesh.records = []
+        out["wall"] = rows(eng.run())
+        out["kinds"] = sorted({(r.kind, r.axis) for r in mesh.records})
+        mesh.records = None
+        out["steps"] = eng.step_idx
+        if rank == 0:
+            eng.submit(prompts[1], prev_rid=0, max_new_tokens=1)
+        out["follow_up"] = rows(eng.run())
+        out["path_state"] = eng.request_path_state(len(prompts)).tolist()
+        res = simulate(ServingEngine(srv, ecfg),
+                       [(p, 0.0) for p in prompts], max_new_tokens=WALL_NEW)
+        out["replay"] = sorted((r.rid, r.tokens.tolist(), r.logits.tolist())
+                               for r in res)
+    return out
+
+
+def wallclock_stamp_body(rank, shape):
+    """gpt2-moe-smoke served in wall-clock mode on ``shape`` with an
+    engine clock that counts its calls (each reading one more than the
+    last) -> per step, the completion stamps of its results and the
+    clock's last reading when the step returned."""
+    import numpy as np
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.engine import EngineConfig, ServingEngine
+    from repro_torch.runtime.server import MoEServer, profile_from_training
+    from repro_torch.data import DataConfig, SyntheticLM
+    mesh = make_mesh(shape, device="cpu")
+    cfg = _smoke()
+    params = full_params(cfg)
+    ds = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                global_batch=4, seed=0))
+    prof = profile_from_training(cfg, params,
+                                 (ds.batch(i) for i in range(2)), mesh=mesh)
+    srv = MoEServer(cfg, params, prof, mesh=mesh)
+    readings = []
+
+    def clock():
+        readings.append(float(len(readings)))
+        return readings[-1]
+    g = np.random.default_rng(3)
+    steps = []
+    with torch.inference_mode():
+        eng = ServingEngine(srv, EngineConfig(max_batch_tokens=24,
+                                              max_batch_requests=2),
+                            clock=clock)
+        for n in WALL_PROMPTS:
+            eng.submit(g.integers(0, cfg.vocab_size, n),
+                       max_new_tokens=WALL_NEW)
+        while eng.has_work():
+            out = eng.step()
+            steps.append(([(r.completion, r.ttft) for r in out],
+                          readings[-1]))
+    return steps

@@ -3,13 +3,40 @@ wrapper on ``meta`` (its contract, then its outputs allocated there)
 against its CPU route, the peak tracker against a hand count, one dry-run
 cell against the reference's result keys, the cells it skips, and the
 collectives a (2, 2) recording mesh records against what the same steps
-issue on 4 gloo ranks."""
+issue on 4 gloo ranks.
+
+The reference's variants (``src/repro/launch/dryrun.py:52-135, 225-241``):
+each runs ``ok`` on a production cell cut to two layers and its result
+carries the values it ran with; the ``kv_split`` and ``cache_batch_only``
+decode caches' spec trees equal the reference's (its ``cache_specs`` with
+the KV leaves its dry run writes, after ``safe_spec``) for every config
+with a KV cache, on 16 x 16 and 2 x 16 x 16; with sequence parallelism off
+qwen3-8b train_4k keeps its peak of 32,138,467,344 bytes; with it on (the
+default) qwen2-72b train_4k at four layers drops by more than the four
+group boundaries' saved carries, 15 / 16 of [16, 4096, 8192] bf16 each;
+``kv_split``, which re-views the production mesh, refuses an explicit
+one."""
 from __future__ import annotations
 
+import jax
+import jax.numpy as jnp
 import pytest
 import torch
+from jax.sharding import PartitionSpec as P
 
+from _torch_threads import share_cores
 from _torch_ranks import record_config, record_steps_body, run_ranks
+from test_torch_sharding import as_spec, ref_safe, ref_shape, stand_in, walk
+from repro.configs import get_config as j_get_config
+from repro.core import axes as jax_axes
+from repro.launch import sharding as jsh
+from repro.models import lm as jlm
+from repro.models.attention import KVCache as JKVCache
+from repro_torch.configs import ASSIGNED, SHAPES, get_config
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.mesh import kv_split_mesh
+from repro_torch.models import lm
+from repro_torch.tree import tree_items
 from repro_torch.analysis.kernels import (REGISTRY, contract_of,
                                           edge_contract_args, wrapper_of)
 from repro_torch.devices import resolve_device
@@ -17,6 +44,8 @@ from repro_torch.kernels import COUNTERS, reset_counters
 from repro_torch.kernels._build import KernelRefused
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import RecordingMesh, make_production_mesh
+
+share_cores()
 
 # the reference's result keys (src/repro/launch/dryrun.py) whose meaning
 # the port keeps
@@ -196,3 +225,112 @@ def test_recorded_collectives_are_the_gloo_ranks(tmp_path):
         assert {r[0] for r in rec[kind]} >= {"all-to-all"}
         for r, got in enumerate(ranks):
             assert got[kind] == rec[kind], (kind, r)
+
+
+# (variant, arch, shape, run_cell keywords): each on its production mesh
+# at two layers
+VARIANTS = (
+    ("no_sp", "qwen3-8b", "train_4k", dict(seq_parallel=False)),
+    ("no_lina", "gpt2-moe", "train_4k", dict(lina=False)),
+    ("microbatches", "gpt2-moe", "train_4k", dict(microbatches=2)),
+    ("dp_only", "mixtral-8x22b", "train_4k", dict(dp_only=True)),
+    ("kv_split", "qwen3-8b", "decode_32k", dict(kv_split=True)),
+    ("cache_batch_only", "qwen2-72b", "decode_32k",
+     dict(cache_batch_only=True)),
+    ("tag", "qwen3-8b", "prefill_32k", dict(tag="hill-climb 1")),
+)
+
+
+@pytest.mark.parametrize("name,arch,shape,kw", VARIANTS,
+                         ids=[v[0] for v in VARIANTS])
+def test_each_variant_runs_ok_on_a_production_cell(name, arch, shape, kw):
+    res = dryrun.run_cell(arch, shape, layers=2, verbose=False, **kw)
+    assert res["status"] == "ok", res.get("error") or res.get("reason")
+    want = {"lina": True, "seq_parallel": True, "microbatches": 1,
+            "dp_only": False, "kv_split": False, "cache_batch_only": False,
+            "tag": "", **kw}
+    assert {k: res[k] for k in want} == want
+    if name == "kv_split":      # `model` re-viewed as (8 kv heads, tp 2)
+        assert res["mesh_shape"] == [16, 8, 2]
+
+
+def test_kv_split_skips_where_the_kv_heads_do_not_divide_16():
+    res = dryrun.run_cell("gpt2-moe", "decode_32k", kv_split=True,
+                          verbose=False)
+    assert res["status"] == "skip" and "12 kv heads" in res["reason"]
+
+
+def test_kv_split_refuses_an_explicit_mesh(capsys):
+    with pytest.raises(ValueError, match="kv_split"):
+        dryrun.run_cell("qwen3-8b", "decode_32k", kv_split=True,
+                        mesh_shape=(2, 2), layers=2, verbose=False)
+    with pytest.raises(SystemExit):
+        dryrun.main(["--arch", "qwen3-8b", "--shape", "decode_32k",
+                     "--kv-split", "--mesh", "2x2"])
+    assert "--kv-split" in capsys.readouterr().err
+
+
+def _kv_literal(lead, dpx, seq, heads):
+    """The KV leaves the reference's dry run writes (its lines 96-117)."""
+    return JKVCache(*(P(*(None,) * lead, dpx, seq, heads, None)
+                      for _ in range(2)))
+
+
+KV_ARCHS = [c.name for c in ASSIGNED if c.causal and not c.attention_free]
+DECODES = [s for s in SHAPES.values() if s.kind in ("decode", "long_decode")]
+
+
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("arch", KV_ARCHS)
+def test_kv_split_and_batch_only_cache_specs_equal_the_references(
+        arch, multi_pod):
+    jcfg, cfg = j_get_config(arch), get_config(arch)
+    dpx = jax_axes.DP_AXES if multi_pod else (jax_axes.DATA,)
+    kvh = cfg.n_kv_heads
+    meshes = {"batch": ref_shape(cfg, multi_pod)}
+    if 16 % kvh == 0:
+        shape = (16, kvh, 16 // kvh)
+        names = ("data", "model", "tp")
+        if multi_pod:
+            shape, names = (2,) + shape, ("pod",) + names
+        meshes["kv"] = (shape, names)
+        # the port folds `pod` into `data`
+        km = kv_split_mesh(cfg, multi_pod)
+        assert km.shape == ((32,) + shape[2:] if multi_pod else shape)
+    else:
+        assert kv_split_mesh(cfg, multi_pod) is None
+    for split, (shape, names) in meshes.items():
+        jm, pm = stand_in(shape, names), RecordingMesh(shape, names)
+        seq, heads = (jax_axes.TP, jax_axes.MODEL) if split == "kv" \
+            else (None, None)
+        for s in DECODES:
+            jc = jax.eval_shape(lambda: jlm.init_cache(
+                jcfg, s.global_batch, s.seq_len, jnp.bfloat16))
+            cache = lm.init_cache(cfg, s.global_batch, s.seq_len,
+                                  device="meta")
+            ref = jsh.cache_specs(jcfg, jm, jc)
+            ref = ref._replace(kv=_kv_literal(jc.kv.k.ndim - 4, dpx, seq,
+                                              heads))
+            want = ref_safe(jm, ref, jc)
+            got = sh.safe_specs(pm, sh.cache_specs(cfg, pm, cache, split),
+                                cache)
+            leaves = walk(jc, want, got)
+            assert len(leaves) == len(tree_items(cache))
+            for path, w, g in leaves:
+                assert g == as_spec(w), (split, s.name, path)
+
+
+def test_without_sequence_parallelism_the_peak_is_as_before():
+    res = dryrun.run_cell("qwen3-8b", "train_4k", seq_parallel=False,
+                          verbose=False)
+    assert res["memory_analysis"]["peak_bytes_estimate"] == 32_138_467_344
+
+
+def test_sequence_parallelism_drops_at_least_the_saved_carries():
+    layers, b, s, d, n = 4, 16, 4096, 8192, 16
+    peak = {sp: dryrun.run_cell("qwen2-72b", "train_4k", seq_parallel=sp,
+                                layers=layers, verbose=False)
+            ["memory_analysis"]["peak_bytes_estimate"] for sp in (True,
+                                                                  False)}
+    carries = layers * b * s * d * 2 * (n - 1) // n
+    assert peak[False] - peak[True] >= carries
