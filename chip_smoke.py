@@ -372,6 +372,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
@@ -4063,8 +4064,8 @@ def phase13(dev) -> dict:
 
 # norm-wise ||mesh - no mesh|| / ||no mesh|| allowed for each gradient of
 # phase 7's layer check: the mesh path runs the same kernels on the same
-# rows, in 4 capacity chunks, so only the weight gradients' sums over the
-# rows are split (four fp32 partial sums added)
+# rows, in 4 capacity chunks (the backward's dgrad too), and each weight
+# gradient is one fp32 sum over the rows, in their order at ep 1
 EP_GRAD_REL = 1e-5
 EP_SCHEDULES = ("baseline", "priority", "fixed", "priority+partition",
                 "priority+partition+pipeline")
@@ -4195,7 +4196,89 @@ def ordering(prof, mesh, microbatches: int) -> str:
             f"{sum(k == 'a2a' for k, _ in times)} all-to-all events")
 
 
-def phase7_run(dev, mesh, tag, argv, n_layers=None, run=False, steps=None):
+def ep_sections(n: int, backward: bool) -> list:
+    """The marks one pipelined expert-parallel section of n chunks leaves
+    on the mesh's timeline (``core.microop.pipelined_expert_ffn``): sent,
+    waited for ("a2a"), returned, and in the backward the weight
+    gradients' "tail" before the return exchanges are waited for."""
+    seq = ["send"]
+    for k in range(n):
+        seq += (["send"] if k + 1 < n else []) + ["a2a", "return"]
+    return seq + (["tail"] if backward else []) + ["a2a"] * n
+
+
+def pipeline_order(mesh, n: int, backwards: int, strict: bool) -> str:
+    """Raise unless the profiled step's timeline (its reductions aside) is
+    a run of whole pipelined sections of n chunks in issue order: dy's
+    chunk k+1 sent before chunk k's dgrad and waited for after it, chunk
+    k's dx returned before chunk k+1's dgrad, the weight gradients after
+    the last dx is sent and before any is waited for; ``backwards``
+    backward sections (the MoE layers times the microbatches).  Not
+    ``strict`` (another tree at ``--src``), a timeline with no "send"
+    mark is reported as unmarked."""
+    kinds = [k for k, _ in mesh.timeline if k != "reduce"]
+    if not strict and "send" not in kinds:
+        return "not marked by the tree at --src"
+    fwd = bwd = i = 0
+    while i < len(kinds):
+        for backward in (True, False):
+            want = ep_sections(n, backward)
+            if kinds[i:i + len(want)] == want:
+                break
+        else:
+            raise AssertionError(
+                f"the expert pipeline's issue order is broken at mark {i} "
+                f"of {len(kinds)}: {kinds[i:i + 4 * n + 4]}")
+        fwd, bwd, i = fwd + (not backward), bwd + backward, i + len(want)
+    if bwd != backwards:
+        raise AssertionError(f"{bwd} backward sections of the expert "
+                             f"pipeline, not {backwards}")
+    return (f"{fwd} forward and {bwd} backward sections of {n} chunks, each "
+            f"in issue order")
+
+
+def backward_overlap(prof, n: int) -> str:
+    """From the profiled step's device kernels: how many of the backward's
+    inner return exchanges (chunk k's dx, k < n - 1) start before chunk
+    k+1's dgrad kernels end, and the microseconds they overlap.  A layer's
+    backward is the run of ``grouped_matmul`` kernels opened by its one
+    bf16 x bf16 launch (the recompute of h over the whole buffer; gelu):
+    h, then da and dx of each chunk, then dwo and dwi.  Chunk k's dx
+    exchange is the first NCCL all-to-all kernel to start after its dx
+    GEMM ends.  Layers whose kernels the profiler lost are left out."""
+    import torch
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    a2a = [e for e in ev if "nccl" in e.name.lower()
+           and "allreduce" not in e.name.lower()]
+    groups = []
+    for e in ev:
+        if "gmm_bf16" in e.name:
+            groups.append([e])
+        elif "gmm_" in e.name and groups:
+            groups[-1].append(e)
+    layers = [g for g in groups if len(g) == 3 + 2 * n]
+    hits, inside, us = 0, 0, 0.0
+    for g in layers:
+        for k in range(n - 1):
+            t = g[2 + 2 * k].time_range.end
+            x = next((a for a in a2a if a.time_range.start >= t), None)
+            w0, w1 = g[3 + 2 * k].time_range.start, g[4 + 2 * k].time_range.end
+            if x is not None and x.time_range.start < w1:
+                hits += 1
+                o = min(x.time_range.end, w1) - max(x.time_range.start, w0)
+                inside += o > 0
+                us += max(0.0, o)
+    return (f"{hits} of {len(layers) * (n - 1)} inner return exchanges start "
+            f"before the next chunk's dgrad kernels end, {inside} of them "
+            f"while those kernels run, {us:.1f} us overlapped "
+            f"({len(layers)} of {len(groups)} layer backwards whole in the "
+            f"profile, {len(a2a)} NCCL all-to-all kernels)")
+
+
+def phase7_run(dev, mesh, tag, argv, n_layers=None, run=False, steps=None,
+               strict=True):
     """One training run from the driver's flags (``n_layers`` cuts the
     depth): with ``run`` through ``Trainer.run`` (checkpoint included),
     else its step function driven from the seeded state for ``steps``
@@ -4208,6 +4291,9 @@ def phase7_run(dev, mesh, tag, argv, n_layers=None, run=False, steps=None):
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.gating import capacity
+    from repro_torch.core.microop import resolve_chunk_count
+    from repro_torch.kernels import COUNTERS
     from repro_torch.launch import train
     from repro_torch.runtime.trainer import Trainer
     ck = tempfile.mkdtemp(prefix="repro_torch_ep_")
@@ -4250,17 +4336,32 @@ def phase7_run(dev, mesh, tag, argv, n_layers=None, run=False, steps=None):
                "median": float(np.median(dts[1:]))}
         if tr.mesh is not None:
             tr.mesh.timeline = []
+        gmm = COUNTERS["grouped_matmul"].count
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             step(state, len(losses))
             pwall = time.perf_counter() - t0
+        row["gmm"] = COUNTERS["grouped_matmul"].count - gmm
         nccl_ms, names, copy_ms, busy = nccl_split(prof)
         row.update(nccl_ms=nccl_ms, busy=busy)
-        msg = ""
+        msg = f"; grouped_matmul launches {row['gmm']}"
         if tr.mesh is not None:
-            msg = "; ordering " + ordering(prof, tr.mesh, tcfg.microbatches)
+            n = resolve_chunk_count(capacity(
+                args.batch // tcfg.microbatches * args.seq, cfg.moe.n_experts,
+                cfg.moe.top_k, cfg.moe.capacity_factor), cfg.moe.n_microops)
+            msg += ("; ordering " + ordering(prof, tr.mesh, tcfg.microbatches)
+                    + "; pipeline " + pipeline_order(
+                        tr.mesh, n, cfg.n_layers * tcfg.microbatches, strict)
+                    + "; backward overlap " + backward_overlap(prof, n))
             tr.mesh.timeline = None
+        if tr.mesh is not None and not n_layers:
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+                print(f"  phase 7 {tag} kernel: "
+                      f"{e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
+                      f"{e.key[:80]}", flush=True)
         print(f"phase 7 {tag}: step median {row['median']:.4f} s (steps "
               f"1-{len(dts) - 1}; min {min(dts[1:]):.4f}, max "
               f"{max(dts[1:]):.4f}); profiled step wall {pwall * 1e3:.1f} "
@@ -4273,7 +4374,7 @@ def phase7_run(dev, mesh, tag, argv, n_layers=None, run=False, steps=None):
         shutil.rmtree(ck, ignore_errors=True)
 
 
-def phase7(dev) -> dict:
+def phase7(dev, strict: bool = True) -> dict:
     """Expert parallelism and the §4 schedule on a one-rank NCCL mesh:
     the communicators' priorities, the layer check, the five schedules
     and two compressions at full width and depth 2 (4 steps each, beside
@@ -4293,17 +4394,18 @@ def phase7(dev) -> dict:
     torch.cuda.empty_cache()
     mesh = phase7_mesh(dev)
     phase7_layer(dev, mesh)
+    train = functools.partial(phase7_run, strict=strict)
     base = ["--arch", "gpt2-moe", "--steps", "4", "--batch", "8", "--seq",
             "1024", "--ckpt-every", "100"]
     ep = ["--mesh", "1x1", "--n-microops", "4"]
-    none = phase7_run(dev, mesh, "depth 2, no mesh", base, n_layers=2)
-    rows = [phase7_run(dev, mesh, f"depth 2, {s}", base + ep + [
+    none = train(dev, mesh, "depth 2, no mesh", base, n_layers=2)
+    rows = [train(dev, mesh, f"depth 2, {s}", base + ep + [
         "--schedule", s], n_layers=2) for s in EP_SCHEDULES]
     for comp in ("bf16", "int8_ef"):
-        rows.append(phase7_run(dev, mesh, f"depth 2, priority+partition, "
-                               f"{comp}", base + ep + [
-                                   "--schedule", "priority+partition",
-                                   "--grad-compression", comp], n_layers=2))
+        rows.append(train(dev, mesh, f"depth 2, priority+partition, "
+                          f"{comp}", base + ep + [
+                              "--schedule", "priority+partition",
+                              "--grad-compression", comp], n_layers=2))
     same = {tuple(r["losses"]) for r in rows[:len(EP_SCHEDULES)]}
     gap = max(abs(a - b) for r in rows for a, b in zip(r["losses"],
                                                        none["losses"]))
@@ -4317,21 +4419,25 @@ def phase7(dev) -> dict:
         raise AssertionError("the schedules reduce over one rank: their "
                              "losses must be bitwise equal")
     # 5 of the 12 steps phase 3 runs (the same LR schedule)
-    mesh1 = phase7_run(dev, mesh, "depth 12, 1 x 1 mesh, implicit",
-                       TRAIN_ARGV[:] + ep, steps=5)
-    mb2 = phase7_run(dev, mesh, "depth 12, no mesh, 2 microbatches",
-                     TRAIN_ARGV[:] + ["--microbatches", "2"], steps=5)
+    mesh1 = train(dev, mesh, "depth 12, 1 x 1 mesh, implicit",
+                  TRAIN_ARGV[:] + ep, steps=5)
+    mb2 = train(dev, mesh, "depth 12, no mesh, 2 microbatches",
+                TRAIN_ARGV[:] + ["--microbatches", "2"], steps=5)
     reset_counters()
-    full = phase7_run(dev, mesh, "depth 12, priority+partition+pipeline, 2 "
-                      "microbatches", TRAIN_ARGV[:] + ep + [
-                          "--schedule", "priority+partition+pipeline",
-                          "--microbatches", "2"], run=True)
+    full = train(dev, mesh, "depth 12, priority+partition+pipeline, 2 "
+                 "microbatches", TRAIN_ARGV[:] + ep + [
+                     "--schedule", "priority+partition+pipeline",
+                     "--microbatches", "2"], run=True)
     launches = {n: c.count for n, c in COUNTERS.items()}
     print("phase 7 launches: " + json.dumps(launches), flush=True)
     missing = [n for n, c in launches.items()
                if c == 0 and n not in SERVE_ONLY | RECURRENT]
     if missing:
         raise AssertionError(f"kernels never launched in phase 7: {missing}")
+    print(f"phase 7 depth 12: grouped_matmul launches a step on the 1 x 1 "
+          f"mesh {mesh1['gmm']} (1 microbatch), {full['gmm']} (2 "
+          f"microbatches); without a mesh {mb2['gmm']} (2 microbatches)",
+          flush=True)
     print(f"phase 7 depth 12: step median on the 1 x 1 mesh with 4 "
           f"micro-ops (implicit reduction, 1 microbatch) "
           f"{mesh1['median']:.4f} s, busy {mesh1['busy']:.3f} ms; "
@@ -5490,7 +5596,8 @@ def main(argv=None) -> int:
         if "5" in phases else None
     zamba = phase_served(dev, "zamba2-1.2b", "phase 6") \
         if "6" in phases else None
-    ep_train = phase7(dev) if "7" in phases else None
+    ep_train = phase7(dev, strict=src == SRC.resolve()) \
+        if "7" in phases else None
     serve_ep = phase8(dev) if "8" in phases else None
     llama4 = phase9(dev) if "9" in phases else None
     dense = phase10(dev) if "10" in phases else None

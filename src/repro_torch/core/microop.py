@@ -32,8 +32,11 @@ wait blocks the host; the values are the same.
 The exchanges are differentiable on their own (the Function's backward
 is the inverse exchange, waited for at once).  The MoE layer instead runs
 ``pipelined_expert_ffn`` inside one autograd node
-(``core.moe._ExpertParallel``), whose backward exchanges in micro-ops but
-runs the FFN's backward once, after every chunk has landed.
+(``core.moe._ExpertParallel``), whose backward is the same pipeline run on
+dy: dy's exchange of chunk k+1 is in flight while chunk k's row-local
+backward (dgrad) runs, chunk k's dx goes back right behind it, and the
+weight gradients, one product over every chunk's rows, run under the last
+return exchanges.
 """
 from __future__ import annotations
 
@@ -164,7 +167,8 @@ def chunked_all_to_all(buf: torch.Tensor, mesh, n_chunks: int,
 def pipelined_expert_ffn(buf: torch.Tensor, expert_fn: Callable, mesh,
                          n_chunks: int, n_experts: int,
                          pipeline: bool = True,
-                         shadow: Optional[Callable] = None) -> tuple:
+                         shadow: Optional[Callable] = None,
+                         tail: Optional[Callable] = None) -> tuple:
     """Fig. 8b as a software pipeline on the compute and `model` streams.
 
     buf:        local dispatch buffers [E, C, d] (E = global expert count).
@@ -172,33 +176,48 @@ def pipelined_expert_ffn(buf: torch.Tensor, expert_fn: Callable, mesh,
                 experts on the received rows of capacity rows
                 [start, start + c) of every source.
     shadow:     a callable run on the compute stream while chunk 0's
-                dispatch is in flight (the ScMoE shortcut branch).
-    Returns (combined local buffers [E, C, d], shadow's result or None).
+                dispatch is in flight (the ScMoE shortcut branch; in the
+                backward, the recompute of h).
+    tail:       a callable run on the compute stream once the last return
+                all-to-all is issued, before any is waited for (in the
+                backward, the weight gradients).
+    Returns (combined local buffers [E, C, d], shadow's result or None,
+    tail's result or None).
 
     Per iteration the issue order is the reference's
 
         dispatch-a2a(k+1)  ->  expert_fn(k)  ->  combine-a2a(k)
 
     and each exchange is waited for only where its result is consumed.
-    With ``pipeline=False``: one a2a, the whole FFN, one a2a."""
+    With ``pipeline=False``: one a2a, the whole FFN, one a2a.  The mesh's
+    timeline (``Mesh.mark``) notes each dispatch issued ("send"), each
+    wait ("a2a"), each return issued ("return") and the tail ("tail")."""
     if not pipeline:
         n_chunks = 1
     n_chunks = resolve_chunk_count(buf.shape[1], n_chunks)
     c = buf.shape[1] // n_chunks
     pieces = torch.split(buf, c, dim=1)
     recv = all_to_all_ec(pieces[0], mesh, async_op=True)
+    mesh.mark("send")
     side = shadow() if shadow is not None else None
     back = []
     for k in range(n_chunks):
-        nxt = all_to_all_ec(pieces[k + 1], mesh, async_op=True) \
-            if k + 1 < n_chunks else None
+        nxt = None
+        if k + 1 < n_chunks:
+            nxt = all_to_all_ec(pieces[k + 1], mesh, async_op=True)
+            mesh.mark("send")
         out_k = expert_fn(recv.wait(), k * c)
         back.append(all_to_all_ec_inverse(out_k, mesh, n_experts,
                                           async_op=True))
+        mesh.mark("return")
         recv = nxt
+    after = None
+    if tail is not None:
+        mesh.mark("tail")
+        after = tail()
     back = [p.wait() for p in back]
     combined = torch.cat(back, dim=1) if len(back) > 1 else back[0]
-    return combined, side
+    return combined, side, after
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,9 @@ from repro_torch.core.collectives import (all_reduce_grad, gather_grad,
                                           reduce_scatter_grad)
 from repro_torch.core.gating import (capacity, kept_counts,
                                      router_top_k_gating)
-from repro_torch.kernels.ops import (grouped_ffn_grads, grouped_ffn_op,
-                                     resolve_backend, vjp)
+from repro_torch.kernels.moe_ffn import grouped_matmul
+from repro_torch.kernels.ops import (ffn_dgrad, ffn_wgrad, grouped_ffn_op,
+                                     resolve_backend)
 from repro_torch.kernels.ref import gelu
 
 
@@ -121,19 +122,23 @@ class _ExpertParallel(torch.autograd.Function):
     all-to-all micro-ops, the experts' FFN on each landed chunk, return
     all-to-all micro-ops.
 
-    The forward is Lina's pipeline (``microop.pipelined_expert_ffn``).  The
-    backward exchanges dy in the same micro-ops, runs the FFN's backward
-    once on the whole received buffer (the chunks' rows side by side) and
-    sends dx back in micro-ops: each expert weight's gradient is one fp32
+    The forward is Lina's pipeline (``microop.pipelined_expert_ffn``), and
+    so is the backward, on dy: while dy's first chunk is in flight it
+    recomputes h (and u) over the whole saved buffer; chunk k's row-local
+    backward (``ffn_dgrad``: dx and the rows' act, dh, du) runs while
+    chunk k+1's dy is in flight, and its dx goes back right behind it;
+    the weight gradients (``ffn_wgrad``) run once the last dx is issued,
+    before any is waited for.  They split the backward by data
+    dependence, not by chunk: each expert weight's gradient is one fp32
     sum over every row, rounded once to the weight's dtype, as without a
     mesh (autograd over the chunks would round each chunk's part to the
-    bf16 compute dtype and add them there).  At ep 1 the whole buffer is
-    the single-rank layer's, so its gradients are bitwise that layer's.
-    The ScMoE shortcut (``plan.shadow``) runs, with autograd, while the
-    first dispatch is in flight; its output comes back in ``plan.side``.
-    Where the experts' hidden dims are this rank's `tp` slice the output
-    is this rank's partial sum, which ``moe_layer`` sums over `tp` after
-    the combine."""
+    bf16 compute dtype and add them there), and a row's dx is the row's
+    own.  At ep 1 the whole buffer is the single-rank layer's, so its
+    gradients are bitwise that layer's.  The ScMoE shortcut
+    (``plan.shadow``) runs, with autograd, while the first dispatch is in
+    flight; its output comes back in ``plan.side``.  Where the experts'
+    hidden dims are this rank's `tp` slice the output is this rank's
+    partial sum, which ``moe_layer`` sums over `tp` after the combine."""
 
     @staticmethod
     def forward(ctx, buf, wi, wu, wo, plan):
@@ -153,7 +158,7 @@ class _ExpertParallel(torch.autograd.Function):
             with torch.enable_grad():
                 return plan.shadow()
 
-        out, plan.side = microop.pipelined_expert_ffn(
+        out, plan.side, _ = microop.pipelined_expert_ffn(
             buf, ffn, plan.mesh, plan.n_chunks, plan.e,
             pipeline=plan.pipeline,
             shadow=shadow if plan.shadow is not None else None)
@@ -165,26 +170,47 @@ class _ExpertParallel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x_rows, wi, wu, wo = ctx.saved_tensors
-        plan, mesh = ctx.plan, ctx.plan.mesh
-        c = dy.shape[1] // ctx.n
-        # the return exchange's adjoint is the same exchange of dy
-        recv = [microop.all_to_all_ec(p, mesh, async_op=True)
-                for p in torch.split(dy, c, dim=1)]
-        d_rows = torch.cat([plan.to_rows(r.wait()) for r in recv], 1)
-        if plan.backend == "pallas":
-            dx, dwi, dwu, dwo = grouped_ffn_grads(x_rows, wi, wu, wo,
-                                                  plan.ffn_type, d_rows)
-        else:
-            prim = (x_rows, wi, wo) if wu is None else (x_rows, wi, wo, wu)
-            grads = vjp(lambda x, a, o, u=None: expert_ffn(
-                a, u, o, x, plan.ffn_type), prim, d_rows)
-            dx, dwi, dwo = grads[:3]
-            dwu = grads[3] if wu is not None else None
-        back = [microop.all_to_all_ec_inverse(
-            plan.from_rows(part, c), mesh, plan.e, async_op=True)
-            for part in torch.split(dx, plan.ep * c, dim=1)]
-        dbuf = torch.cat([b.wait() for b in back], 1)
-        return dbuf, dwi, dwu, dwo, None
+        plan = ctx.plan
+        # the kernel route's products are the reference VJP's (fp32); the
+        # plain route's are the operands' dtype, as autograd's
+        kernel = plan.backend == "pallas"
+        mm = grouped_matmul if kernel else torch.matmul
+        hu = {}
+        kept = {"dy": [], "act": [], "dh": [], "du": []}
+
+        def recompute():
+            hu["h"] = mm(x_rows, wi)
+            hu["u"] = mm(x_rows, wu) if wu is not None else None
+
+        def dgrad(recv, start):
+            d = plan.to_rows(recv)
+            d = d.float() if kernel else d
+            rows = slice(plan.ep * start, plan.ep * start + d.shape[1])
+            dx, act, dh, du = ffn_dgrad(
+                hu["h"][:, rows], hu["u"][:, rows] if wu is not None
+                else None, wi, wu, wo, plan.ffn_type, d, mm)
+            for key, t in zip(kept, (d, act, dh, du)):
+                kept[key].append(t)
+            return plan.from_rows(dx.to(x_rows.dtype), recv.shape[1])
+
+        def whole(key):
+            parts = kept.pop(key)
+            return torch.cat(parts, 1) if len(parts) > 1 else parts[0]
+
+        def wgrad():
+            hu.clear()
+            du = whole("du") if wu is not None else None
+            return ffn_wgrad(x_rows, whole("act"), whole("dh"), du,
+                             whole("dy"), mm)
+
+        # the return exchange's adjoint is the same exchange of dy, and
+        # the dispatch's is the inverse one: the forward's pipeline
+        dbuf, _, (dwi, dwu, dwo) = microop.pipelined_expert_ffn(
+            dy, dgrad, plan.mesh, ctx.n, plan.e, shadow=recompute,
+            tail=wgrad)
+        return (dbuf, dwi.to(wi.dtype),
+                dwu.to(wu.dtype) if dwu is not None else None,
+                dwo.to(wo.dtype), None)
 
 
 def dense_ffn(x, w_in, w_up, w_out, ffn_type: str):

@@ -22,7 +22,11 @@ launches the same kernels:
 
   * ``grouped_ffn_op``  — the FFN kernel forward; the backward recomputes
     h (and u) on the full buffers and forms every dgrad / wgrad with
-    ``grouped_matmul`` (5 launches for gelu, 8 for swiglu).  With
+    ``grouped_matmul`` (5 launches for gelu, 8 for swiglu), as two
+    halves split by data dependence: ``ffn_dgrad`` (row-local: dx and
+    the per-row act, dh, du) and ``ffn_wgrad`` (each weight's gradient,
+    one product over every row), which the expert-parallel section
+    (``core.moe``) runs chunk by chunk and once.  With
     ``group_expert`` (the serve path's in-place hosted weights) it has no
     backward and raises where a gradient is wanted;
   * ``topk_gating_op``  — the gating kernel forward; the backward
@@ -110,37 +114,47 @@ class _GroupedFFN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, wi, wu, wo = ctx.saved_tensors
-        return (*grouped_ffn_grads(x, wi, wu, wo, ctx.ffn_type, dy),
-                None, None)
+        dy = dy.float()
+        h = grouped_matmul(x, wi)                     # recompute [E, T, F]
+        u = grouped_matmul(x, wu) if wu is not None else None
+        dx, act, dh, du = ffn_dgrad(h, u, wi, wu, wo, ctx.ffn_type, dy,
+                                    grouped_matmul)
+        dwi, dwu, dwo = ffn_wgrad(x, act, dh, du, dy, grouped_matmul)
+        return (dx.to(x.dtype), dwi.to(wi.dtype),
+                dwu.to(wu.dtype) if dwu is not None else None,
+                dwo.to(wo.dtype), None, None)
 
 
-def grouped_ffn_grads(x, wi, wu, wo, ffn_type: str, dy):
-    """(dx, dwi, dwu or None, dwo) of the grouped FFN at x [E, T, D] for
-    the cotangent dy [E, T, D]: h (and u) recomputed on the full buffers,
-    every dgrad / wgrad by ``grouped_matmul`` in fp32, each gradient
-    rounded once to its operand's dtype."""
-    dy = dy.float()
-    xt = x.transpose(1, 2)                            # [E, D, T]
-    h = grouped_matmul(x, wi)                         # recompute [E, T, F]
+def ffn_dgrad(h, u, wi, wu, wo, ffn_type: str, dy, mm):
+    """The row-local half of the grouped FFN's backward: for rows of the
+    recomputed h (and u, swiglu) [E, T, F] and their cotangent dy
+    [E, T, D], (dx, act, dh, du or None).  Every row of each result
+    depends on that row alone, so the rows may come in chunks; act, dh
+    and du are what ``ffn_wgrad`` reads.  ``mm`` forms each product:
+    ``grouped_matmul`` (fp32, the reference VJP's; dy then fp32 too) or
+    the plain route's ``torch.matmul`` in the operands' dtype."""
+    da = mm(dy, wo.transpose(1, 2))                   # [E, T, F]
     if ffn_type == "swiglu":
-        u = grouped_matmul(x, wu)
         act = torch.nn.functional.silu(h) * u
+        dh, du = vjp(lambda a, b: torch.nn.functional.silu(a) * b,
+                     (h, u), da)
+        dx = mm(dh, wi.transpose(1, 2)) + mm(du, wu.transpose(1, 2))
     else:
         act = ref.gelu(h)
-    da = grouped_matmul(dy, wo.transpose(1, 2))       # [E, T, F]
-    dwo = grouped_matmul(act.transpose(1, 2), dy)     # [E, F, D]
-    if ffn_type == "swiglu":
-        dh, du = vjp(lambda a, b: torch.nn.functional.silu(a) * b,
-                      (h, u), da)
-        dx = grouped_matmul(dh, wi.transpose(1, 2)) \
-            + grouped_matmul(du, wu.transpose(1, 2))
-        dwu = grouped_matmul(xt, du).to(wu.dtype)
-    else:
         (dh,) = vjp(ref.gelu, (h,), da)
-        dx = grouped_matmul(dh, wi.transpose(1, 2))
-        dwu = None
-    dwi = grouped_matmul(xt, dh)
-    return dx.to(x.dtype), dwi.to(wi.dtype), dwu, dwo.to(wo.dtype)
+        dx, du = mm(dh, wi.transpose(1, 2)), None
+    return dx, act, dh, du
+
+
+def ffn_wgrad(x, act, dh, du, dy, mm):
+    """The weight half of the grouped FFN's backward: (dwi, dwu or None,
+    dwo), each one product over every row of x, act, dh (du) and dy
+    [E, T, .] (``ffn_dgrad``'s outputs side by side), in ``mm``'s
+    dtype; the caller rounds each once to its weight's."""
+    xt = x.transpose(1, 2)                            # [E, D, T]
+    dwo = mm(act.transpose(1, 2), dy)                 # [E, F, D]
+    dwu = mm(xt, du) if du is not None else None
+    return mm(xt, dh), dwu, dwo
 
 
 def grouped_ffn_op(x, wi, wu, wo, ffn_type: str = "swiglu", *,

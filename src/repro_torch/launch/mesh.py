@@ -149,7 +149,9 @@ class Mesh:
     before any exchange): the "backward all-to-all done" marker the
     gradient reduction waits on.  With ``timeline`` a list, every
     collective of ``core.microop`` appends (kind, timed event) pairs to it
-    (kinds "a2a" and "reduce"), for an ordering check on the card."""
+    (kinds "a2a" and "reduce"), and so does each step of its expert
+    pipeline ("send", "return", "tail"), for ordering checks: the event
+    is None off the card, where only the order is kept."""
 
     def __init__(self, shape, axis_names, device: torch.device):
         self.shape = tuple(int(s) for s in shape)
@@ -306,14 +308,17 @@ class Mesh:
         self._issue(dist.barrier)
 
     def mark(self, kind: str) -> None:
-        """Record that a collective of ``kind`` is ordered before the
-        compute stream's next work (see the class doc)."""
-        if self.device.type != "cuda":
+        """Record that the compute stream has reached ``kind``: "a2a", a
+        collective ordered before its next work, or a step of
+        ``core.microop`` (see the class doc)."""
+        if kind != "a2a" and self.timeline is None:
             return
-        ev = torch.cuda.Event(enable_timing=self.timeline is not None)
-        ev.record()
-        if kind == "a2a":
-            self.a2a_event = ev
+        ev = None
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=self.timeline is not None)
+            ev.record()
+            if kind == "a2a":
+                self.a2a_event = ev
         if self.timeline is not None:
             self.timeline.append((kind, ev))
 

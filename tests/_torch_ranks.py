@@ -120,12 +120,12 @@ def pipeline_body(rank, inp_path, counts):
     out = {"serial": serial.numpy()}
     for n in counts:
         calls.clear()
-        got, side = microop.pipelined_expert_ffn(
+        got, side, _ = microop.pipelined_expert_ffn(
             buf, fn, mesh, n, e, shadow=lambda: buf.sum())
         out[n] = (got.numpy(), list(calls), float(side))
     calls.clear()
-    got, _ = microop.pipelined_expert_ffn(buf, fn, mesh, 4, e,
-                                          pipeline=False)
+    got, _, _ = microop.pipelined_expert_ffn(buf, fn, mesh, 4, e,
+                                             pipeline=False)
     out["no_pipeline"] = (got.numpy(), list(calls))
     return out
 
@@ -144,52 +144,126 @@ MOE_CASES = {
 }
 
 
+def _moe_run(mesh, t, lina, nmo, ffn, k, fsdp, sc, backend):
+    """moe_layer on this rank's (batch, sequence) slice of the inputs
+    ``t``: its y, aux, ids, probs and gradients of sum(y * ct) (x,
+    router, experts, shortcut)."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.convert import shard_params
+    from repro_torch.core.moe import MoEParams, moe_layer
+    from repro_torch.launch.sharding import expert_specs
+    dp_n, ep_n = mesh.shape
+    d, m = mesh.index("data"), mesh.index("model")
+    b = t["x"].shape[0] // dp_n
+    s = t["x"].shape[1] // ep_n
+    cfg = MoEConfig(n_experts=t["wi"].shape[0], top_k=k,
+                    d_ff=t["wi"].shape[2], n_microops=nmo,
+                    compute_backend=backend)
+    full = MoEParams(t["router"], t["wi"],
+                     t["wu"] if ffn == "swiglu" else None, t["wo"])
+    ps = MoEParams(*(None if a is None else a.clone().requires_grad_()
+                     for a in shard_params(full, mesh, expert_specs(
+                         mesh, full, fsdp))))
+    scp = None
+    if sc:
+        scp = tuple(t[k].clone().requires_grad_()
+                    for k in ("sc_in", "sc_up", "sc_out"))
+    x = t["x"][d * b:(d + 1) * b, m * s:(m + 1) * s].clone() \
+        .requires_grad_()
+    ct = t["ct"][d * b:(d + 1) * b, m * s:(m + 1) * s]
+    o = moe_layer(x, ps, cfg, ffn_type=ffn, mesh=mesh, lina=lina,
+                  fsdp=fsdp, shortcut_params=scp)
+    (o.y * ct).sum().backward()
+    return {"y": o.y.detach().numpy(),
+            "aux": float(o.aux_loss.detach()),
+            "eidx": o.expert_idx.numpy(),
+            "probs": o.router_probs.detach().numpy(),
+            "gx": x.grad.numpy(),
+            "grads": {f: getattr(ps, f).grad.numpy()
+                      for f in ps._fields
+                      if getattr(ps, f) is not None},
+            "gsc": [a.grad.numpy() for a in scp] if scp else None}
+
+
 def moe_body(rank, inp_path, shape, cases):
     """Every case of MOE_CASES on a (2, 4) mesh: this rank's y, aux, ids,
     probs and gradients of sum(y * ct) (x, router, experts, shortcut)."""
     import numpy as np
-    from repro_torch.configs.base import MoEConfig
-    from repro_torch.convert import shard_params
-    from repro_torch.core.moe import MoEParams, moe_layer
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.sharding import expert_specs
     mesh = make_mesh(shape, device="cpu")
     inp = np.load(inp_path)
-    dp_n, ep_n = shape
-    d, m = mesh.index("data"), mesh.index("model")
-    b = inp["x"].shape[0] // dp_n
-    s = inp["x"].shape[1] // ep_n
     t = {k: torch.from_numpy(inp[k]) for k in inp.files}
+    return {name: _moe_run(mesh, t, *MOE_CASES[name]) for name in cases}
+
+
+def rows_stable(m: int, n: int, d: int, f: int) -> bool:
+    """Whether the plain matmul gives each row of a [2, m, k] @ [k, j]
+    product (k, j = d, f and f, d: the FFN's, forward and backward) the
+    same bits as that row of the whole [2, m * n, k] product (on a CPU it
+    may depend on M)."""
+    g = torch.Generator().manual_seed(0)
+    for k, j in ((d, f), (f, d)):
+        a = torch.randn(2, m * n, k, generator=g)
+        b = torch.randn(2, k, j, generator=g)
+        whole = torch.matmul(a, b)
+        for i in range(n):
+            part = a[:, i * m:(i + 1) * m].contiguous()
+            if not torch.equal(torch.matmul(part, b),
+                               whole[:, i * m:(i + 1) * m]):
+                return False
+    return True
+
+
+SECTION_MICROOPS = 4        # lina_body's section: 4 of C 6 resolves to 3
+
+
+def lina_body(rank, inp_path, shape, cases, section):
+    """On a ``shape`` mesh, the kernel route (the kernels' plain versions
+    here) with ``lina`` and without, for each (ffn_type, n_microops) of
+    ``cases`` (``_moe_run``); the expert-parallel section alone on the
+    capacity buffer ``section`` ([E, C, d] per rank; its C need not be a
+    multiple of 8) with SECTION_MICROOPS micro-ops against one, for each
+    ffn_type; the chunk counts resolved; and ``rows_stable`` at the row
+    counts of both."""
+    import numpy as np
+    from repro_torch.core import axes
+    from repro_torch.core.gating import capacity
+    from repro_torch.core.microop import resolve_chunk_count
+    from repro_torch.core.moe import _ExpertParallel, _Plan
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(shape, device="cpu")
+    inp = np.load(inp_path)
+    t = {k: torch.from_numpy(inp[k]) for k in inp.files}
+    ep = mesh.size(axes.EP_AXIS)
     out = {}
-    for name in cases:
-        lina, nmo, ffn, k, fsdp, sc, backend = MOE_CASES[name]
-        cfg = MoEConfig(n_experts=t["wi"].shape[0], top_k=k,
-                        d_ff=t["wi"].shape[2], n_microops=nmo,
-                        compute_backend=backend)
-        full = MoEParams(t["router"], t["wi"],
-                         t["wu"] if ffn == "swiglu" else None, t["wo"])
-        ps = MoEParams(*(None if a is None else a.clone().requires_grad_()
-                         for a in shard_params(full, mesh, expert_specs(
-                             mesh, full, fsdp))))
-        scp = None
-        if sc:
-            scp = tuple(t[k].clone().requires_grad_()
-                        for k in ("sc_in", "sc_up", "sc_out"))
-        x = t["x"][d * b:(d + 1) * b, m * s:(m + 1) * s].clone() \
-            .requires_grad_()
-        ct = t["ct"][d * b:(d + 1) * b, m * s:(m + 1) * s]
-        o = moe_layer(x, ps, cfg, ffn_type=ffn, mesh=mesh, lina=lina,
-                      fsdp=fsdp, shortcut_params=scp)
-        (o.y * ct).sum().backward()
-        out[name] = {"y": o.y.detach().numpy(),
-                     "aux": float(o.aux_loss.detach()),
-                     "eidx": o.expert_idx.numpy(),
-                     "probs": o.router_probs.detach().numpy(),
-                     "gx": x.grad.numpy(),
-                     "grads": {f: getattr(ps, f).grad.numpy()
-                               for f in ps._fields
-                               if getattr(ps, f) is not None},
-                     "gsc": [a.grad.numpy() for a in scp] if scp else None}
+    for ffn, nmo in cases:
+        out[ffn, nmo] = {lina: _moe_run(mesh, t, lina, nmo, ffn, 2, False,
+                                        False, "auto")
+                         for lina in (True, False)}
+    e, el = t["wi"].shape[0], t["wi"].shape[0] // ep
+    m = mesh.index("model")
+    buf = t[section][rank]
+    wi, wu, wo = (t[k][m * el:(m + 1) * el] for k in ("wi", "wu", "wo"))
+    for ffn in ("gelu", "swiglu"):
+        for nmo in (SECTION_MICROOPS, 1):
+            ws = [a.clone().requires_grad_() for a in (wi, wu, wo)]
+            if ffn == "gelu":
+                ws[1] = None
+            x = buf.clone().requires_grad_()
+            plan = _Plan(mesh, e, nmo, True, ffn, "pallas", None, None)
+            y = _ExpertParallel.apply(x, *ws, plan)
+            (y * t["ct_" + section][rank]).sum().backward()
+            out["section", ffn, nmo] = [y.detach().numpy(), x.grad.numpy()] \
+                + [a.grad.numpy() for a in ws if a is not None]
+    b, s = t["x"].shape[0] // shape[0], t["x"].shape[1] // shape[1]
+    c = capacity(b * s, e, 2, 1.25)
+    out["n_layer"] = {nmo: resolve_chunk_count(c, nmo) for _, nmo in cases}
+    out["n_section"] = resolve_chunk_count(buf.shape[1], SECTION_MICROOPS)
+    d, f = t["wi"].shape[1:]
+    out["rows_stable"] = all(
+        rows_stable(ep * c // n, n, d, f)
+        for n in out["n_layer"].values()) and rows_stable(
+        ep * buf.shape[1] // out["n_section"], out["n_section"], d, f)
     return out
 
 

@@ -15,7 +15,11 @@ qwen3-8b train_4k keeps its peak of 32,138,467,344 bytes; with it on (the
 default) qwen2-72b train_4k at four layers drops by more than the four
 group boundaries' saved carries, 15 / 16 of [16, 4096, 8192] bf16 each;
 ``kv_split``, which re-views the production mesh, refuses an explicit
-one."""
+one.  Lina's pipelined expert-parallel backward exchanges the same
+micro-ops as the backward that waited for every chunk of dy first: the
+all-to-all records of gpt2-moe and mixtral-8x22b train_4k on their
+default meshes (count, raw and wire bytes of rank 0) are frozen at that
+backward's."""
 from __future__ import annotations
 
 import jax
@@ -334,3 +338,20 @@ def test_sequence_parallelism_drops_at_least_the_saved_carries():
                                                                   False)}
     carries = layers * b * s * d * 2 * (n - 1) // n
     assert peak[False] - peak[True] >= carries
+
+
+# rank 0's all-to-all records (count, raw bytes, wire bytes) of train_4k
+# on the default mesh, from the backward that waited for every chunk of dy
+# before its FFN backward
+A2A_RECORDS = {"gpt2-moe": (288, 1_146_617_856, 1_074_954_240),
+               "mixtral-8x22b": (1344, 84_821_409_792, 74_218_733_568)}
+
+
+@pytest.mark.parametrize("arch", sorted(A2A_RECORDS))
+def test_pipelined_backward_keeps_the_all_to_all_records(arch):
+    res = dryrun.run_cell(arch, "train_4k", verbose=False)
+    assert res["status"] == "ok"
+    c = res["collectives"]
+    got = (c["counts"]["all-to-all"], c["raw_bytes"]["all-to-all"],
+           c["wire_bytes"]["all-to-all"])
+    assert got == A2A_RECORDS[arch]

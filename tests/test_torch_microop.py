@@ -7,6 +7,15 @@ and saves its outputs to an ``.npz``; the port's ranks (``_torch_ranks``)
 rendezvous through a file under ``tmp_path``.  Exchanges move values, so
 they are held bitwise; ``resolve_chunk_count`` exactly over C 1-64 x
 n 1-9.
+
+The issue order of the MoE layer's pipeline, forward and backward, on a
+(1, 4) ``MirrorMesh`` on the CPU: the mesh's timeline (``Mesh.mark``:
+each exchange sent, waited for, returned, the tail) with the backward's
+two halves and every wait logged into it.  In the backward dy's chunk
+k+1 is sent before chunk k's dgrad and waited for after it, chunk k's
+dx is returned before chunk k+1's dgrad, the weight gradients run after
+the last dgrad and before the dx waits, and the last "a2a" mark follows
+the last wait.
 """
 import os
 import subprocess
@@ -16,8 +25,15 @@ import textwrap
 import numpy as np
 import pytest
 
+import torch
+
 from _torch_ranks import a2a_body, pipeline_body, run_ranks
+from repro_torch.configs.base import MoEConfig
+from repro_torch.core import microop
+from repro_torch.core import moe as moe_mod
 from repro_torch.core.microop import resolve_chunk_count
+from repro_torch.core.moe import MoEParams, moe_layer
+from repro_torch.launch.mesh import MirrorMesh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 E, C, D = 8, 6, 4
@@ -124,3 +140,63 @@ def test_pipelined_ffn_equals_serial_across_chunk_counts(tmp_path):
     bufs = rng.randn(4, E, C, D).astype(np.float32)
     for r, g in enumerate(got):
         assert g[2][2] == pytest.approx(float(bufs[r].sum()), rel=1e-5)
+
+
+def _pipeline_order(n: int, backward: bool) -> list:
+    """The timeline of one pipelined section of n chunks."""
+    seq = ["send"]
+    for k in range(n):
+        if k + 1 < n:
+            seq.append("send")
+        seq += ["wait", "a2a"] + (["dgrad"] if backward else []) + ["return"]
+    if backward:
+        seq += ["tail", "wgrad"]
+    return seq + ["wait", "a2a"] * n
+
+
+@pytest.mark.parametrize("ffn,nmo,lina,n", [
+    ("gelu", 4, True, 4), ("swiglu", 4, True, 4),
+    ("gelu", 3, True, 2),              # 3 resolves to 2 of C 8
+    ("gelu", 4, False, 1)])
+def test_backward_issue_order(monkeypatch, ffn, nmo, lina, n):
+    mesh = MirrorMesh((1, 4), device="cpu")
+    log = mesh.timeline = []
+
+    def logged(kind, fn):
+        def run(*a, **kw):
+            log.append((kind, None))
+            return fn(*a, **kw)
+        return run
+    monkeypatch.setattr(moe_mod, "ffn_dgrad",
+                        logged("dgrad", moe_mod.ffn_dgrad))
+    monkeypatch.setattr(moe_mod, "ffn_wgrad",
+                        logged("wgrad", moe_mod.ffn_wgrad))
+    monkeypatch.setattr(microop.Pending, "wait",
+                        logged("wait", microop.Pending.wait))
+    g = torch.Generator().manual_seed(0)
+    d, e, f = 16, 8, 32
+    x = torch.randn(4, 2, d, generator=g).requires_grad_()
+    p = MoEParams(*(torch.randn(*s, generator=g).requires_grad_()
+                    for s in ((d, e), (2, d, f))),
+                  torch.randn(2, d, f, generator=g).requires_grad_()
+                  if ffn == "swiglu" else None,
+                  torch.randn(2, f, d, generator=g).requires_grad_())
+    cfg = MoEConfig(n_experts=e, top_k=2, d_ff=f, n_microops=nmo)
+    y = moe_layer(x, p, cfg, ffn_type=ffn, mesh=mesh, lina=lina).y
+    assert [k for k, _ in log] == _pipeline_order(n, backward=False)
+    log.clear()
+    y.sum().backward()
+    kinds = [k for k, _ in log]
+    at = {k: [i for i, v in enumerate(kinds) if v == k]
+          for k in ("send", "dgrad", "return", "wgrad", "wait", "a2a")}
+    assert len(at["dgrad"]) == len(at["send"]) == len(at["return"]) == n
+    for k in range(n - 1):
+        assert at["send"][k + 1] < at["dgrad"][k]     # dy(k+1) before dgrad k
+        assert at["wait"][k + 1] > at["dgrad"][k]     # ... waited for after it
+        assert at["return"][k] < at["dgrad"][k + 1]   # dx(k) before dgrad k+1
+    assert at["wgrad"] == [at["return"][-1] + 2]      # dx(n-1) sent, "tail"
+    assert at["dgrad"][-1] < at["wgrad"][0]
+    dx_waits = at["wait"][-n:]
+    assert at["wgrad"][0] < dx_waits[0]               # before the dx waits
+    assert at["a2a"][-1] > dx_waits[-1] and kinds[-1] == "a2a"
+    assert kinds == _pipeline_order(n, backward=True)

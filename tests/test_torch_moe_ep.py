@@ -20,6 +20,21 @@ Held within 1e-5 (absolute, on gradients of order 1).
 The reference runs once (module-scoped subprocess with
 ``--xla_force_host_platform_device_count=8``, all cases, an ``.npz``),
 and so do the port's ranks.
+
+Lina's pipelined backward against one exchange, on (1, 4) and (2, 4)
+meshes (``_torch_ranks.lina_body``, the kernel route): ``lina`` with 4
+micro-ops, and with 3 (which does not divide the local capacity 8 and
+resolves to 2), against ``lina=False``, gelu and swiglu, y and every
+gradient within rtol / atol 1e-6.  The capacity is a multiple of 8, so
+no request resolves to 3 through the layer: the expert-parallel section
+alone takes a buffer of capacity 6, where 4 micro-ops resolve to 3
+(its weight gradients, of order 5, within 1e-6 of their largest
+magnitude).
+A row of y, dx and the router's gradient is the row's own, so these are
+bitwise wherever the plain matmul's rows do not depend on M
+(``rows_stable``, probed on the ranks); the expert weights' gradients
+sum the rows in another order (chunk-major against source-major), so
+they are held within the tolerance only.
 """
 import os
 import subprocess
@@ -29,7 +44,8 @@ import textwrap
 import numpy as np
 import pytest
 
-from _torch_ranks import MOE_CASES, moe_body, run_ranks
+from _torch_ranks import (MOE_CASES, SECTION_MICROOPS, lina_body, moe_body,
+                          run_ranks)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DP, EP = 2, 4
@@ -175,3 +191,78 @@ def test_layer_gradients_match_reference_on_a_2x4_mesh(runs, name):
             np.testing.assert_allclose(
                 sum(g[name]["gsc"][i] for g in got), want[name + f"/gsc{i}"],
                 atol=GRAD_ATOL, rtol=0, err_msg=f"shortcut {i}")
+
+
+LINA_SHAPES = [(1, 4), (2, 4)]
+LINA_CASES = [("gelu", 4), ("swiglu", 4), ("gelu", 3), ("swiglu", 3)]
+LINA_TOL = 1e-6
+SECTION_C = 6
+
+
+@pytest.fixture(scope="module")
+def lina_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("lina")
+    rng = np.random.RandomState(1)
+
+    def w(*shape):
+        return (rng.randn(*shape) * shape[-2] ** -0.5).astype(np.float32)
+    inp = {"x": rng.randn(8, 8, D).astype(np.float32),
+           "ct": rng.randn(8, 8, D).astype(np.float32),
+           "router": w(D, E), "wi": w(E, D, F), "wu": w(E, D, F),
+           "wo": w(E, F, D),
+           "sec": rng.randn(DP * EP, E, SECTION_C, D).astype(np.float32),
+           "ct_sec": rng.randn(DP * EP, E, SECTION_C, D).astype(
+               np.float32)}
+    np.savez(tmp / "inp.npz", **inp)
+    return {shape: run_ranks(lina_body, shape[0] * shape[1], tmp,
+                             str(tmp / "inp.npz"), shape, LINA_CASES, "sec")
+            for shape in LINA_SHAPES}
+
+
+def _held(got, want, bitwise, what, scaled=False):
+    """Each pair bitwise, or within LINA_TOL (``scaled``: of the largest
+    magnitude of ``want``)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if bitwise[i]:
+            np.testing.assert_array_equal(a, b, err_msg=f"{what} [{i}]")
+        elif scaled:
+            assert np.abs(a - b).max() <= LINA_TOL * np.abs(b).max(), \
+                f"{what} [{i}]"
+        else:
+            np.testing.assert_allclose(a, b, rtol=LINA_TOL, atol=LINA_TOL,
+                                       err_msg=f"{what} [{i}]")
+
+
+@pytest.mark.parametrize("ffn,nmo", LINA_CASES)
+@pytest.mark.parametrize("shape", LINA_SHAPES, ids=["1x4", "2x4"])
+def test_pipelined_backward_matches_one_exchange_on_gloo_ranks(
+        lina_runs, shape, ffn, nmo):
+    got = lina_runs[shape]
+    assert {g["n_layer"][nmo] for g in got} == {4 if nmo == 4 else 2}
+    stable = all(g["rows_stable"] for g in got)
+    fields = ("router", "wi", "wu", "wo") if ffn == "swiglu" \
+        else ("router", "wi", "wo")
+    for r, g in enumerate(got):
+        lina, one = g[ffn, nmo][True], g[ffn, nmo][False]
+        np.testing.assert_array_equal(lina["eidx"], one["eidx"])
+        tensors = [(lina[k], one[k]) for k in ("y", "gx")] + \
+            [(lina["grads"][f], one["grads"][f]) for f in fields]
+        # y, dx and the router's gradient row by row; the experts' sums
+        # over rows in another order
+        bitwise = [stable] * 3 + [False] * (len(fields) - 1)
+        _held(*zip(*tensors), bitwise, f"rank {r} {ffn} {nmo}")
+
+
+@pytest.mark.parametrize("ffn", ["gelu", "swiglu"])
+@pytest.mark.parametrize("shape", LINA_SHAPES, ids=["1x4", "2x4"])
+def test_section_pipelines_a_chunk_count_resolved_to_3(lina_runs, shape,
+                                                       ffn):
+    got = lina_runs[shape]
+    assert {g["n_section"] for g in got} == {3}
+    stable = all(g["rows_stable"] for g in got)
+    for r, g in enumerate(got):
+        lina, one = g["section", ffn, SECTION_MICROOPS], g["section", ffn, 1]
+        # y and dx row by row; the weights' sums over rows, of order 5
+        # here (unit inputs and cotangent), held to LINA_TOL of their scale
+        bitwise = [stable] * 2 + [False] * (len(lina) - 2)
+        _held(lina, one, bitwise, f"rank {r} {ffn} section", scaled=True)
