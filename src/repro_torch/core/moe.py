@@ -14,6 +14,8 @@ reference chunks even on its one-device default mesh).  It is
 differentiable on both routes: the kernel route's ops are
 ``torch.autograd.Function``s whose backward launches kernels too
 (``kernels.ops``), and the exchanges' backward is the inverse exchange.
+Inside an ``obs.counting()`` block the layer counts the (token, choice)
+pairs it routed and kept (``moe.routed_pairs``, ``moe.kept_pairs``).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from repro_torch.kernels.moe_ffn import grouped_matmul
 from repro_torch.kernels.ops import (ffn_dgrad, ffn_wgrad, grouped_ffn_op,
                                      resolve_backend)
 from repro_torch.kernels.ref import gelu
+from repro_torch.obs import counters
 
 
 class MoEParams(NamedTuple):
@@ -286,14 +289,18 @@ def moe_layer(x, params: MoEParams, cfg: MoEConfig, *,
         # at ep 1 a chunk's rows are this rank's own: the kept counts say
         # which hold tokens.  At ep > 1 rows past a count are zeros, which
         # a bias-free FFN maps to zeros.
-        counts = kept_counts(g, e) \
+        rows = kept_counts(g, e) \
             if backend == "pallas" and mesh.size(axes.EP_AXIS) == 1 else None
         plan = _Plan(mesh, e, cfg.n_microops if lina else 1,
-                     lina and cfg.pipeline_ffn, ffn_type, backend, counts,
+                     lina and cfg.pipeline_ffn, ffn_type, backend, rows,
                      shortcut if shortcut_params is not None else None)
         out_buf = _ExpertParallel.apply(buf, wi, wu, wo, plan)
         sc_out = plan.side
         aux = world_mean_value(aux, mesh)
+    if counters.active():       # the (token, choice) pairs: routed, kept
+        counters.add("moe.routed_pairs", b * s * k)
+        counters.add("moe.kept_pairs",
+                     (kept_counts(g, e) if rows is None else rows).sum())
     y = comb(out_buf, g, e, cap).reshape(b, s, d_model)
     if sc_out is not None:
         sc_out = sc_out.reshape(b, s, d_model)

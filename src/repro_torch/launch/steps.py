@@ -13,6 +13,10 @@ the named schedules are Lina's.  The global gradient norm sums each
 leaf's square over the axes it is split on, and the loss and aux metrics
 are averaged over the world, so every rank logs the global step.
 
+The step's ranges (``obs.region``): ``optim.reduce`` around each
+gradient reduction, ``optim.update`` around the clip and AdamW; the
+forward's are ``models.lm``'s.
+
 ``make_prefill_step``, ``make_decode_step`` and ``make_serve_plan`` are the
 reference's serve steps: ``models.lm``'s serve entry points over a layout
 (or none), under an identity plan sized to the mesh's expert-parallel
@@ -30,6 +34,7 @@ from repro_torch.core.placement import identity_plan
 from repro_torch.core.serving import PlanArrays
 from repro_torch.launch.mesh import ep_size
 from repro_torch.models import lm as lm_mod
+from repro_torch.obs import region
 from repro_torch.optim import reduce as reduce_mod
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
@@ -118,10 +123,12 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, *,
                 out.aux_loss.detach())
 
     def reduce(grads, rstate, async_op=False):
-        after = reduce_mod.backward_a2a_token(mesh)
-        return reduce_mod.reduce_gradients(mesh, grads, rcfg, after=after,
-                                           state=rstate, async_op=async_op,
-                                           specs=specs)
+        with region("optim.reduce"):
+            after = reduce_mod.backward_a2a_token(mesh)
+            return reduce_mod.reduce_gradients(mesh, grads, rcfg,
+                                               after=after, state=rstate,
+                                               async_op=async_op,
+                                               specs=specs)
 
     def reduced_grads(params, batch, rstate=None):
         if microbatches == 1:
@@ -166,9 +173,11 @@ def make_train_step(cfg, opt_cfg: Optional[AdamWConfig] = None, *,
         return grads, loss, aux, rstate
 
     def finish(params, opt_state, grads, loss, aux):
-        gn = None if mesh is None else global_grad_norm(mesh, grads, specs)
-        params, opt_state, om = adamw_update(params, grads, opt_state,
-                                             opt_cfg, grad_norm=gn)
+        with region("optim.update"):
+            gn = None if mesh is None else global_grad_norm(mesh, grads,
+                                                            specs)
+            params, opt_state, om = adamw_update(params, grads, opt_state,
+                                                 opt_cfg, grad_norm=gn)
         return params, opt_state, {"loss": loss, "aux_loss": aux, **om}
 
     if stateful:

@@ -26,8 +26,14 @@ Rank 0 prints and writes the metrics and the trace.
 ``--profile-dir D`` is the port's ``--jax-profile-dir``: a
 ``torch.profiler`` capture of steps 2..5 (``obs.StepProfiler``; with a
 card its device activity too) written to D as a Chrome trace (under
-``D/rank<r>`` on a mesh of more than one rank), and rank 0 prints the
-device time by kernel.  A capture that fails to start or to stop is
+``D/rank<r>`` on a mesh of more than one rank), which holds the
+program's ranges (``obs.REGIONS``; the trainer's spans among them where
+``--trace-dir`` records them).  Rank 0 prints the device time by
+kernel, the device time a captured step by range and phase
+(``obs.region_split``: forward, remat recompute, backward; what no range
+claims as unranged), and the counts of the captured steps
+(``obs.counting``: the MoE layers' routed and kept (token, choice) pairs,
+and the share dropped).  A capture that fails to start or to stop is
 printed and training goes on without it.
 """
 from __future__ import annotations
@@ -199,7 +205,32 @@ def run(argv=None) -> dict:
               + (", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in
                            list(times.items())[:8])
                  or "no device activity"), flush=True)
+        print_capture(profiler)
     return {"trainer": trainer, "state": state, "obs": obs, "args": args}
+
+
+def print_capture(profiler: StepProfiler) -> None:
+    """The capture's device time a step by range (forward / recompute /
+    backward ms) and its counts."""
+    n = max(profiler.captured, 1)
+    split = profiler.session.region_split()
+    if split.get("device_s"):
+        ranges = sorted(split["regions"].items(),
+                        key=lambda kv: -sum(kv[1].values()))
+        parts = [name + " " + " / ".join(f"{v * 1e3 / n:.3f}"
+                                         for v in ph.values())
+                 for name, ph in ranges]
+        print(f"profile: device ms a step by range (forward / recompute / "
+              f"backward): {', '.join(parts)}; unranged "
+              f"{split['unranged_s'] * 1e3 / n:.3f} of "
+              f"{split['device_s'] * 1e3 / n:.3f}", flush=True)
+    counts = profiler.session.counts
+    routed = counts.get("moe.routed_pairs", 0)
+    dropped = "" if not routed else \
+        f"; dropped {100 * (1 - counts['moe.kept_pairs'] / routed):.3f}%"
+    print("profile: counts of the captured steps: "
+          + (", ".join(f"{k} {v}" for k, v in counts.items()) or "none")
+          + dropped, flush=True)
 
 
 def main(argv=None, _child: bool = False):

@@ -76,6 +76,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (AttnParams, CacheSplit, KVCache,
                                           attention, decode_attention)
 from repro_torch.models.layers import dense_init, ffn_parallel, rms_norm
+from repro_torch.obs import region
 from repro_torch.tree import tree_map
 
 FRAME_DIM = 512      # audio stub frame-embedding dim
@@ -529,21 +530,25 @@ def _group_apply(cfg, gp: GroupParams, x, *, plan=None, serve_top_k=None,
     aux = torch.zeros((), device=x.device)
     top1 = None
     for j in range(every):
-        h = rms_norm(x, gp.ln1[j], cfg.norm_eps)
-        y, _ = attention(tree_idx(gp.attn, j), h, cfg, use_kernel=use_kernel,
-                         layout=layout)
-        x = x + y
-        h = rms_norm(x, gp.ln2[j], cfg.norm_eps)
+        with region("lm.attention"):
+            h = rms_norm(x, gp.ln1[j], cfg.norm_eps)
+            y, _ = attention(tree_idx(gp.attn, j), h, cfg,
+                             use_kernel=use_kernel, layout=layout)
+            x = x + y
         if not (cfg.moe.enabled and j == every - 1):
-            x = x + _ffn_apply(tree_idx(gp.ffn, j), h, cfg.ffn_type, layout,
-                               cfg.d_ff)
+            with region("lm.ffn"):
+                h = rms_norm(x, gp.ln2[j], cfg.norm_eps)
+                x = x + _ffn_apply(tree_idx(gp.ffn, j), h, cfg.ffn_type,
+                                   layout, cfg.d_ff)
             continue
-        moe_y, a, top1 = _moe_sublayer(
-            cfg, gp, h, plan, layout=layout, lina=lina,
-            serve_top_k=serve_top_k, fuse_shortcut=True,
-            dispatch_backend=dispatch_backend)
-        x = x + moe_y
-        aux = aux + a
+        with region("lm.moe"):
+            h = rms_norm(x, gp.ln2[j], cfg.norm_eps)
+            moe_y, a, top1 = _moe_sublayer(
+                cfg, gp, h, plan, layout=layout, lina=lina,
+                serve_top_k=serve_top_k, fuse_shortcut=True,
+                dispatch_backend=dispatch_backend)
+            x = x + moe_y
+            aux = aux + a
     return x, aux, top1
 
 
@@ -555,19 +560,23 @@ def run_stack(cfg, stack: GroupParams, x, *, serve_plan=None,
     each group runs under ``torch.utils.checkpoint`` (non-reentrant), so
     only the group boundaries' carries are kept: on a Megatron-SP view
     (x this rank's slice [B, S / n, d], ``_stack_layout``) a slice
-    each."""
+    each.  The range ``lm.stack`` holds the stack's own ops: a group's
+    weights sliced from the stacked leaves (in the backward, its gradient
+    written into theirs) and the aux losses summed."""
     every = cfg.moe.every if cfg.moe.enabled else 1
     aux = torch.zeros((), device=x.device)
     top1s = []
     for gi in range(cfg.n_layers // every):
-        gp = tree_idx(stack, gi)
+        with region("lm.stack"):
+            gp = tree_idx(stack, gi)
         plan = _plan_of(serve_plan, gi)
         if remat:
             x, a, top1 = checkpoint(_group_apply, cfg, gp, x, plan=plan,
                                     use_reentrant=False, **kw)
         else:
             x, a, top1 = _group_apply(cfg, gp, x, plan=plan, **kw)
-        aux = aux + a
+        with region("lm.stack"):
+            aux = aux + a
         if top1 is not None:
             top1s.append(top1)
     return x, aux, torch.stack(top1s) if top1s else None
@@ -643,17 +652,20 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
     [B, P, d] and ``labels`` [B, S_text]: the patch prefix gets zero
     labels and a zero loss mask, the text next-token labels."""
     _check_family(cfg)
-    p = _top(cast_for_compute(cfg, params), layout)
+    with region("lm.cast"):
+        p = _top(cast_for_compute(cfg, params), layout)
     tokens = batch.get("tokens")
     stack = _stack_layout(cfg, p, layout, batch)
     if cfg.frontend == "audio_stub":
         frames = batch["frames"]
         mask = frame_mask(frames.shape[:2], frames.device)
-        x = embed_inputs(cfg, p, frames=frames, mask=mask, layout=stack)
+        with region("lm.embed"):
+            x = embed_inputs(cfg, p, frames=frames, mask=mask, layout=stack)
         labels, loss_mask = batch["labels"], mask.float()
     elif cfg.frontend == "vision_stub":
-        x = embed_inputs(cfg, p, tokens=tokens, patches=batch["patches"],
-                         layout=stack)
+        with region("lm.embed"):
+            x = embed_inputs(cfg, p, tokens=tokens,
+                             patches=batch["patches"], layout=stack)
         lab_txt = batch["labels"]
         pad = torch.zeros((tokens.shape[0], batch["patches"].shape[1]),
                           dtype=lab_txt.dtype, device=lab_txt.device)
@@ -662,7 +674,8 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
                                torch.ones(lab_txt.shape, device=x.device)],
                               dim=1)
     else:
-        x = embed_inputs(cfg, p, tokens=tokens, layout=stack)
+        with region("lm.embed"):
+            x = embed_inputs(cfg, p, tokens=tokens, layout=stack)
         labels = batch["labels"]
         loss_mask = torch.ones(labels.shape, device=x.device)
     if isinstance(p.stack, HybridParams):
@@ -676,13 +689,14 @@ def forward_train(cfg, params: LMParams, batch: dict, *,
         x, aux, experts = run_stack(cfg, p.stack, x, remat=cfg.remat,
                                     dispatch_backend=dispatch_backend,
                                     lina=lina, layout=stack)
-    if stack is not None:   # the vocab-parallel loss: every mp rank on
-        x = stack.whole_seq(x)                  # every token
-    x = rms_norm(x, p.final_norm, cfg.norm_eps)
-    loss = chunked_ce_loss(x, unembed_weight(p), labels, loss_mask,
-                           remat=cfg.remat, layout=layout,
-                           vocab=cfg.vocab_size)
-    return ModelOutput(loss + aux, aux, experts)
+    with region("lm.loss"):
+        if stack is not None:   # the vocab-parallel loss: every mp rank on
+            x = stack.whole_seq(x)                  # every token
+        x = rms_norm(x, p.final_norm, cfg.norm_eps)
+        loss = chunked_ce_loss(x, unembed_weight(p), labels, loss_mask,
+                               remat=cfg.remat, layout=layout,
+                               vocab=cfg.vocab_size) + aux
+    return ModelOutput(loss, aux, experts)
 
 
 # ---------------------------------------------------------------------------
@@ -721,12 +735,13 @@ def _shared_block(cfg, hp: HybridParams, x, use_kernel: bool, layout=None):
 def _hybrid_layer(cfg, hp: HybridParams, li: int, tap: bool, x,
                   attn_kernel: bool, layout=None):
     """Mamba2 layer ``li``, then the shared block if it is a tap."""
-    mp = _layer(hp.mamba, None if layout is None
-                else layout.specs.stack.mamba, li, layout)
-    h = rms_norm(x, hp.ln_m[li], cfg.norm_eps)
-    y, _ = ssm_mod.mamba_block(mp, cfg, h)
-    x = x + y
-    return _shared_block(cfg, hp, x, attn_kernel, layout) if tap else x
+    with region("lm.hybrid"):
+        mp = _layer(hp.mamba, None if layout is None
+                    else layout.specs.stack.mamba, li, layout)
+        h = rms_norm(x, hp.ln_m[li], cfg.norm_eps)
+        y, _ = ssm_mod.mamba_block(mp, cfg, h)
+        x = x + y
+        return _shared_block(cfg, hp, x, attn_kernel, layout) if tap else x
 
 
 def _run_hybrid(cfg, hp: HybridParams, x, *, attn_kernel: bool,
@@ -746,14 +761,15 @@ def _run_hybrid(cfg, hp: HybridParams, x, *, attn_kernel: bool,
 
 def _rwkv_layer(cfg, st: RWKVStack, li: int, x, layout=None):
     """RWKV6 layer ``li``: time-mix then channel-mix."""
-    bp = _layer(st.blocks, None if layout is None
-                else layout.specs.stack.blocks, li, layout)
-    h = rms_norm(x, st.ln1[li], cfg.norm_eps)
-    y, _, _ = rwkv_mod.time_mix(bp, cfg, h)
-    x = x + y
-    h = rms_norm(x, st.ln2[li], cfg.norm_eps)
-    y, _ = rwkv_mod.channel_mix(bp, h)
-    return x + y
+    with region("lm.rwkv"):
+        bp = _layer(st.blocks, None if layout is None
+                    else layout.specs.stack.blocks, li, layout)
+        h = rms_norm(x, st.ln1[li], cfg.norm_eps)
+        y, _, _ = rwkv_mod.time_mix(bp, cfg, h)
+        x = x + y
+        h = rms_norm(x, st.ln2[li], cfg.norm_eps)
+        y, _ = rwkv_mod.channel_mix(bp, h)
+        return x + y
 
 
 def _run_rwkv(cfg, st: RWKVStack, x, *, remat: bool = False, layout=None):

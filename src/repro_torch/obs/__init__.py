@@ -1,12 +1,18 @@
-"""Tracing + metrics for the port's serving stack.
+"""Tracing + metrics for the port's serving and training stacks.
 
 ``tracer`` (nested spans with JSON + Chrome ``trace_event`` export) and
 ``metrics`` (counters / gauges / histograms with Prometheus + JSON export)
-are copies of the reference's; ``profiler`` captures device time with
-``torch.profiler`` and replays overlap phases into spans.  ``ObsContext``
-bundles one tracer and one registry, shared by ``MoEServer`` and
-``ServingEngine``.  ``python -m repro_torch.obs validate`` checks an
-exported trace against the span-tree invariants.
+are copies of the reference's.  ``region(name)`` is a ``torch.profiler``
+range while a session records (else ``NOOP``), at the layer boundaries of
+the train step; ``REGIONS`` lists every name the program opens (the
+Tracer's spans open the range of their name too).  ``counting()`` holds
+the program's device-side counts (``COUNTS``: ``moe.routed_pairs``,
+``moe.kept_pairs``) for the life of a block.  ``profiler`` captures
+device time with ``torch.profiler`` inside a counting block and splits
+it by range (``region_split``).  ``ObsContext`` bundles one tracer and
+one registry, shared by ``MoEServer`` and ``ServingEngine``.
+``python -m repro_torch.obs validate`` checks an exported trace against
+the span-tree invariants.
 """
 from __future__ import annotations
 
@@ -14,18 +20,20 @@ import json
 import os
 from dataclasses import dataclass
 
+from repro_torch.obs.counters import COUNTS, counting
 from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      MetricsRegistry, parse_prometheus)
-from repro_torch.obs.profiler import (StepProfiler, attribute_overlap,
-                                      hidden_fraction, trace_session)
-from repro_torch.obs.tracer import (NOOP, Span, Tracer, check_span_tree,
-                                    to_chrome, to_json, tree_from_chrome)
+from repro_torch.obs.profiler import (StepProfiler, region_split,
+                                      trace_session)
+from repro_torch.obs.tracer import (NOOP, REGIONS, Span, Tracer,
+                                    check_span_tree, region, to_chrome,
+                                    to_json, tree_from_chrome)
 
 __all__ = [
-    "ObsContext", "Tracer", "Span", "NOOP", "MetricsRegistry", "Counter",
-    "Gauge", "Histogram", "parse_prometheus", "to_json", "to_chrome",
-    "tree_from_chrome", "check_span_tree", "trace_session", "StepProfiler",
-    "attribute_overlap", "hidden_fraction",
+    "ObsContext", "Tracer", "Span", "NOOP", "REGIONS", "region", "COUNTS",
+    "counting", "MetricsRegistry", "Counter", "Gauge", "Histogram",
+    "parse_prometheus", "to_json", "to_chrome", "tree_from_chrome",
+    "check_span_tree", "trace_session", "StepProfiler", "region_split",
 ]
 
 

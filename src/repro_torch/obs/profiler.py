@@ -1,31 +1,116 @@
-"""Device-time attribution: ``torch.profiler`` sessions + overlap-phase
-replay.
-
-Two pieces, as in the reference's ``repro.obs.profiler``:
+"""Device-time attribution: ``torch.profiler`` sessions, split by the
+program's ranges.
 
   * ``trace_session`` / ``StepProfiler`` — a ``torch.profiler`` capture
-    around a window of steps.  With a card present it records CUDA activity
-    beside the host's, and a failure to start raises: the reference's guard
-    (a no-op where its TensorBoard plugin is missing) has no counterpart
-    here, so a capture on the card is never silently empty.  On a machine
-    without a card it records host activity only.  ``kernel_times()`` sums
-    the captured device time by kernel name; with a ``logdir`` the capture
-    is also written there as a Chrome trace.
+    around a window of steps, inside an ``obs.counting()`` block (its
+    totals in ``counts``).  With a card present it records CUDA activity
+    beside the host's, and a failure to start raises: the reference's
+    guard (a no-op where its TensorBoard plugin is missing) has no
+    counterpart here, so a capture on the card is never silently empty.
+    On a machine without a card it records host activity only.
+    ``kernel_times()`` sums the captured device time by kernel name,
+    ``region_split()`` by the program's range; with a ``logdir`` the
+    capture is also written there as a Chrome trace.
 
-  * ``attribute_overlap`` / ``hidden_fraction`` — replay overlap
-    micro-benchmark rows into a span tree so that "fraction of the a2a
-    hidden" is recomputable from the trace (the reference's functions,
-    verbatim).
+  * ``region_split`` — each device kernel's time of a capture given to
+    one range of ``obs.REGIONS``: the innermost range its launch lies in
+    (the remat recompute included, which runs inside a backward node), or
+    for a kernel of a backward node under no range, the range of the
+    forward op that created the node (the node's ``sequence_nr`` and
+    forward thread); any other kernel is unranged.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+from collections import defaultdict
+from typing import Dict, Optional
 
-from repro_torch.obs.tracer import Span, Tracer
+from repro_torch.obs.counters import counting
+from repro_torch.obs.tracer import REGIONS
 
-__all__ = ["trace_session", "StepProfiler", "attribute_overlap",
-           "hidden_fraction"]
+__all__ = ["trace_session", "StepProfiler", "attribution", "region_split"]
+
+BACKWARD_NODE = "autograd::engine::evaluate_function: "
+PHASES = ("forward", "recompute", "backward")
+
+
+def attribution(events):
+    """A function of a CPU event of ``events`` (``profile.events()``) ->
+    (range, phase) that the kernels it launches go to, or None
+    (unranged).  The phase is "forward", "recompute" (launched inside a
+    range inside a backward node) or "backward" (inside a backward node
+    and no range within it: the range of the forward op that created the
+    node, by its ``sequence_nr`` and forward thread; for a node no forward
+    op links, the next range or node above it)."""
+    from torch.autograd import DeviceType
+    regions = frozenset(REGIONS)
+    memo = {}
+
+    def context(e):
+        """(the nearest range or backward node at or above e, whether a
+        backward node lies at or above e)."""
+        key = id(e)
+        if key not in memo:
+            up = (None, False) if e.cpu_parent is None \
+                else context(e.cpu_parent)
+            node = e.name.startswith(BACKWARD_NODE)
+            memo[key] = (e if node or e.name in regions else up[0],
+                         node or up[1])
+        return memo[key]
+
+    # (sequence_nr, thread) -> range or None.  Ops that create no node
+    # carry the number the next node will take, so of the forward ops
+    # with one key (in start order) the last is the node's creator.
+    forward = {}
+    for e in events:
+        if e.device_type != DeviceType.CPU or e.sequence_nr < 0 or \
+                e.name.startswith(BACKWARD_NODE):
+            continue
+        n, in_backward = context(e)
+        if not in_backward:
+            forward[(e.sequence_nr, e.thread)] = None if n is None \
+                else n.name
+
+    def of(e):
+        n = context(e)[0]
+        while n is not None:
+            if n.name in regions:
+                return n.name, "recompute" if context(n)[1] else "forward"
+            name = forward.get((n.sequence_nr, n.fwd_thread))
+            if name is not None:
+                return name, "backward"
+            # a node of a graph built inside a backward: the node it runs in
+            n = None if n.cpu_parent is None else context(n.cpu_parent)[0]
+        return None
+    return of
+
+
+def region_split(events) -> dict:
+    """Device seconds of a capture's ``events`` by range
+    (``attribution``): {"regions": {range: {phase: s}}, "unranged_s": s,
+    "device_s": s}, ``device_s`` every device event's time (the ranges'
+    own device annotations left out), ``unranged_s`` what no range
+    claims."""
+    from torch.autograd import DeviceType
+    annotations = set(REGIONS) | {e.name for e in events
+                                  if e.device_type == DeviceType.CPU
+                                  and e.is_user_annotation}
+    device_s = sum((e.time_range.end - e.time_range.start) / 1e6
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation
+                   and e.name not in annotations)
+    of = attribution(events)
+    split = defaultdict(lambda: dict.fromkeys(PHASES, 0.0))
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        ks = [k for k in e.kernels if k.name not in annotations]
+        to = of(e) if ks else None
+        if to is not None:
+            split[to[0]][to[1]] += sum(k.duration for k in ks) / 1e6
+    ranged = sum(sum(v.values()) for v in split.values())
+    return {"regions": dict(split), "unranged_s": device_s - ranged,
+            "device_s": device_s}
 
 
 class trace_session:
@@ -40,6 +125,8 @@ class trace_session:
         self.cuda = False
         self.prof = None
         self.path: Optional[str] = None
+        self.counts: Dict[str, int] = {}
+        self._count = None
         self._n = 0
 
     def __enter__(self) -> "trace_session":
@@ -54,6 +141,7 @@ class trace_session:
             acts.append(ProfilerActivity.CUDA)
         self.prof = profile(activities=acts)
         self.prof.__enter__()
+        self._count = counting().__enter__()
         self.active = True
         return self
 
@@ -64,6 +152,8 @@ class trace_session:
             import torch
             torch.cuda.synchronize()
         self.prof.__exit__(None, None, None)
+        self._count.__exit__(None, None, None)
+        self.counts = self._count.totals
         self.active = False
         if self.logdir is not None:
             os.makedirs(self.logdir, exist_ok=True)
@@ -86,11 +176,19 @@ class trace_session:
                if e.device_type == cuda and e.self_device_time_total > 0}
         return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
+    def region_split(self) -> dict:
+        """``region_split`` of the last finished capture (empty before
+        one)."""
+        if self.prof is None or self.active:
+            return {}
+        return region_split(self.prof.events())
+
 
 class StepProfiler:
     """Start a capture at step ``start`` and stop it after ``steps``
     profiled steps — "skip the warm-up, profile a window".  Drive it with
-    ``on_step(step_idx)`` from any loop."""
+    ``on_step(step_idx)`` from any loop, called after each step;
+    ``captured`` counts the steps the capture holds."""
 
     def __init__(self, logdir: Optional[str] = None, start: int = 2,
                  steps: int = 3, enabled: bool = True):
@@ -98,6 +196,7 @@ class StepProfiler:
         self.stop_at = int(start) + int(steps)
         self._session = trace_session(logdir, enabled=enabled)
         self._started = False
+        self.captured = 0
 
     @property
     def active(self) -> bool:
@@ -111,6 +210,8 @@ class StepProfiler:
         if not self._started and step >= self.start:
             self._started = True
             self._session.__enter__()
+        elif self._session.active:
+            self.captured += 1
         if self._session.active and step >= self.stop_at:
             self._session.__exit__()
 
@@ -119,58 +220,3 @@ class StepProfiler:
 
     def kernel_times(self) -> Dict[str, float]:
         return self._session.kernel_times()
-
-
-def attribute_overlap(tracer: Tracer, rows, t0: float = 0.0) -> List:
-    """Replay overlap-microbench rows into spans.
-
-    Each row (a dict with ``variant``, ``chunks_requested``,
-    ``chunks_chosen``, ``us_per_call``, ``serial_us``, ``a2a_us``,
-    ``a2a_hidden_frac`` — the schema of ``BENCH_schedules.json``'s
-    ``overlap`` key) becomes one root span with three sequential phase
-    children::
-
-        overlap/<variant>-c<requested>
-          ├─ serial      (pipeline-off baseline, serial_us)
-          ├─ a2a_only    (chunked dispatch+combine with identity expert)
-          └─ pipelined   (the overlapped variant, us_per_call)
-
-    Spans are laid out back-to-back from ``t0`` on a microsecond-scaled
-    timeline.  Returns the created root spans (empty when disabled)."""
-    roots = []
-    cursor = float(t0)
-    for row in rows:
-        ser = float(row["serial_us"]) * 1e-6
-        a2a = float(row["a2a_us"]) * 1e-6
-        pipe = float(row["us_per_call"]) * 1e-6
-        name = (f"overlap/{row['variant']}"
-                f"-c{row.get('chunks_requested', '?')}")
-        root = tracer.add(name, cursor, cursor + ser + a2a + pipe,
-                          **{k: row[k] for k in
-                             ("mode", "variant", "chunks_requested",
-                              "chunks_chosen", "a2a_hidden_frac")
-                             if k in row})
-        t = cursor
-        root.child("serial", t, t + ser)
-        t += ser
-        root.child("a2a_only", t, t + a2a)
-        t += a2a
-        root.child("pipelined", t, t + pipe)
-        cursor += ser + a2a + pipe
-        roots.append(root)
-    return roots
-
-
-def hidden_fraction(span: Span) -> float:
-    """Recompute the overlap efficiency from an attribution span's phase
-    children: ``(serial - pipelined) / a2a_only``, clipped to [0, 1] —
-    the same formula ``benchmarks.train_side`` measures, but sourced from
-    the (possibly Chrome-round-tripped) trace."""
-    dur = {}
-    for c in span.children:
-        dur[c.name] = c.duration
-    a2a = dur.get("a2a_only", 0.0)
-    if a2a <= 0:
-        return 0.0
-    frac = (dur.get("serial", 0.0) - dur.get("pipelined", 0.0)) / a2a
-    return max(0.0, min(1.0, frac))

@@ -25,6 +25,19 @@ via ui.perfetto.dev or chrome://tracing; each root span tree gets its own
 ``tid`` so request lifecycles render as parallel tracks).
 ``tree_from_chrome`` rebuilds span trees from an exported Chrome trace, so
 "TTFT = queue + prefill + insert" stays checkable on the artifact itself.
+
+Ranges on the device clock: ``region(name)`` is a ``torch.profiler``
+range while a profiler session records, and ``NOOP`` otherwise (one flag
+check, nothing allocated).  The kernels launched under a range, and
+those of the backward nodes its forward ops created, are its device time
+(``obs.profiler.region_split``).  ``REGIONS`` names every range the
+program opens: the train step's layers (``models.lm``: ``lm.cast``,
+``lm.embed``, ``lm.stack``, ``lm.attention``, ``lm.moe``, ``lm.ffn``,
+``lm.rwkv``, ``lm.hybrid``, ``lm.loss``; the layer ranges open again in
+the remat recompute), its gradient reduction and update (``launch.steps``:
+``optim.reduce``, ``optim.update``), and the names of the spans that an
+enabled tracer's ``span`` and recording ``timed`` open (the trainer's
+and the server's), each of which opens the range of its name too.
 """
 from __future__ import annotations
 
@@ -33,8 +46,25 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
-__all__ = ["Span", "Tracer", "NOOP", "to_json", "to_chrome",
-           "tree_from_chrome", "check_span_tree"]
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+__all__ = ["Span", "Tracer", "NOOP", "REGIONS", "region", "to_json",
+           "to_chrome", "tree_from_chrome", "check_span_tree"]
+
+REGIONS = (
+    # models.lm: the train step's layers
+    "lm.cast", "lm.embed", "lm.stack", "lm.attention", "lm.moe", "lm.ffn",
+    "lm.rwkv", "lm.hybrid", "lm.loss",
+    # launch.steps: the gradient reduction over a mesh, clip and AdamW
+    "optim.reduce", "optim.update",
+    # runtime.trainer's spans
+    "train.step", "data.batch", "fwd_bwd", "checkpoint",
+    # runtime.server's spans
+    "server.layer", "phase1.estimate", "plan.lookup", "plan.build",
+    "phase2.finetune", "gate", "dispatch",
+)
+_REGION_SET = frozenset(REGIONS)
 
 
 @dataclass
@@ -119,17 +149,30 @@ class _Noop:
 NOOP = _Noop()
 
 
+def region(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler session records, else ``NOOP``.  ``name`` is one of
+    ``REGIONS`` (a ValueError names any other, when a session records)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return NOOP
+    if name not in _REGION_SET:
+        raise ValueError(f"{name!r} is not a range of obs.REGIONS")
+    return torch.profiler.record_function(name)
+
+
 class _ActiveSpan:
     """Context manager for stack-nested spans (enabled tracer only)."""
-    __slots__ = ("_tracer", "span")
+    __slots__ = ("_tracer", "span", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
         self.span = Span(name, 0.0, attrs=attrs)
+        self._range = region(name)
 
     def __enter__(self) -> Span:
         tr = self._tracer
         sp = self.span
+        self._range.__enter__()
         sp.start = tr.clock()
         if tr._stack:
             tr._stack[-1].children.append(sp)
@@ -142,6 +185,7 @@ class _ActiveSpan:
         tr = self._tracer
         sp = tr._stack.pop()
         sp.end = tr.clock()
+        self._range.__exit__(*exc)
         return False
 
 
@@ -152,7 +196,8 @@ class _Timed:
     ``record=False`` keeps just the stopwatch — for call sites that lay
     their own explicit-timestamp spans out afterwards (engine step phases
     live on the virtual clock, not the wall clock being measured here)."""
-    __slots__ = ("_tracer", "_name", "_attrs", "_record", "t0", "dt")
+    __slots__ = ("_tracer", "_name", "_attrs", "_record", "_range", "t0",
+                 "dt")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict,
                  record: bool = True):
@@ -160,16 +205,19 @@ class _Timed:
         self._name = name
         self._attrs = attrs
         self._record = record
+        self._range = region(name) if record and tracer.enabled else NOOP
         self.t0 = 0.0
         self.dt = 0.0
 
     def __enter__(self) -> "_Timed":
+        self._range.__enter__()
         self.t0 = self._tracer.clock()
         return self
 
     def __exit__(self, *exc):
         tr = self._tracer
         self.dt = tr.clock() - self.t0
+        self._range.__exit__(*exc)
         if self._record and tr.enabled:
             tr.add(self._name, self.t0, self.t0 + self.dt, **self._attrs)
         return False
@@ -188,14 +236,16 @@ class Tracer:
 
     # --- recording ----------------------------------------------------------
     def span(self, name: str, **attrs):
-        """Stack-nested span context manager (no-op when disabled)."""
+        """Stack-nested span context manager (no-op when disabled); it
+        opens the range ``region(name)`` too."""
         if not self.enabled:
             return NOOP
         return _ActiveSpan(self, name, attrs)
 
     def timed(self, name: str, record: bool = True, **attrs) -> _Timed:
         """Stopwatch that ALWAYS measures (``.dt`` after exit) and records
-        a span only when enabled (and ``record`` is left on)."""
+        a span only when enabled (and ``record`` is left on); then it
+        opens the range ``region(name)`` too."""
         return _Timed(self, name, attrs, record=record)
 
     def begin(self, name: str, start: Optional[float] = None, **attrs):

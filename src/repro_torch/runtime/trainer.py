@@ -37,7 +37,13 @@ Spans (``obs``): ``train.step`` > ``data.batch``, ``fwd_bwd``,
 ``checkpoint``, the first two with ``schedule=``; counters
 ``trainer_steps_total``, ``trainer_skipped_steps_total``,
 ``trainer_rollbacks_total``, ``trainer_straggler_events_total`` and the
-``trainer_step_s`` histogram.
+``trainer_step_s`` histogram.  While a ``torch.profiler`` session records,
+each recorded span is also a range of its name, and the step opens the
+layer ranges of ``obs.REGIONS`` within ``fwd_bwd`` (``lm.cast``,
+``lm.embed``, ``lm.stack``, ``lm.attention``, ``lm.moe``, ``lm.ffn``,
+``lm.rwkv``, ``lm.hybrid``, ``lm.loss``, ``optim.reduce``,
+``optim.update``); inside an ``obs.counting()`` block its MoE layers
+count ``moe.routed_pairs`` and ``moe.kept_pairs``.
 The ``fwd_bwd`` stopwatch ends after the card has finished: the metrics
 are read to the host inside it.
 """
